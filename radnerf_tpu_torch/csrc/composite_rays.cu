@@ -44,7 +44,7 @@ __global__ void composite_rays_kernel(
       r = r + w * rgbs[3 * i];
       g = g + w * rgbs[3 * i + 1];
       b = b + w * rgbs[3 * i + 2];
-      if (ambient != nullptr) amb = amb + ambient[i];
+      amb = amb + ambient[i];
       T = T * (1.0f - alpha);
     }
     if (!(T >= T_thresh)) break;  // later steps are not processed

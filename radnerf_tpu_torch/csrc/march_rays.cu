@@ -27,6 +27,10 @@
 
 namespace {
 
+// share of the lower-bound optical depth sigma_lo * dt the cull counts
+// (CULL_SAFETY in ops/marching.py)
+constexpr float kCullSafety = 0.5f;
+
 __device__ __forceinline__ uint32_t expand_bits(uint32_t v) {
   v = (v * 0x00010001u) & 0xFF0000FFu;
   v = (v * 0x00000101u) & 0x0F00F00Fu;
@@ -62,18 +66,15 @@ __global__ void march_rays_kernel(
     float* __restrict__ dt_out, bool* __restrict__ valid_out,
     float* __restrict__ xyz_out, int* __restrict__ count_out, long long N, int K,
     int S, int H, float bound, float mip_bound, float dt, int use_cull,
-    float log_cull, float cull_safety) {
+    float log_cull) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const float ox = rays_o[3 * n], oy = rays_o[3 * n + 1], oz = rays_o[3 * n + 2];
   const float dx = rays_d[3 * n], dy = rays_d[3 * n + 1], dz = rays_d[3 * n + 2];
   const float t0 = nears[n];
-  float k0 = 0.0f, t_end = fars[n];
-  if (t_lo != nullptr) {
-    k0 = floorf((t_lo[n] - t0) / dt);
-    k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
-    t_end = min_nan(t_end, t_hi[n]);
-  }
+  float k0 = floorf((t_lo[n] - t0) / dt);
+  k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
+  const float t_end = min_nan(fars[n], t_hi[n]);
   const float Hf = (float)H;
 
   float* t_row = t_out + n * S;
@@ -96,7 +97,7 @@ __global__ void march_rays_kernel(
     if (use_cull) {
       const uint32_t q = byte & 127u;
       const float sig = q > 0 ? exp2f(((float)q - 40.0f) * 0.25f) : 0.0f;
-      const float est = sig * dt * cull_safety;
+      const float est = sig * dt * kCullSafety;
       incl = incl + est;
       if (!((incl - est) <= log_cull)) continue;
     }
@@ -131,8 +132,7 @@ extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
                               void* valid, void* xyz, void* count, long long N,
                               int K, int S, int H, float bound, float mip_bound,
                               float dt_step, int use_cull, float log_cull,
-                              float cull_safety, void* stream) {
-  if ((t_lo == nullptr) != (t_hi == nullptr)) return (int)cudaErrorInvalidValue;
+                              void* stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)((N + threads - 1) / threads);
   march_rays_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -140,6 +140,6 @@ extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
       (const float*)fars, (const float*)t_lo, (const float*)t_hi,
       (const uint8_t*)sigma_bytes, (float*)t, (float*)dt, (bool*)valid,
       (float*)xyz, (int*)count, N, K, S, H, bound, mip_bound, dt_step, use_cull,
-      log_cull, cull_safety);
+      log_cull);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ ported yet: ``compute_dtype="bfloat16"`` raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -77,21 +78,23 @@ class NetworkConfig:
     def amb_base(self) -> int:
         return self.amb_grid_base or self.grid_base
 
-    @property
+    # the specs are built once per config: the frame reads them on every
+    # grid encode
+    @functools.cached_property
     def grid_spec(self) -> GridSpec:
         return GridSpec.create(
             input_dim=3, num_levels=self.grid_levels, level_dim=self.grid_ch,
             base_resolution=self.grid_base, log2_hashmap_size=16,
             desired_resolution=2048 * self.bound)
 
-    @property
+    @functools.cached_property
     def ambient_spec(self) -> GridSpec:
         return GridSpec.create(
             input_dim=self.ambient_dim, num_levels=self.amb_levels,
             level_dim=self.amb_ch, base_resolution=self.amb_base,
             log2_hashmap_size=16, desired_resolution=2048)
 
-    @property
+    @functools.cached_property
     def torso_spec(self) -> GridSpec:
         return GridSpec.create(
             input_dim=2, num_levels=self.amb_levels, level_dim=self.amb_ch,

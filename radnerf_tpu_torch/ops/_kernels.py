@@ -129,9 +129,9 @@ KERNELS = {
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, sigma_bytes,
         # t, dt, valid, xyz, count, N, K, S, H, bound, mip_bound, dt_step,
-        # use_cull, log_cull, cull_safety, stream
+        # use_cull, log_cull, stream
         "march_rays_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _L, _I, _I, _I, _F, _F, _F, _I, _F, _F, _P],
+                           _L, _I, _I, _I, _F, _F, _F, _I, _F, _P],
     }),
     "composite_rays": Kernel("composite_rays", {
         # sigmas, rgbs, dts, ts, valid, ambient, image, depth, weights_sum,
@@ -164,11 +164,11 @@ def launches() -> dict:
 
 
 def require_cuda_tensors(*tensors):
-    """Raise unless every given tensor (None skipped) is a contiguous CUDA
-    tensor on one device."""
-    devs = {t.device for t in tensors if t is not None}
+    """Raise unless every given tensor is a contiguous CUDA tensor on one
+    device."""
+    devs = {t.device for t in tensors}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"kernel inputs must share one CUDA device, got {devs}")
     for t in tensors:
-        if t is not None and not t.is_contiguous():
+        if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")

@@ -15,6 +15,7 @@ raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -63,9 +64,10 @@ class GridSpec:
     def output_dim(self) -> int:
         return self.num_levels * self.level_dim
 
-    @property
+    @functools.cached_property
     def offsets(self) -> tuple:
-        """Per-level start rows in the flat table, plus the total."""
+        """Per-level start rows in the flat table, plus the total (computed
+        once per spec: every kernel launch reads it)."""
         offs, offset = [], 0
         for i in range(self.num_levels):
             resolution = int(np.ceil(self.base_resolution * self.per_level_scale**i))

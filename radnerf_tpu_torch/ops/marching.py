@@ -12,8 +12,8 @@ Counterpart of ``radnerf_tpu/ops/marching.py`` for the inference path:
   with the plain twin ``composite_rays_plain``: front-to-back alpha
   compositing with early termination at ``T_thresh``.
 
-The non-affine orbit, ``cascade > 1`` and perturbation noises are not on the
-inference path and raise.
+The non-affine orbit and ``cascade > 1`` are not on the inference path and
+raise; perturbation noises (a training feature) are not taken at all.
 
 The twins run their running sums and products as explicit loops over the
 lattice axis in float32, in the order the kernels run them: PyTorch's CPU
@@ -33,6 +33,9 @@ from ._kernels import KERNELS, require_cuda_tensors
 from .morton import morton3d
 
 SQRT3 = 1.7320508075688772
+# share of the lower-bound optical depth sigma_lo * dt the cull counts
+# (kCullSafety in csrc/march_rays.cu)
+CULL_SAFETY = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +95,11 @@ def dequant_sigma(q: torch.Tensor) -> torch.Tensor:
     return torch.where(q > 0, s, torch.zeros_like(s))
 
 
-def _check_march(cfg: MarchConfig, noises):
+def _check_march(cfg: MarchConfig):
     if not cfg.affine:
         raise NotImplementedError("only the affine orbit (dt_min == dt_max) is ported")
     if cfg.cascade != 1:
         raise NotImplementedError("only cascade == 1 is ported")
-    if noises is not None:
-        raise NotImplementedError("perturbation noises are a training feature")
 
 
 def _f32(v: float) -> float:
@@ -108,24 +109,19 @@ def _f32(v: float) -> float:
 
 
 def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-                     t_window=None, cull_T: float = 0.0, cull_safety: float = 0.5,
-                     noises=None):
+                     t_window, cull_T: float = 0.0):
     """Plain PyTorch marcher; the arguments and results of ``march_rays``."""
-    _check_march(cfg, noises)
+    _check_march(cfg)
     N, dev = rays_o.shape[0], rays_o.device
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
     dt = _f32(cfg.dt_min)
     t0 = nears
-    if t_window is not None:
-        t_lo, t_hi = t_window
-        # divide by a tensor: PyTorch's CUDA division by a Python scalar
-        # multiplies by its reciprocal, which is not the IEEE quotient
-        k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
-        k0 = torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
-        t_end = torch.minimum(fars, t_hi)
-    else:
-        k0 = torch.zeros_like(t0)
-        t_end = fars
+    t_lo, t_hi = t_window
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
+    k0 = torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
+    t_end = torch.minimum(fars, t_hi)
     k = k0[:, None] + torch.arange(K, dtype=torch.float32, device=dev)[None, :]
     ts = t0[:, None] + k * dt  # [N, K]
     xyz = torch.clamp(rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :],
@@ -136,7 +132,7 @@ def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     byte = sigma_bytes[morton3d(cell.to(torch.int64).clamp(0, H - 1))]
     occ = ((byte & 128) > 0) & (ts < t_end[:, None])
     if cull_T > 0.0:
-        est = torch.where(occ, dequant_sigma(byte & 127) * dt * cull_safety,
+        est = torch.where(occ, dequant_sigma(byte & 127) * dt * CULL_SAFETY,
                           torch.zeros_like(ts))
         log_cull = _f32(-math.log(cull_T))
         # the JAX path tests cumsum(est) - est; the running sum is float32,
@@ -172,8 +168,7 @@ def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
 
 
 def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-               t_window=None, cull_T: float = 0.0, cull_safety: float = 0.5,
-               noises=None):
+               t_window, cull_T: float = 0.0):
     """Fixed-lattice marcher: kernel B on CUDA tensors, the plain twin on CPU
     tensors.
 
@@ -181,10 +176,11 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
       rays_o, rays_d: [N, 3] float32 (unit directions).
       nears, fars: [N] from ``near_far_from_aabb``.
       sigma_bytes: uint8 [H^3] from ``build_sigma_bytes`` (Morton order).
-      t_window: optional ([N] t_lo, [N] t_hi): march only this interval;
-        the orbit origin stays at ``nears`` so samples stay on the lattice.
+      t_window: ([N] t_lo, [N] t_hi): march only this interval (the
+        renderer's ``march_window``); the orbit origin stays at ``nears`` so
+        samples stay on the lattice.
       cull_T: drop occupied points once the running optical-depth bound
-        ``sum(cull_safety * sigma_lo * dt)`` before them exceeds
+        ``sum(CULL_SAFETY * sigma_lo * dt)`` before them exceeds
         ``-ln(cull_T)`` (0 disables).
 
     Returns dict: t, dt [N, S] (0 where invalid), valid [N, S] bool,
@@ -193,15 +189,14 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     """
     if rays_o.device.type == "cpu":
         return march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg,
-                                t_window, cull_T, cull_safety, noises)
-    _check_march(cfg, noises)
+                                t_window, cull_T)
+    _check_march(cfg)
     N = rays_o.shape[0]
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
-    t_lo, t_hi = t_window if t_window is not None else (None, None)
-    ins = [v if v is None else v.contiguous()
-           for v in (rays_o, rays_d, nears, fars, t_lo, t_hi)]
+    t_lo, t_hi = t_window
+    ins = [v.contiguous() for v in (rays_o, rays_d, nears, fars, t_lo, t_hi)]
     shapes = [(N, 3), (N, 3)] + [(N,)] * 4
-    if any(v is not None and (v.dtype != torch.float32 or v.shape != shape)
+    if any(v.dtype != torch.float32 or v.shape != shape
            for v, shape in zip(ins, shapes)) \
             or sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != H**3:
         raise ValueError("kernel B takes float32 rays [N, 3], intervals [N] and "
@@ -214,17 +209,16 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     xyz = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
     count = torch.empty((N,), dtype=torch.int32, device=dev)
     if N > 0:
-        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
         KERNELS["march_rays"].launch(
-            "march_rays_fwd", dev, *[ptr(v) for v in ins], sigma_bytes.data_ptr(),
+            "march_rays_fwd", dev, *[v.data_ptr() for v in ins], sigma_bytes.data_ptr(),
             t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(),
             count.data_ptr(), N, K, S, H, _f32(cfg.bound), _f32(min(1.0, cfg.bound)),
             _f32(cfg.dt_min), int(cull_T > 0.0),
-            _f32(-math.log(cull_T)) if cull_T > 0.0 else 0.0, _f32(cull_safety))
+            _f32(-math.log(cull_T)) if cull_T > 0.0 else 0.0)
     return {"t": t, "dt": dt, "valid": valid, "xyz": xyz, "count": count}
 
 
-def composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient=None,
+def composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient,
                          T_thresh: float = 1e-4):
     """Plain PyTorch compositor; the arguments and results of
     ``composite_rays``."""
@@ -241,15 +235,14 @@ def composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient=None,
         weights_sum = weights_sum + w
         depth = depth + w * (ts[:, s] + dts[:, s])
         image = image + w[:, None] * rgbs[:, s]
-        if ambient is not None:
-            amb = amb + torch.where(processed & valid[:, s], ambient[:, s], zero)
+        amb = amb + torch.where(processed & valid[:, s], ambient[:, s], zero)
         T = T * (1.0 - alpha)
         processed = processed & (T >= _f32(T_thresh))
     return {"image": image, "depth": depth, "weights_sum": weights_sum,
             "ambient_sum": amb}
 
 
-def composite_rays(sigmas, rgbs, dts, ts, valid, ambient=None,
+def composite_rays(sigmas, rgbs, dts, ts, valid, ambient,
                    T_thresh: float = 1e-4):
     """Front-to-back compositing of a [N, S] sample lattice: kernel C on CUDA
     tensors, the plain twin on CPU tensors.
@@ -262,19 +255,19 @@ def composite_rays(sigmas, rgbs, dts, ts, valid, ambient=None,
     contribute nothing.
 
     Returns dict: image [N, 3] (premultiplied, no background), depth [N],
-      weights_sum [N], ambient_sum [N] (zeros if ambient is None).
+      weights_sum [N], ambient_sum [N].
     """
     if sigmas.device.type == "cpu":
         return composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient, T_thresh)
     N, S = sigmas.shape
     ins = [sigmas, rgbs, dts, ts, ambient]
     shapes = [(N, S), (N, S, 3), (N, S), (N, S), (N, S)]
-    if any(v is not None and (v.dtype != torch.float32 or v.shape != shape)
+    if any(v.dtype != torch.float32 or v.shape != shape
            for v, shape in zip(ins, shapes)) \
             or valid.dtype != torch.bool or valid.shape != (N, S):
         raise ValueError("kernel C takes float32 [N, S] samples, [N, S, 3] rgbs "
                          "and a bool mask")
-    ins = [v if v is None else v.contiguous() for v in ins]
+    ins = [v.contiguous() for v in ins]
     valid = valid.contiguous()
     require_cuda_tensors(*ins, valid)
     dev = sigmas.device
@@ -286,7 +279,7 @@ def composite_rays(sigmas, rgbs, dts, ts, valid, ambient=None,
         sig, rgb, dt, t, amb = ins
         KERNELS["composite_rays"].launch(
             "composite_rays_fwd", dev, sig.data_ptr(), rgb.data_ptr(), dt.data_ptr(),
-            t.data_ptr(), valid.data_ptr(), None if amb is None else amb.data_ptr(),
+            t.data_ptr(), valid.data_ptr(), amb.data_ptr(),
             image.data_ptr(), depth.data_ptr(), weights_sum.data_ptr(),
             ambient_sum.data_ptr(), N, S, _f32(T_thresh))
     return {"image": image, "depth": depth, "weights_sum": weights_sum,

@@ -198,10 +198,7 @@ def test_march_rejects_unported_orbits():
     for cfg in (T.MarchConfig(grid_size=32, max_steps=64, dt_gamma=0.01),
                 T.MarchConfig(grid_size=32, cascade=2, dt_gamma=0.0)):
         with pytest.raises(NotImplementedError):
-            T.march_rays(z, z, n, n, sb, cfg)
-    with pytest.raises(NotImplementedError):
-        T.march_rays(z, z, n, n, sb, T.MarchConfig(grid_size=32, dt_gamma=0.0),
-                     noises=n)
+            T.march_rays(z, z, n, n, sb, cfg, (n, n))
 
 
 # --------------------------------------------------------------- composite
