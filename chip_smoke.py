@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- one 512x512 head+torso inference frame of the
-bench scene (radnerf_tpu_torch/scene.py, a copy of bench.py's) at the
-shipped model widths in float32 -- through the hand-written CUDA kernels:
+Drives the port's three paths through the hand-written CUDA kernels: one
+512x512 head+torso inference frame of the bench scene
+(radnerf_tpu_torch/scene.py, a copy of bench.py's) at the shipped model
+widths in float32 (kernels A, B, C); a head-stage training run from scratch
+at full width (A, B, C and the backward kernels A', C'); and the gather
+study at the Pallas row-loop kernel's shapes (kernel D).
+
+The frame:
 
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
   2. build: every kernel from radnerf_tpu_torch/csrc, one nvcc per source,
@@ -20,12 +25,31 @@ shipped model widths in float32 -- through the hand-written CUDA kernels:
      `cat` copies), and each kernel beside its bound, its twin and (where
      one exists) a single PyTorch call.
 
+Training (``NetworkConfig(torso=False, exp_eye=True)``, ``Options``
+defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
+  7. train: an in-memory dataset of 512x512 targets rendered by the frame
+     path, the trainer started as main.py starts it (seeded init, empty
+     state, untrained cells marked, upkeep at step 0 and every 16 steps),
+     48 steps with every launch count set to 0 just before and read just
+     after; every kernel but D must have launched, every loss is finite,
+     the grid is non-empty after the first upkeep, and the loss on one
+     fixed batch falls;
+  8. the backward kernels and the perturbed march against their plain
+     versions at the train step's shapes;
+  9. the gather study: kernel D at P = 2 Mi rows of 16 bf16, T in {4096,
+     65536}, counts from 0, bit for bit with ``table[idx]``;
+ 10. timing: the trainer's own loop entry (``Trainer.step``: upkeep when
+     due, batch, step) fenced call by call, so the step's ms and the
+     upkeep's; a torch.profiler breakdown of 3 steps; the batch preparation
+     alone; and the new kernels beside their bounds, plain versions and
+     (for D) ``index_select``.
+
 Each phase prints one JSON line; then the kernels line, the nvidia-smi line,
 and last the device line. Any failed check raises, and the script exits
 non-zero. It exits non-zero without a CUDA device, and outside the
 repository (the port is imported from the checkout). A full report goes to
-chiprun_out/chip_smoke.json, the profiler's table to
-chiprun_out/chip_smoke_profile.txt.
+chiprun_out/chip_smoke.json, the profiler's tables to
+chiprun_out/chip_smoke_profile.txt and chiprun_out/chip_smoke_train_profile.txt.
 """
 
 import copy
@@ -36,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
@@ -54,12 +79,34 @@ TOL_COMPOSITE = 1e-5  # depth ~ 3
 # twin's exactly: both decide every step with the same float32 ops, exp2f
 # included, so a differing ray is a fault; unused slots must hold exact 0s
 MIN_FRAME_PSNR_DB = 60.0  # kernel frame vs twin frame on the CPU
+# backward kernels vs autograd through the plain versions, as max|diff| over
+# the tensor's max|value|: A' adds into the table with atomics in an order
+# that changes from run to run (autograd's index_put accumulates in its
+# own), C' takes suffix sums from the saved outputs where autograd
+# multiplies through the transmittance chain: float32 sums in another order
+TOL_BACKWARD_REL = 1e-5
+# A''s table gradient: a row that sums n contributions in two orders differs
+# by about sqrt(n) float32 roundings of the partial sums (a random walk), so
+# its tolerance is max(TOL_BACKWARD_REL, 4 * sqrt(n_busiest) * 2^-24) with
+# n_busiest the most contributions any row of this run takes (the untrained
+# ambient MLP sends ~1M samples into the same few 2-D cells)
 
+# the frame's kernels, the training run's, the gather study's
+FRAME_KERNELS = ("grid_encode", "march_rays", "composite_rays")
+TRAIN_KERNELS = FRAME_KERNELS + ("grid_encode_backward", "composite_rays_backward")
 REPLACES = {
     "grid_encode": "radnerf_tpu/ops/grid_encode.py:168",
+    "grid_encode_backward": "radnerf_tpu/ops/grid_encode.py:168",
     "march_rays": "radnerf_tpu/ops/marching.py:374",
     "composite_rays": "radnerf_tpu/ops/marching.py:731",
+    "composite_rays_backward": "radnerf_tpu/ops/marching.py:731",
+    "row_gather": "scripts/bench_gather.py:79",
 }
+TRAIN_STEPS = 48
+TRAIN_FRAMES = 4
+TRAIN_SIZE = 512  # the targets' height and width
+PROFILED_STEPS = 3
+GATHER_ROWS, GATHER_WIDTH, GATHER_TABLES = 2 * 1024 * 1024, 16, (4096, 65536)
 
 
 def emit(obj):
@@ -123,27 +170,55 @@ def psnr(a, b):
     return 10.0 * math.log10(1.0 / max(mse, 1e-20))
 
 
+def row_counts(x, spec, bound):
+    """(contributions each table row takes from the in-bounds points, one
+    per (point, level, corner); the number of in-bounds points)."""
+    from radnerf_tpu_torch.ops.grid_encode import _corner_index
+
+    D, L = spec.input_dim, spec.num_levels
+    x01 = (x + bound) / (2.0 * bound)
+    inb = ((x01 >= 0) & (x01 <= 1)).all(dim=-1)
+    x01 = x01[inb]
+    counts = torch.zeros(spec.n_embeddings, dtype=torch.int64, device=x.device)
+    for level in range(L):
+        pg = torch.floor(x01 * spec.level_scale(level) + 0.5).long()
+        for corner in range(1 << D):
+            bits = torch.tensor([(corner >> d) & 1 for d in range(D)], device=x.device)
+            rows = _corner_index(spec, level, pg + bits) + spec.offsets[level]
+            counts += torch.bincount(rows, minlength=spec.n_embeddings)
+    return counts, int(inb.sum())
+
+
 def grid_work(x, spec, bound):
     """Bytes and flops one grid encode needs for these points: the points,
     the output, and each table row the in-bounds points touch, read once;
     per in-bounds (point, level) 3D flops for the position, 2D per corner
     weight and 2C per corner accumulation."""
-    from radnerf_tpu_torch.ops.grid_encode import _corner_index
-
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    x01 = (x + bound) / (2.0 * bound)
-    inb = ((x01 >= 0) & (x01 <= 1)).all(dim=-1)
-    x01 = x01[inb]
-    rows = []
-    for level in range(L):
-        pg = torch.floor(x01 * spec.level_scale(level) + 0.5).long()
-        for corner in range(1 << D):
-            bits = torch.tensor([(corner >> d) & 1 for d in range(D)], device=x.device)
-            rows.append(_corner_index(spec, level, pg + bits) + spec.offsets[level])
-    n_rows = int(torch.unique(torch.cat(rows)).numel())
-    n_in = int(inb.sum())
+    counts, n_in = row_counts(x, spec, bound)
+    n_rows = int((counts > 0).sum())
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * 4 + n_rows * C * 4
     n_flops = n_in * L * (3 * D + (1 << D) * (2 * D + 2 * C))
+    return n_bytes, n_flops
+
+
+def grid_backward_work(x, spec, bound, need_x):
+    """Bytes and flops the grid-encode backward needs: the points and
+    grad_out read once, each touched row of the table gradient written once
+    (and, for the x gradient, each touched table row read once and grad_x
+    written); per in-bounds (point, level) 3D flops for the position, per
+    corner 2D for the weight and C for the weighted gradient, and with the x
+    gradient 2C for the dot with the row, 2D for its weight derivatives and
+    2D to scale the position gradient."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    counts, n_in = row_counts(x, spec, bound)
+    n_rows = int((counts > 0).sum())
+    n_bytes = x.numel() * 4 + x.shape[0] * L * C * 4 + n_rows * C * 4
+    per_corner = 2 * D + C
+    if need_x:
+        n_bytes += n_rows * C * 4 + x.numel() * 4
+        per_corner += 2 * C + 2 * D
+    n_flops = n_in * L * (3 * D + (1 << D) * per_corner + (2 * D if need_x else 0))
     return n_bytes, n_flops
 
 
@@ -173,10 +248,8 @@ def march_work(rays_o, rays_d, nears, fars, window, sigma_bytes, mcfg):
     return n_bytes, 20 * steps
 
 
-def composite_work(sig, dts, valid, T_thresh):
-    """Bytes and flops compositing needs: the valid byte of each step up to
-    the early stop, 28 B (sigma, dt, t, rgb, ambient) and ~15 flops for each
-    valid step it processes, 24 B out per ray."""
+def composite_steps(sig, dts, valid, T_thresh):
+    """(steps examined, valid steps processed) up to each ray's early stop."""
     N, S = sig.shape
     T = torch.ones(N, device=sig.device)
     alive = torch.ones(N, dtype=torch.bool, device=sig.device)
@@ -187,7 +260,87 @@ def composite_work(sig, dts, valid, T_thresh):
         processed += int(v.sum())
         T = torch.where(v, T * torch.exp(-sig[:, s] * dts[:, s]), T)
         alive = alive & (T >= T_thresh)
-    return examined + processed * 28 + N * 24, processed * 15
+    return examined, processed
+
+
+def composite_work(sig, dts, valid, T_thresh):
+    """Bytes and flops compositing needs: the valid byte of each step up to
+    the early stop, 28 B (sigma, dt, t, rgb, ambient) and ~15 flops for each
+    valid step it processes, 24 B out per ray."""
+    examined, processed = composite_steps(sig, dts, valid, T_thresh)
+    return examined + processed * 28 + sig.shape[0] * 24, processed * 15
+
+
+def composite_backward_work(sig, dts, valid, T_thresh):
+    """Bytes and flops the composite backward needs: the valid byte of each
+    step up to the early stop and 24 B (sigma, dt, t, rgb) for each valid
+    step it processes, 44 B per ray (the four upstream gradients, the saved
+    image, depth and weights sum), and the [N, S] gradients of sigma, rgb
+    and ambient written once (20 B a slot); ~40 flops per processed step."""
+    N, S = sig.shape
+    examined, processed = composite_steps(sig, dts, valid, T_thresh)
+    return examined + processed * 24 + N * 44 + N * S * 20, processed * 40
+
+
+def rel_err(got, want):
+    """max|got - want| / max|want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+class FrameDataset:
+    """In-memory head-stage dataset: ``n_frames`` targets rendered by the
+    port's frame path from the bench camera, each with its own audio window
+    (numpy seed-1 features); the torso-over-background layer of the same
+    render is the background plate, as the head stage's torso plate is; a
+    central face rect; eye 0.25. Numpy, with what the trainer reads."""
+
+    def __init__(self, net, rc, state, batch, n_frames, H, W, num_rays, seed=1):
+        from radnerf_tpu_torch.data import get_audio_features, get_bg_coords
+        from radnerf_tpu_torch.models import render_rays
+
+        self.H, self.W, self.num_rays = H, W, num_rays
+        self.rng = np.random.default_rng(seed)
+        self.auds = self.rng.normal(size=(n_frames, 44, 16)).astype(np.float32)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.0, 0.0, -3.3]
+        focal = 1200.0 * H / 450.0  # the bench camera (scene.build_scene)
+        self.poses = np.stack([pose] * n_frames)
+        self.intrinsics = np.array([focal, focal, W / 2, H / 2])
+        self.eye_area = np.full((n_frames, 1), 0.25, np.float32)
+        self.face_rect = (H // 4, 3 * H // 4, W // 4, 3 * W // 4)
+        self.bg_coords = get_bg_coords(H, W)
+        self.images, self.plates = [], []
+        dev = batch["rays_o"].device
+        for i in range(n_frames):
+            aud = torch.from_numpy(get_audio_features(self.auds, 2, i)).to(dev)
+            res, _ = render_rays(net, rc, state, batch["rays_o"], batch["rays_d"], aud,
+                                 batch["bg_coords"], batch["poses"], batch["eye"],
+                                 batch["index"], batch["bg_color"])
+            self.images.append(res["image"].cpu().numpy())
+            self.plates.append(res["torso_color"].cpu().numpy())
+
+    def __len__(self):
+        return len(self.images)
+
+    def epoch_indices(self):
+        return self.rng.permutation(len(self))
+
+    def collate(self, i):
+        from radnerf_tpu_torch.data import convert_poses, get_audio_features, get_rays
+
+        rays = get_rays(self.poses[i], self.intrinsics, self.H, self.W, self.num_rays,
+                        rng=self.rng)
+        inds = rays["inds"]
+        xmin, xmax, ymin, ymax = self.face_rect
+        return {
+            "auds": get_audio_features(self.auds, 2, i), "index": i,
+            "H": self.H, "W": self.W, "rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+            "face_mask": ((rays["j"] >= xmin) & (rays["j"] < xmax)
+                          & (rays["i"] >= ymin) & (rays["i"] < ymax)),
+            "eye": self.eye_area[i].reshape(1, 1),
+            "bg_color": self.plates[i][inds], "images": self.images[i][inds],
+            "bg_coords": self.bg_coords[inds], "poses": convert_poses(self.poses[i][None]),
+        }
 
 
 def main():
@@ -240,9 +393,11 @@ def main():
     telemetry = {k: int(v) for k, v in res.items() if k.startswith("n_")}
     report["main_path"] = {"launches": launches, "telemetry": telemetry}
     emit({"phase": "main_path", **report["main_path"]})
-    for name, n in launches.items():
-        if n <= 0:
+    for name in FRAME_KERNELS:
+        if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the main path")
+    if launches["grid_encode_backward"] or launches["composite_rays_backward"]:
+        raise RuntimeError("the inference frame launched a backward kernel")
 
     # ---- 4. kernels against their twins at the main path's shapes
     mcfg = rc.march_config()
@@ -421,9 +576,14 @@ def main():
         k.update(route="cuda", source=f"radnerf_tpu_torch/csrc/{k['name']}.cu",
                  replaces=REPLACES[k["name"]], launches=launches[k["name"]],
                  library_ms=None)
-    report["timing"]["kernels"] = kernels
+    report["timing"]["kernels"] = list(kernels)  # the frame's three only
     emit({"phase": "timing", "frame_ms": frame_ms, "fps": report["timing"]["fps"],
           "kernel_ms": {k["name"]: k["ms"] for k in kernels}})
+
+    from radnerf_tpu_torch.config import Options
+
+    kernels += train_phases(report, out_dir, (net, rc, state, b), Options(exp_eye=True))
+    kernels.append(gather_phase(report, dev))
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -434,6 +594,278 @@ def main():
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def train_phases(report, out_dir, scene, opt):
+    """Phases 7, 8 and 10 (training) on the scene's device: ``scene`` is
+    (net, render config, state, batch) of the frame, which renders the
+    targets; ``opt`` the trainer's options. Returns the kernels-line
+    entries of A' and C'."""
+    from radnerf_tpu_torch.data import get_audio_features
+    from radnerf_tpu_torch.models import (
+        RendererState, field_on_lattice, mark_untrained_grid, update_density_grid,
+    )
+    from radnerf_tpu_torch.models.renderer import march_window
+    from radnerf_tpu_torch.ops import (
+        _kernels, composite_rays, composite_rays_backward, composite_rays_backward_plain,
+        grid_encode_backward, grid_encode_backward_plain, march_rays, march_rays_plain,
+        near_far_from_aabb,
+    )
+    from radnerf_tpu_torch.train import Trainer
+
+    dev = scene[3]["rays_o"].device
+    t0 = time.perf_counter()
+    ds = FrameDataset(*scene, TRAIN_FRAMES, TRAIN_SIZE, TRAIN_SIZE, opt.num_rays)
+    data_s = time.perf_counter() - t0
+    tr = Trainer(opt, device=dev)
+    rc, net = tr.render_cfg, tr.net
+
+    # the fixed batch, and the model at step 0 on a grid upkept as the
+    # trainer's first upkeep does (its own jitter), for the loss check
+    fixed = tr.next_batch(ds, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(123),
+                              device=dev)
+    with torch.no_grad():
+        aud0 = torch.from_numpy(get_audio_features(ds.auds, opt.att, 0)).to(dev)
+        probe = update_density_grid(
+            net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev), ds.poses,
+                                         ds.intrinsics),
+            net.encode_audio(aud0), fixed["eye"], generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr.loss(fixed, fixed_noises, 0, state=probe)[0])
+
+    # ---- 7. the training run, launch counts from 0
+    epochs = TRAIN_STEPS // len(ds)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(ds, max_epochs=epochs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    losses = tr.stats["step_loss"]
+    telemetry = {k: int(v) for k, v in tr.telemetry.items()}
+    tp = {"steps": tr.global_step, "launches": launches, "seconds": run_s,
+          "dataset_seconds": data_s, "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_min": min(losses), "loss_max": max(losses),
+          "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+          "mean_density_after_upkeeps": tr.stats["mean_density"],
+          "telemetry_last_step": telemetry,
+          "model": "NetworkConfig(torso=False, exp_eye=True), float32, Options defaults, "
+                   "seeded init (torch.Generator seed 0)"}
+    report["train"] = {**tp, "step_losses": losses}
+    emit({"phase": "train", **tp})
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the training path")
+    if tr.global_step != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"training: {tr.global_step} steps, losses {losses}")
+    if not tr.stats["mean_density"][0] > 0:
+        raise RuntimeError("the density grid is empty after the first upkeep")
+    if not telemetry["n_samples_needed"] > 0:
+        raise RuntimeError("the last train step marched no sample")
+    if not loss_end < loss_0:
+        raise RuntimeError(f"fixed-batch loss did not fall: {loss_0} -> {loss_end}")
+
+    # ---- 8. backward kernels and the perturbed march at the step's shapes
+    batch = tr.next_batch(ds, 1)
+    noises = tr.draw_noises(opt.num_rays)
+    mcfg = rc.march_config()
+    o, d = batch["rays_o"], batch["rays_d"]
+    nears, fars = near_far_from_aabb(o, d, o.new_tensor(rc.aabb), rc.min_near)
+    m_args = (o, d, nears, fars, tr.state.sigma_bytes, mcfg,
+              march_window(tr.state, o, d, nears, fars), rc.cull_T)
+    mk = march_rays(*m_args, noises=noises)
+    mp = march_rays_plain(*m_args, noises=noises)
+    n_ray_diff = int(((mk["valid"] != mp["valid"]).any(dim=1)
+                      | (mk["count"] != mp["count"])).sum())
+    both = mk["valid"] & mp["valid"]
+    march_err = max(float((mk[k] - mp[k]).abs()[both].max()) for k in ("t", "dt", "xyz"))
+    nonzero_unused = sum(int((m[k] != 0).reshape(*m["valid"].shape, -1)[~m["valid"]].sum())
+                         for m in (mk, mp) for k in ("t", "dt", "xyz"))
+
+    cfg = net.cfg
+    gen = torch.Generator(dev).manual_seed(5)
+    with torch.no_grad():
+        enc_a = net.encode_audio(batch["auds"])
+        xs = mk["xyz"][mk["valid"]]
+        _, _, ambient = net.spatial_and_ambient(xs, enc_a)
+        sig, col, amb = field_on_lattice(net, mk, d, enc_a, net.individual_codes[1],
+                                         batch["eye"])
+    n_s = xs.shape[0]
+    bwd_calls = {
+        # the spatial encode's points come from the march: no x gradient
+        "spatial": (xs, net.encoder.detach(), cfg.grid_spec, cfg.bound, False),
+        "ambient": (ambient, net.encoder_ambient.detach(), cfg.ambient_spec, 1.0, True),
+    }
+    g_outs = {k: torch.randn((n_s, v[2].output_dim), generator=gen, device=dev)
+              for k, v in bwd_calls.items()}
+    a_err = {}
+    for name, (x, emb, spec, bound, need_x) in bwd_calls.items():
+        gk = grid_encode_backward(x, emb, g_outs[name], spec, bound, need_x=need_x)
+        gp = grid_encode_backward_plain(x, emb, g_outs[name], spec, bound, need_x=need_x)
+        n_busy = int(row_counts(x, spec, bound)[0].max())
+        a_err[name] = {"n_points": n_s, "busiest_row_contributions": n_busy,
+                       "table_tol_rel": max(TOL_BACKWARD_REL, 4.0 * math.sqrt(n_busy) * 2**-24),
+                       "table_rel_err": rel_err(gk[0], gp[0]),
+                       "table_max_abs_err": float((gk[0] - gp[0]).abs().max())}
+        if need_x:
+            a_err[name].update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
+                               x_max_abs_err=float((gk[1] - gp[1]).abs().max()))
+
+    c_args = (sig, col, mk["dt"], mk["t"], mk["valid"], amb.abs().sum(dim=-1))
+    outs = composite_rays(*c_args, T_thresh=rc.T_thresh)
+    N = o.shape[0]
+    c_grads = {k: torch.randn((N, 3) if k == "image" else (N,), generator=gen, device=dev)
+               for k in ("image", "depth", "weights_sum", "ambient_sum")}
+    ck = composite_rays_backward(*c_args, c_grads, outs, T_thresh=rc.T_thresh)
+    cp = composite_rays_backward_plain(*c_args, c_grads, T_thresh=rc.T_thresh)
+    c_err = {name: {"rel_err": rel_err(a, b_), "max_abs_err": float((a - b_).abs().max())}
+             for name, a, b_ in zip(("sigmas", "rgbs", "ambient"), ck, cp)}
+    torch.cuda.synchronize()
+    checks = {
+        "march_rays_noises": {"max_abs_err": march_err, "tol": TOL_MARCH,
+                              "rays_differing": n_ray_diff,
+                              "nonzero_unused_slot_values": nonzero_unused,
+                              "n_samples": int(mk["valid"].sum())},
+        "grid_encode_backward": {"calls": a_err, "tol_rel": TOL_BACKWARD_REL},
+        "composite_rays_backward": {"grads": c_err, "tol_rel": TOL_BACKWARD_REL},
+    }
+    report["train_kernel_checks"] = checks
+    emit({"phase": "train_kernel_checks", **checks})
+    if n_ray_diff != 0 or nonzero_unused != 0 or not march_err <= TOL_MARCH:
+        raise RuntimeError(f"march_rays with noises differs from its twin: {checks}")
+    for name, e in a_err.items():
+        if not (e["table_rel_err"] <= e["table_tol_rel"]
+                and e.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL):
+            raise RuntimeError(f"grid_encode_backward ({name}) differs: {e}")
+    if not max(v["rel_err"] for v in c_err.values()) <= TOL_BACKWARD_REL:
+        raise RuntimeError(f"composite_rays_backward differs: {c_err}")
+
+    # ---- 10. training time: the trainer's loop entry, each call fenced
+    # (steps that run the upkeep apart), then steps that run none profiled,
+    # then the batch preparation alone
+    interval = opt.update_extra_interval
+    order = ds.epoch_indices()
+    step_ms, upkeep_step_ms = [], []
+    for n in range(2 * interval - PROFILED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step(ds, order[n % len(order)])
+        torch.cuda.synchronize()
+        (upkeep_step_ms if upkeep else step_ms).append((time.perf_counter() - t0) * 1e3)
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS)):
+        raise RuntimeError("a profiled step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds, order[i % len(order)]),
+                                  PROFILED_STEPS)
+    prep_ms = []
+    for n in range(8):
+        t0 = time.perf_counter()
+        tr.next_batch(ds, order[n % len(order)])
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    med = float(np.median(step_ms))
+    tt = {"train_step_ms_median": med, "train_step_ms": step_ms,
+          "upkeep_step_ms": upkeep_step_ms,
+          "upkeep_ms": [u - med for u in upkeep_step_ms],
+          "batch_prep_ms_median": float(np.median(prep_ms)),
+          "rays": opt.num_rays, "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS),
+                      "top": [{"name": e.key[:80],
+                               "ms_per_step": e.self_device_time_total / PROFILED_STEPS / 1e3,
+                               "calls_per_step": e.count / PROFILED_STEPS}
+                              for e in events[:15]]}}
+    with open(os.path.join(out_dir, "chip_smoke_train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+
+    kernels = []
+    g = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
+    for name, (x, emb, spec, bound, need_x) in bwd_calls.items():
+        go = g_outs[name]
+        ms = cuda_ms(lambda: grid_encode_backward(x, emb, go, spec, bound, need_x=need_x), 20)
+        pms = cuda_ms(lambda: grid_encode_backward_plain(x, emb, go, spec, bound,
+                                                         need_x=need_x), 3)
+        nb, nf = grid_backward_work(x, spec, bound, need_x)
+        bms, by = bound_ms(nb, nf)
+        g["calls"][name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                            "bytes": nb, "flops": nf, "n_points": n_s, "x_grad": need_x}
+        g["ms"] += ms
+        g["plain_ms"] += pms
+        g["bytes"] += nb
+        g["flops"] += nf
+    bms, by = bound_ms(g["bytes"], g["flops"])
+    kernels.append({"name": "grid_encode_backward", "ms": g["ms"], "plain_ms": g["plain_ms"],
+                    "bound_ms": bms, "bound_by": by, "calls": g["calls"],
+                    "max_abs_err": max(v for e in a_err.values() for k, v in e.items()
+                                       if k.endswith("max_abs_err"))})
+    nb, nf = composite_backward_work(sig, mk["dt"], mk["valid"], rc.T_thresh)
+    bms, by = bound_ms(nb, nf)
+    kernels.append({
+        "name": "composite_rays_backward",
+        "ms": cuda_ms(lambda: composite_rays_backward(*c_args, c_grads, outs,
+                                                      T_thresh=rc.T_thresh), 20),
+        "plain_ms": cuda_ms(lambda: composite_rays_backward_plain(*c_args, c_grads,
+                                                                  T_thresh=rc.T_thresh), 3),
+        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+        "max_abs_err": max(v["max_abs_err"] for v in c_err.values())})
+    for k in kernels:
+        # no single PyTorch call computes either gradient
+        k.update(route="cuda", source=f"radnerf_tpu_torch/csrc/{k['name']}.cu",
+                 replaces=REPLACES[k["name"]], launches=launches[k["name"]],
+                 library_ms=None)
+    tt["kernels"] = kernels
+    report["train_timing"] = tt
+    emit({"phase": "train_timing", **{k: v for k, v in tt.items()
+                                      if k not in ("profile", "kernels", "train_step_ms")},
+          "device_busy_share": tt["profile"]["device_busy_share"],
+          "ms_per_step_by_class": tt["profile"]["ms_per_step_by_class"],
+          "top5": tt["profile"]["top"][:5],
+          "kernel_ms": {k["name"]: k["ms"] for k in kernels}})
+    return kernels
+
+
+def gather_phase(report, dev):
+    """Phase 9: the gather study (kernel D), launch counts from 0; returns
+    D's kernels-line entry."""
+    from radnerf_tpu_torch.ops import _kernels, bench_gather_study, take_rows, take_rows_plain
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    study = bench_gather_study(GATHER_ROWS, GATHER_WIDTH, GATHER_TABLES, device=dev)
+    torch.cuda.synchronize()
+    launches = _kernels.launches()["row_gather"]
+    per_t = {}
+    for T, r in study.items():
+        table, idx = r["table"], r["idx"]
+        row_bytes = GATHER_WIDTH * table.element_size()
+        n_rows = int(torch.unique(idx).numel())
+        nb = GATHER_ROWS * 4 + n_rows * row_bytes + GATHER_ROWS * row_bytes
+        bms, by = bound_ms(nb, 0)
+        per_t[T] = {"equal": r["equal"], "max_abs_err": r["max_abs_err"],
+                    "ms": cuda_ms(lambda: take_rows(table, idx), 20),
+                    "plain_ms": cuda_ms(lambda: take_rows_plain(table, idx), 20),
+                    "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx), 20),
+                    "bound_ms": bms, "bound_by": by, "bytes": nb}
+    report["gather"] = {"rows": GATHER_ROWS, "width_bf16": GATHER_WIDTH,
+                        "launches": launches, "tables": per_t}
+    emit({"phase": "gather", **report["gather"]})
+    if launches <= 0:
+        raise RuntimeError("kernel row_gather was not launched by the gather study")
+    for T, r in per_t.items():
+        if not r["equal"] or r["max_abs_err"] != 0.0:
+            raise RuntimeError(f"row_gather differs from table[idx] at T = {T}: {r}")
+    # the kernels line carries the study's larger table; both are in the report
+    big = per_t[GATHER_TABLES[-1]]
+    return {"name": "row_gather", "route": "cuda",
+            "source": "radnerf_tpu_torch/csrc/row_gather.cu", "replaces": REPLACES["row_gather"],
+            "launches": launches, "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-// Kernel B: occupancy-grid ray marcher over the sigma-byte field (inference).
+// Kernel B: occupancy-grid ray marcher over the sigma-byte field.
 //
 // Replaces radnerf_tpu/ops/marching.py: march_rays (:374-520, the affine
 // branch with sigma_byte_lookup :267-298 and the transmittance cull) and the
@@ -21,6 +21,12 @@
 // (-fmad=false), so every point lands in the twin's cell. The cull tests
 // (incl - est) <= -ln(cull_T) with incl the float32 running sum, which is
 // the JAX path's cumsum(est) - est.
+//
+// Training perturbs each ray's orbit origin (marching.py:427-429):
+// t0 = near + dt * noise with noise in [0, 1) (on the affine orbit the
+// clamped step _clamp_dt(near) is exactly dt), and the window's k0 is taken
+// from the perturbed t0 (:441). A null noises pointer means no perturbation;
+// the inference frame passes null.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +68,7 @@ __global__ void march_rays_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ nears, const float* __restrict__ fars,
     const float* __restrict__ t_lo, const float* __restrict__ t_hi,
+    const float* __restrict__ noises,
     const uint8_t* __restrict__ sigma_bytes, float* __restrict__ t_out,
     float* __restrict__ dt_out, bool* __restrict__ valid_out,
     float* __restrict__ xyz_out, int* __restrict__ count_out, long long N, int K,
@@ -71,7 +78,7 @@ __global__ void march_rays_kernel(
   if (n >= N) return;
   const float ox = rays_o[3 * n], oy = rays_o[3 * n + 1], oz = rays_o[3 * n + 2];
   const float dx = rays_d[3 * n], dy = rays_d[3 * n + 1], dz = rays_d[3 * n + 2];
-  const float t0 = nears[n];
+  const float t0 = noises != nullptr ? nears[n] + dt * noises[n] : nears[n];
   float k0 = floorf((t_lo[n] - t0) / dt);
   k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
   const float t_end = min_nan(fars[n], t_hi[n]);
@@ -128,7 +135,8 @@ __global__ void march_rays_kernel(
 extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
                               const void* nears, const void* fars,
                               const void* t_lo, const void* t_hi,
-                              const void* sigma_bytes, void* t, void* dt,
+                              const void* noises, const void* sigma_bytes,
+                              void* t, void* dt,
                               void* valid, void* xyz, void* count, long long N,
                               int K, int S, int H, float bound, float mip_bound,
                               float dt_step, int use_cull, float log_cull,
@@ -138,7 +146,7 @@ extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
   march_rays_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)nears,
       (const float*)fars, (const float*)t_lo, (const float*)t_hi,
-      (const uint8_t*)sigma_bytes, (float*)t, (float*)dt, (bool*)valid,
+      (const float*)noises, (const uint8_t*)sigma_bytes, (float*)t, (float*)dt, (bool*)valid,
       (float*)xyz, (int*)count, N, K, S, H, bound, mip_bound, dt_step, use_cull,
       log_cull);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-"""Ray generation (a copy of ``radnerf_tpu/data/rays.py`` get_rays and
-get_bg_coords; numpy only, reference nerf/utils.py:239-333)."""
+"""Ray generation, pose conversion and audio windows (a copy of
+``radnerf_tpu/data/rays.py`` get_rays, get_bg_coords, convert_poses and
+get_audio_features; numpy only, reference nerf/utils.py:42-333)."""
 
 from __future__ import annotations
 
@@ -83,3 +84,51 @@ def get_rays(
         "i": i,
         "j": j,
     }
+
+
+# ------------------------------------------------------------------- poses
+def matrix_to_euler_xyz(m: np.ndarray) -> np.ndarray:
+    """Rotation matrices [..., 3, 3] -> XYZ Euler angles [..., 3]
+    (utils.py:130-169, convention='XYZ')."""
+    central = np.arcsin(np.clip(m[..., 0, 2], -1.0, 1.0))
+    first = np.arctan2(-m[..., 1, 2], m[..., 2, 2])
+    third = np.arctan2(-m[..., 0, 1], m[..., 0, 0])
+    return np.stack([first, central, third], axis=-1)
+
+
+def convert_poses(poses: np.ndarray) -> np.ndarray:
+    """[B, 4, 4] -> [B, 6] (3 XYZ-euler rot + 3 trans) (utils.py:230-237)."""
+    out = np.empty((poses.shape[0], 6), np.float32)
+    out[:, :3] = matrix_to_euler_xyz(poses[:, :3, :3])
+    out[:, 3:] = poses[:, :3, 3]
+    return out
+
+
+# -------------------------------------------------------------------- audio
+def get_audio_features(features: np.ndarray, att_mode: int, index: int) -> np.ndarray:
+    """The audio window of frame ``index`` (utils.py:42-74). att_mode 0: the
+    frame alone [1, ...]; 1: the 8 frames before it; 2: the 8 frames
+    index-4 .. index+3, zero-padded at the sequence edges."""
+    T = features.shape[0]
+    if att_mode == 0:
+        return features[[index]]
+    if att_mode == 1:
+        left = index - 8
+        window = features[max(0, left):index]
+        pad_left = max(0, -left)
+        if pad_left > 0:
+            pad = np.zeros((pad_left, *features.shape[1:]), features.dtype)
+            window = np.concatenate([pad, window], 0)
+        return window
+    if att_mode == 2:
+        left, right = index - 4, index + 4
+        pad_left, pad_right = max(0, -left), max(0, right - T)
+        window = features[max(0, left):min(T, right)]
+        if pad_left > 0:
+            window = np.concatenate(
+                [np.zeros((pad_left, *features.shape[1:]), features.dtype), window], 0)
+        if pad_right > 0:
+            window = np.concatenate(
+                [window, np.zeros((pad_right, *features.shape[1:]), features.dtype)], 0)
+        return window
+    raise NotImplementedError(f"wrong att_mode: {att_mode}")

@@ -1,6 +1,7 @@
-"""Model layer of the port: the audio-conditioned field and the renderer."""
+"""Model layer of the port: the audio-conditioned field, the renderer and
+the head grid's maintenance."""
 
-from .network import NeRFNetwork, NetworkConfig
+from .network import NeRFNetwork, NetworkConfig, param_groups
 from .renderer import (
     GRID_SIZE,
     RenderConfig,
@@ -11,13 +12,17 @@ from .renderer import (
     field_on_lattice,
     make_state,
     march_window,
+    mark_untrained_grid,
     render_rays,
+    reset_extra_state,
     smooth_audio_code,
+    update_density_grid,
 )
 
 __all__ = [
     "NeRFNetwork",
     "NetworkConfig",
+    "param_groups",
     "GRID_SIZE",
     "RenderConfig",
     "RendererState",
@@ -27,6 +32,9 @@ __all__ = [
     "field_on_lattice",
     "make_state",
     "march_window",
+    "mark_untrained_grid",
     "render_rays",
+    "reset_extra_state",
     "smooth_audio_code",
+    "update_density_grid",
 ]

@@ -6,8 +6,10 @@ the same names: ``audio_net``, ``audio_att_net``, ``encoder``,
 ``encoder_ambient``, ``ambient_net``, ``sigma_net``, ``color_net``,
 ``individual_codes`` and, with the torso, ``torso_deform_net``,
 ``torso_encoder``, ``torso_net``, ``individual_codes_torso``. The three grid
-encodes of a frame go through kernel A (``ops.grid_encode``); the MLPs,
-encoders and activations around them are plain PyTorch.
+encodes of a frame go through kernel A (``ops.grid_encode``), and their
+gradients through kernel A'; the MLPs, encoders and activations around them
+are plain PyTorch. ``param_groups`` names each parameter's learning-rate
+group.
 
 Compute is float32. The bf16 table/lerp policy of the JAX package is not
 ported yet: ``compute_dtype="bfloat16"`` raises.
@@ -105,6 +107,47 @@ class NetworkConfig:
     def eye_dim(self) -> int:
         return 1 if self.exp_eye else 0
 
+    @staticmethod
+    def from_options(opt) -> "NetworkConfig":
+        return NetworkConfig(
+            audio_in_dim=opt.audio_in_dim, att=opt.att, emb=opt.emb, bound=opt.bound,
+            exp_eye=opt.exp_eye, ind_dim=opt.ind_dim, ind_num=opt.ind_num,
+            ind_dim_torso=opt.ind_dim_torso, torso=opt.torso,
+            torso_shrink=opt.torso_shrink, train_camera=opt.train_camera,
+            ambient_dim=opt.amb_dim,
+            compute_dtype="bfloat16" if opt.fp16 else "float32",
+            grid_levels=opt.grid_levels, grid_ch=opt.grid_ch, grid_base=opt.grid_base,
+            amb_grid_levels=opt.amb_grid_levels, amb_grid_ch=opt.amb_grid_ch,
+            amb_grid_base=opt.amb_grid_base)
+
+
+def param_groups(cfg: NetworkConfig) -> dict:
+    """Learning-rate group of each top-level parameter name (reference
+    network.py:329-362): 'grid' -> opt.lr, 'net' -> opt.lr_net, 'att' ->
+    5 * lr_net, 'camera' -> 1e-5, 'frozen' -> not trained (the torso stage
+    freezes the head, main.py:142-157). Unlisted names train as 'net'."""
+    if cfg.torso:
+        groups = {"torso_encoder": "grid", "torso_net": "net", "torso_deform_net": "net"}
+        if cfg.ind_dim_torso > 0:
+            groups["individual_codes_torso"] = "net"
+        for k in ("audio_net", "audio_att_net", "encoder", "encoder_ambient",
+                  "ambient_net", "sigma_net", "color_net", "individual_codes",
+                  "embedding", "camera_dR", "camera_dT"):
+            groups[k] = "frozen"
+        return groups
+    groups = {"audio_net": "net", "encoder": "grid", "encoder_ambient": "grid",
+              "ambient_net": "net", "sigma_net": "net", "color_net": "net"}
+    if cfg.att > 0:
+        groups["audio_att_net"] = "att"
+    if cfg.emb:
+        groups["embedding"] = "grid"
+    if cfg.ind_dim > 0:
+        groups["individual_codes"] = "net"
+    if cfg.train_camera:
+        groups["camera_dR"] = "camera"
+        groups["camera_dT"] = "camera"
+    return groups
+
 
 def _grid_table(spec: GridSpec, generator) -> nn.Parameter:
     """U(-1e-4, 1e-4) as the reference grid.py:138-140."""
@@ -187,6 +230,14 @@ class NeRFNetwork(nn.Module):
         enc_w = grid_encode(ambient, self.encoder_ambient, cfg.ambient_spec, 1.0)
         return enc_x, enc_w, ambient
 
+    def _sigma_head(self, enc_x, enc_w, e, batch):
+        """(sigma [...], geo_feat [..., geo_feat_dim]) from the encodes."""
+        parts = [enc_x, enc_w]
+        if e is not None:
+            parts.append(e.reshape(-1)[-1].expand(*batch, 1))
+        h = self.sigma_net(torch.cat(parts, dim=-1))
+        return trunc_exp(h[..., 0]), h[..., 1:]
+
     def field_forward(self, x, d, enc_a, c=None, e=None):
         """Full field query (reference network.py:222-283).
 
@@ -199,16 +250,19 @@ class NeRFNetwork(nn.Module):
         """
         batch = x.shape[:-1]
         enc_x, enc_w, ambient = self.spatial_and_ambient(x, enc_a)
-        parts = [enc_x, enc_w]
-        if e is not None:
-            parts.append(e.reshape(-1)[-1].expand(*batch, 1))
-        h = self.sigma_net(torch.cat(parts, dim=-1))
-        sigma = trunc_exp(h[..., 0])
-        parts = [sh_encode(d, degree=4), h[..., 1:]]
+        sigma, geo_feat = self._sigma_head(enc_x, enc_w, e, batch)
+        parts = [sh_encode(d, degree=4), geo_feat]
         if c is not None:
             parts.append(c.expand(*batch, c.shape[-1]))
         color = torch.sigmoid(self.color_net(torch.cat(parts, dim=-1)))
         return sigma, color, ambient
+
+    def field_density(self, x, enc_a, e=None):
+        """Density-only query for grid maintenance (reference
+        network.py:286-325): {"sigma": [...], "geo_feat": [..., 64]}."""
+        enc_x, enc_w, _ = self.spatial_and_ambient(x, enc_a)
+        sigma, geo_feat = self._sigma_head(enc_x, enc_w, e, x.shape[:-1])
+        return {"sigma": sigma, "geo_feat": geo_feat}
 
     def forward_torso(self, x, pose6, c=None):
         """2-D neural torso layer (reference network.py:188-219).

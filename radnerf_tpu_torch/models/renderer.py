@@ -1,7 +1,8 @@
-"""Inference renderer (counterpart of ``radnerf_tpu/models/renderer.py``).
+"""Renderer and grid maintenance (counterpart of
+``radnerf_tpu/models/renderer.py``).
 
-``render_rays`` keeps the semantics of the JAX ``render_rays`` with
-``training=False`` and drops its TPU plumbing: the compacted field
+``render_rays`` keeps the semantics of the JAX ``render_rays`` and drops its
+TPU plumbing: the compacted field
 evaluation with markers and wide-row return trips becomes
 ``valid.nonzero()`` -> field on the packed samples -> scatter back into
 ``[N, S]``; row gathers become plain indexing. The port never drops work,
@@ -11,7 +12,14 @@ result equals the JAX one at exhaustive capacities. ``march_iters`` (K) and
 ``sample_slots`` (S) truncate the march and are honoured.
 
 The march (kernel B), the three grid encodes (kernel A) and the compositor
-(kernel C) run as hand-written CUDA kernels on the card.
+(kernel C) run as hand-written CUDA kernels on the card. With
+``training=True`` the march takes the perturbation ``noises`` and autograd
+runs through the grid encodes and the compositor into kernels A' and C'.
+
+Grid maintenance for the head stage: ``RendererState.create``,
+``reset_extra_state``, ``mark_untrained_grid`` (cells no training camera
+sees become -1) and ``update_density_grid`` (jittered density queries at
+every cell centre, 6-neighbour dilation, EMA max, re-derived occupancy).
 """
 
 from __future__ import annotations
@@ -22,12 +30,15 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..ops import (
     MarchConfig,
     build_sigma_bytes,
     composite_rays,
     march_rays,
+    morton3d,
     morton3d_invert,
+    morton_dilate,
     near_far_from_aabb,
     packbits,
 )
@@ -73,6 +84,15 @@ class RenderConfig:
                            dt_gamma=self.dt_gamma, march_iters=self.march_iters,
                            sample_slots=self.sample_slots)
 
+    @staticmethod
+    def from_options(opt) -> "RenderConfig":
+        return RenderConfig(bound=opt.bound, min_near=opt.min_near,
+                            density_thresh=opt.density_thresh,
+                            density_thresh_torso=opt.density_thresh_torso,
+                            max_steps=opt.max_steps, dt_gamma=opt.dt_gamma, torso=opt.torso,
+                            smooth_lips=opt.smooth_lips, march_iters=opt.march_iters,
+                            cull_T=opt.cull_T)
+
 
 @dataclasses.dataclass
 class RendererState:
@@ -93,6 +113,35 @@ class RendererState:
     def to(self, device) -> "RendererState":
         return RendererState(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)})
+
+    @staticmethod
+    def create(cfg: "RenderConfig", audio_dim: int = 64, device="cuda") -> "RendererState":
+        """An empty state, as JAX ``RendererState.create``: zero grids, no
+        occupied cell, the full cube as the occupied box."""
+        dev = resolve_device(device)
+        H, cas, b = cfg.grid_size, cfg.cascade, cfg.bound
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return RendererState(
+            density_grid=torch.zeros((cas, H**3), dtype=torch.float32, device=dev),
+            density_bitfield=torch.zeros((cas * H**3 // 8,), dtype=torch.uint8, device=dev),
+            sigma_bytes=torch.zeros((cas * H**3,), dtype=torch.uint8, device=dev),
+            mean_density=zero.clone(),
+            density_grid_torso=torch.zeros((H * H,), dtype=torch.float32, device=dev),
+            mean_density_torso=zero.clone(),
+            occ_bbox=torch.tensor([-b, -b, -b, b, b, b], dtype=torch.float32, device=dev),
+            occ_sphere=torch.tensor([0.0, 0.0, 0.0, b * SQRT3], dtype=torch.float32,
+                                    device=dev),
+            enc_a_smooth=torch.zeros((1, audio_dim), dtype=torch.float32, device=dev),
+            enc_a_initialized=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+
+
+def reset_extra_state(cfg: RenderConfig, state: RendererState) -> RendererState:
+    """Zero the head grid, its bitfield and counters; keep the torso grid
+    (reference renderer.py:145-155)."""
+    fresh = RendererState.create(cfg, state.enc_a_smooth.shape[-1], state.density_grid.device)
+    return dataclasses.replace(fresh, density_grid_torso=state.density_grid_torso,
+                               mean_density_torso=state.mean_density_torso)
 
 
 def _cell_coords(H: int, device) -> torch.Tensor:
@@ -138,6 +187,15 @@ def compute_occ_sphere(cfg: RenderConfig, density_grid: torch.Tensor, thresh) ->
     return torch.cat([center, r[None]]).float()
 
 
+def _occupancy(cfg: RenderConfig, grid: torch.Tensor, thresh) -> dict:
+    """The state fields derived from a head grid at an occupancy threshold:
+    bitfield, sigma bytes, occupied box and sphere."""
+    return dict(density_bitfield=packbits(grid, thresh),
+                sigma_bytes=build_sigma_bytes(grid, thresh),
+                occ_bbox=compute_occ_bbox(cfg, grid, thresh),
+                occ_sphere=compute_occ_sphere(cfg, grid, thresh))
+
+
 def make_state(cfg: RenderConfig, density_grid: torch.Tensor, density_grid_torso: torch.Tensor,
                mean_density: float, mean_density_torso: float, thresh=None,
                density_bitfield: Optional[torch.Tensor] = None,
@@ -149,20 +207,18 @@ def make_state(cfg: RenderConfig, density_grid: torch.Tensor, density_grid_torso
     dev = density_grid.device
     if thresh is None:
         thresh = min(float(mean_density), cfg.density_thresh)
-    if density_bitfield is None:
-        density_bitfield = packbits(density_grid, thresh)
+    derived = _occupancy(cfg, density_grid, thresh)
+    if density_bitfield is not None:
+        derived["density_bitfield"] = density_bitfield
     return RendererState(
         density_grid=density_grid,
-        density_bitfield=density_bitfield,
-        sigma_bytes=build_sigma_bytes(density_grid, thresh),
         mean_density=torch.tensor(float(mean_density), dtype=torch.float32, device=dev),
         density_grid_torso=density_grid_torso,
         mean_density_torso=torch.tensor(float(mean_density_torso), dtype=torch.float32,
                                         device=dev),
-        occ_bbox=compute_occ_bbox(cfg, density_grid, thresh),
-        occ_sphere=compute_occ_sphere(cfg, density_grid, thresh),
         enc_a_smooth=torch.zeros((1, audio_dim), dtype=torch.float32, device=dev),
         enc_a_initialized=torch.zeros((), dtype=torch.bool, device=dev),
+        **derived,
     )
 
 
@@ -230,29 +286,46 @@ def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye
     return sigma.view(N, S), color.view(N, S, 3), amb.view(N, S, -1)
 
 
-@torch.no_grad()
 def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
                 rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
-                training: bool = False):
+                noises=None, training: bool = False):
     """Render a batch of rays: head field over the torso layer over the
     background (reference run_cuda, renderer.py:158-316).
 
     Args:
       rays_o, rays_d: [N, 3]; auds: [seq, audio_in_dim, 16] or None;
       bg_coords: [N, 2]; pose6: [1, 6]; eye: [1, 1] or None; index: frame
-      index (unused at inference: the individual codes use row 0);
-      bg_color: [N, 3].
+      index (the individual code's row when training; row 0 otherwise);
+      bg_color: [N, 3]; noises: [N] in [0, 1) or None, the march
+      perturbation.
+      training: run with autograd (the head stage's train step) and return
+        ``ambient``, the per-ray ambient sum the loss reads. Inference runs
+        under ``torch.no_grad()``. The torso stage and learnable camera
+        offsets are not ported for training and raise.
 
     Returns (results, state): image [N, 3], weights_sum [N] (the head's
       opacity), depth [N] (normalised by the full-AABB near/far),
-      torso_alpha / torso_color / deform with the torso, and the telemetry
-      n_hit, n_k_span, n_samples_needed, n_max_count, n_torso_mask as 0-dim
-      int tensors.
+      torso_alpha / torso_color / deform with the torso, ambient [N] when
+      training, and the telemetry n_hit, n_k_span, n_samples_needed,
+      n_max_count, n_torso_mask as 0-dim int tensors.
     """
-    if training:
-        raise NotImplementedError("the port renders inference frames only")
     if rays_o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on; the float32 render needs them off")
+    if not training:
+        with torch.no_grad():
+            return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye,
+                           0, bg_color, noises, False)
+    if net.cfg.train_camera:
+        raise NotImplementedError("training camera offsets needs a backward through "
+                                  "kernel B; not ported")
+    if cfg.torso:
+        raise NotImplementedError("the torso stage is not ported for training")
+    return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
+                   bg_color, noises, True)
+
+
+def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
+            noises, training):
     mcfg = cfg.march_config()
     aabb = rays_o.new_tensor(cfg.aabb)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
@@ -260,7 +333,7 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     enc_a = net.encode_audio(auds)
     if enc_a is not None and cfg.smooth_lips:
         enc_a, state = smooth_audio_code(state, enc_a, True)
-    ind_code = net.individual_codes[0] if net.individual_codes is not None else None
+    ind_code = net.individual_codes[index] if net.individual_codes is not None else None
 
     t_lo, t_hi = march_window(state, rays_o, rays_d, nears, fars)
     hit = t_lo < t_hi
@@ -272,7 +345,7 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     }
 
     march = march_rays(rays_o, rays_d, nears, fars, state.sigma_bytes, mcfg,
-                       t_window=(t_lo, t_hi), cull_T=cfg.cull_T)
+                       t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
     sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)
     comp = composite_rays(sig, col, march["dt"], march["t"],
                           march["valid"], ambient=amb.abs().sum(dim=-1),
@@ -282,6 +355,8 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     weights_sum = torch.where(hit, comp["weights_sum"], 0.0)
     depth_raw = torch.where(hit, comp["depth"], 0.0)
     image = torch.where(hit[:, None], comp["image"], 0.0)
+    if training:
+        results["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
 
     if cfg.torso:
         code_t = (net.individual_codes_torso[0]
@@ -304,3 +379,89 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     results["depth"] = torch.clamp(depth_raw - nears, min=0.0) / torch.clamp(
         fars - nears, min=1e-8)
     return results, state
+
+
+# --------------------------------------------------------------------------
+# grid maintenance
+# --------------------------------------------------------------------------
+
+def _grid_points(cfg: RenderConfig, device):
+    """All H^3 cell coords [H^3, 3] (x-major), their Morton indices and the
+    cell centres in [-1, 1] (``2 * coord / (H - 1) - 1`` in float32)."""
+    H = cfg.grid_size
+    lin = torch.arange(H, device=device)
+    coords = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), dim=-1).reshape(-1, 3)
+    # divide by a tensor: the CUDA division by a Python scalar multiplies by
+    # its reciprocal, which is not the IEEE quotient the CPU and JAX take
+    xyzs01 = 2.0 * coords.float() / torch.full((), H - 1.0, device=device) - 1.0
+    return coords, morton3d(coords), xyzs01
+
+
+@torch.no_grad()
+def update_density_grid(net: NeRFNetwork, cfg: RenderConfig, state: RendererState, enc_a,
+                        eye, generator: Optional[torch.Generator] = None, jitter=None,
+                        decay: float = 0.95, chunk: int = 128**3 // 4) -> RendererState:
+    """Head density-grid maintenance (JAX ``update_density_grid``, reference
+    renderer.py:397-448): query sigma at every cell centre of every cascade,
+    jittered by U(-half, half) per coordinate (half = a cell's half width),
+    scatter in Morton order, dilate to the 6 neighbours, take the max with
+    the decayed grid (cells at -1 stay -1), and re-derive the mean density,
+    bitfield, sigma bytes and occupied box and sphere.
+
+    The jitter comes from ``generator`` (on the state's device), or is given
+    as ``jitter``: one [H^3, 3] tensor per cascade.
+    """
+    H = cfg.grid_size
+    dev = state.density_grid.device
+    _, indices, xyzs01 = _grid_points(cfg, dev)
+    tmp = torch.zeros_like(state.density_grid)
+    for cas in range(cfg.cascade):
+        bound = min(2**cas, cfg.bound)
+        half = bound / H
+        cas_xyz = xyzs01 * (bound - half)
+        if jitter is not None:
+            noise = jitter[cas].to(dev)
+        else:
+            noise = torch.rand(cas_xyz.shape, generator=generator, device=dev) \
+                * (2.0 * half) - half
+        pts = cas_xyz + noise
+        sigmas = torch.cat([net.field_density(pts[i:i + chunk], enc_a, eye)["sigma"]
+                            for i in range(0, pts.shape[0], chunk)])
+        tmp[cas, indices] = sigmas
+    tmp = morton_dilate(tmp, H)
+    valid = (state.density_grid >= 0) & (tmp >= 0)
+    grid = torch.where(valid, torch.maximum(state.density_grid * decay, tmp),
+                       state.density_grid)
+    mean_density = torch.clamp(grid, min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=cfg.density_thresh)
+    return dataclasses.replace(state, density_grid=grid, mean_density=mean_density,
+                               **_occupancy(cfg, grid, thresh))
+
+
+@torch.no_grad()
+def mark_untrained_grid(cfg: RenderConfig, state: RendererState, poses, intrinsics
+                        ) -> RendererState:
+    """Mark the cells no training camera sees as -1 (JAX
+    ``mark_untrained_grid``, reference renderer.py:318-381). poses: [B, 4, 4]
+    cam2world; intrinsics: (fx, fy, cx, cy)."""
+    H = cfg.grid_size
+    dev = state.density_grid.device
+    fx, fy, cx, cy = (float(v) for v in intrinsics)
+    poses = torch.as_tensor(poses, dtype=torch.float32).to(dev)
+    _, indices, world01 = _grid_points(cfg, dev)
+    count = torch.zeros_like(state.density_grid)
+    for cas in range(cfg.cascade):
+        bound = min(2**cas, cfg.bound)
+        half = bound / H
+        pts = world01 * (bound - half)
+        seen = torch.zeros(pts.shape[0], dtype=torch.int32, device=dev)
+        for pose in poses:
+            # world -> camera: subtract the origin, project on the c2w rows
+            cam = (pts - pose[:3, 3]) @ pose[:3, :3]
+            mask_z = cam[:, 2] > 0
+            mask_x = torch.abs(cam[:, 0]) < cx / fx * cam[:, 2] + half * 2
+            mask_y = torch.abs(cam[:, 1]) < cy / fy * cam[:, 2] + half * 2
+            seen += (mask_z & mask_x & mask_y).to(torch.int32)
+        count[cas, indices] += seen.to(count.dtype)
+    return dataclasses.replace(
+        state, density_grid=torch.where(count == 0, -1.0, state.density_grid))

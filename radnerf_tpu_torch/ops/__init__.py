@@ -1,24 +1,36 @@
-"""Compute ops of the port: encoders, marcher, compositor, Morton codes.
+"""Compute ops of the port: encoders, marcher, compositor, row gather,
+Morton codes.
 
-``grid_encode``, ``march_rays`` and ``composite_rays`` wrap the hand-written
-CUDA kernels A, B and C; each has a plain PyTorch twin (``*_plain``) that
-the wrapper runs for CPU tensors.
+``grid_encode``, ``march_rays``, ``composite_rays`` and ``take_rows`` wrap
+the hand-written CUDA kernels A, B, C and D; the gradients of the first and
+third are kernels A' and C' (``grid_encode_backward``,
+``composite_rays_backward``). Each has a plain PyTorch version (``*_plain``)
+that the wrapper runs for CPU tensors.
 """
 
 from .activation import trunc_exp
 from .freq_encode import freq_encode, freq_output_dim
-from .grid_encode import GridSpec, grid_encode, grid_encode_plain
+from .grid_encode import (
+    GridSpec,
+    grid_encode,
+    grid_encode_backward,
+    grid_encode_backward_plain,
+    grid_encode_plain,
+)
 from .marching import (
     MarchConfig,
     build_sigma_bytes,
     composite_rays,
+    composite_rays_backward,
+    composite_rays_backward_plain,
     composite_rays_plain,
     dequant_sigma,
     march_rays,
     march_rays_plain,
 )
-from .morton import morton3d, morton3d_invert, packbits
+from .morton import morton3d, morton3d_invert, morton_dilate, packbits, unpackbits
 from .ray_aabb import near_far_from_aabb
+from .rowgather import bench_gather_study, take_rows, take_rows_plain
 from .sh_encode import sh_encode, sh_output_dim
 
 __all__ = [
@@ -27,18 +39,27 @@ __all__ = [
     "freq_output_dim",
     "GridSpec",
     "grid_encode",
+    "grid_encode_backward",
+    "grid_encode_backward_plain",
     "grid_encode_plain",
     "MarchConfig",
     "build_sigma_bytes",
     "composite_rays",
+    "composite_rays_backward",
+    "composite_rays_backward_plain",
     "composite_rays_plain",
     "dequant_sigma",
     "march_rays",
     "march_rays_plain",
     "morton3d",
     "morton3d_invert",
+    "morton_dilate",
     "packbits",
+    "unpackbits",
     "near_far_from_aabb",
+    "bench_gather_study",
+    "take_rows",
+    "take_rows_plain",
     "sh_encode",
     "sh_output_dim",
 ]

@@ -126,11 +126,16 @@ KERNELS = {
         # x, emb, scales, level_params, out, N, D, L, C, bound, two_bound, stream
         "grid_encode_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P],
     }),
+    "grid_encode_backward": Kernel("grid_encode_backward", {
+        # x, emb, grad_out, scales, level_params, grad_table, grad_x, N, D,
+        # L, C, bound, two_bound, stream
+        "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P],
+    }),
     "march_rays": Kernel("march_rays", {
-        # rays_o, rays_d, nears, fars, t_lo, t_hi, sigma_bytes,
+        # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,
         # t, dt, valid, xyz, count, N, K, S, H, bound, mip_bound, dt_step,
         # use_cull, log_cull, stream
-        "march_rays_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        "march_rays_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _L, _I, _I, _I, _F, _F, _F, _I, _F, _P],
     }),
     "composite_rays": Kernel("composite_rays", {
@@ -138,6 +143,16 @@ KERNELS = {
         # ambient_sum, N, S, T_thresh, stream
         "composite_rays_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _L, _I, _F, _P],
+    }),
+    "composite_rays_backward": Kernel("composite_rays_backward", {
+        # sigmas, rgbs, dts, ts, valid, image, depth, weights_sum,
+        # grad_image, grad_depth, grad_ws, grad_amb, grad_sigmas, grad_rgbs,
+        # grad_ambient, N, S, T_thresh, stream
+        "composite_rays_bwd": [_P] * 15 + [_L, _I, _F, _P],
+    }),
+    "row_gather": Kernel("row_gather", {
+        # table, idx, out, P, T, row_bytes, idx_bytes, stream
+        "row_gather": [_P, _P, _P, _L, _L, _L, _I, _P],
     }),
 }
 
@@ -161,6 +176,16 @@ def reset_launches():
 
 def launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def refuse_grad(kernel: str, **tensors):
+    """Raise if autograd would want a gradient through ``kernel`` for one of
+    the named inputs and the kernel has no backward for it: a CUDA path
+    never returns a result that silently drops a gradient."""
+    if torch.is_grad_enabled():
+        wanted = [k for k, t in tensors.items() if t is not None and t.requires_grad]
+        if wanted:
+            raise RuntimeError(f"{kernel} has no backward for {wanted}, which require grad")
 
 
 def require_cuda_tensors(*tensors):

@@ -5,7 +5,9 @@ same level geometry (offsets, the fp32 ``level_scale`` chain, resolutions).
 ``grid_encode`` is the wrapper of kernel A (``csrc/grid_encode.cu``): on a
 CUDA tensor it launches the kernel, on a CPU tensor it runs the plain twin
 ``grid_encode_plain``, which follows ``grid_encode01``'s per-corner
-arithmetic in the same order.
+arithmetic in the same order. Its gradient on the card is kernel A'
+(``csrc/grid_encode_backward.cu``, ``grid_encode_backward``); on the CPU
+autograd runs through the twin's plain ops.
 
 Only tiled grids with linear interpolation and ``align_corners=False`` --
 the shapes every RAD-NeRF encoder uses -- are supported; anything else
@@ -184,22 +186,20 @@ def _level_tables(spec: GridSpec, device: torch.device):
     return _LEVEL_TABLES[key]
 
 
-def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                bound: float = 1.0) -> torch.Tensor:
-    """Encode points in [-bound, bound]: kernel A on CUDA tensors, the plain
-    twin on CPU tensors. x [..., D] float32, embeddings [n_embeddings, C]
-    float32 -> [..., L*C] float32."""
-    if x.device.type == "cpu":
-        return grid_encode_plain(x, embeddings, spec, bound)
+def _check_kernel_args(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec):
     spec.check_supported()
-    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    D, C = spec.input_dim, spec.level_dim
     if x.shape[-1] != D or D not in (2, 3):
         raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)}")
     if embeddings.shape != (spec.n_embeddings, C) or C > 8:
         raise ValueError(f"embeddings {tuple(embeddings.shape)} do not fit {spec}")
     if x.dtype != torch.float32 or embeddings.dtype != torch.float32:
         raise ValueError("kernel A takes float32 points and tables")
-    x = x.contiguous()
+
+
+def _grid_encode_kernel(x, embeddings, spec: GridSpec, bound: float) -> torch.Tensor:
+    """Kernel A: the forward encode of contiguous CUDA float32 points."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     require_cuda_tensors(x, embeddings)
     N = x.numel() // D
     out = torch.empty((*x.shape[:-1], L * C), dtype=torch.float32, device=x.device)
@@ -211,3 +211,88 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
         scales.data_ptr(), params.data_ptr(), out.data_ptr(), N, D, L, C,
         float(bound), float(np.float32(2.0 * bound)))
     return out
+
+
+def grid_encode_backward_plain(x, embeddings, grad_out, spec: GridSpec, bound: float = 1.0,
+                               need_x: bool = True):
+    """Plain version of ``grid_encode_backward``: autograd through
+    ``grid_encode_plain``. Returns (grad_table, grad_x or None)."""
+    x = x.detach().requires_grad_(need_x)
+    emb = embeddings.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = grid_encode_plain(x, emb, spec, bound)
+        grads = torch.autograd.grad(out, [emb, x] if need_x else [emb], grad_out)
+    return grads[0], (grads[1] if need_x else None)
+
+
+def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float = 1.0,
+                         need_table: bool = True, need_x: bool = True):
+    """Gradients of ``grid_encode`` (the semantics of JAX's autodiff of
+    ``grid_encode01``): the table gradient is the scatter-add of
+    ``w_corner * grad_out`` into each corner row; the gradient for x flows
+    through ``frac`` only, ``d pos / d x = scale_l / (2 * bound)``; points
+    outside the box get zero for both. Kernel A' on CUDA tensors, the plain
+    version on CPU tensors.
+
+    Returns (grad_table [n_embeddings, C] or None, grad_x [..., D] or None).
+    """
+    if x.device.type == "cpu":
+        g_table, g_x = grid_encode_backward_plain(x, embeddings, grad_out, spec, bound,
+                                                  need_x)
+        return (g_table if need_table else None), g_x
+    _check_kernel_args(x, embeddings, spec)
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    if grad_out.shape != (*x.shape[:-1], L * C) or grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} does not fit points "
+                         f"{tuple(x.shape)} and {spec}")
+    x, grad_out = x.contiguous(), grad_out.contiguous()
+    require_cuda_tensors(x, embeddings, grad_out)
+    g_table = torch.zeros_like(embeddings) if need_table else None
+    g_x = torch.zeros_like(x) if need_x else None
+    N = x.numel() // D
+    if N > 0 and (need_table or need_x):
+        scales, params = _level_tables(spec, x.device)
+        KERNELS["grid_encode_backward"].launch(
+            "grid_encode_bwd", x.device, x.data_ptr(), embeddings.data_ptr(),
+            grad_out.data_ptr(), scales.data_ptr(), params.data_ptr(),
+            g_table.data_ptr() if need_table else None,
+            g_x.data_ptr() if need_x else None, N, D, L, C,
+            float(bound), float(np.float32(2.0 * bound)))
+    return g_table, g_x
+
+
+class _GridEncode(torch.autograd.Function):
+    """Kernel A forward, kernel A' backward."""
+
+    @staticmethod
+    def forward(ctx, x, embeddings, spec, bound):
+        ctx.save_for_backward(x, embeddings)
+        ctx.spec, ctx.bound = spec, bound
+        return _grid_encode_kernel(x, embeddings, spec, bound)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, embeddings = ctx.saved_tensors
+        g_table, g_x = grid_encode_backward(
+            x, embeddings, grad_out, ctx.spec, ctx.bound,
+            need_table=ctx.needs_input_grad[1], need_x=ctx.needs_input_grad[0])
+        return g_x, g_table, None, None
+
+
+def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
+                bound: float = 1.0) -> torch.Tensor:
+    """Encode points in [-bound, bound]: kernel A on CUDA tensors, the plain
+    twin on CPU tensors. x [..., D] float32, embeddings [n_embeddings, C]
+    float32 -> [..., L*C] float32.
+
+    On CUDA tensors, when autograd wants a gradient for x or the table, the
+    encode goes through a ``torch.autograd.Function`` whose backward is
+    kernel A' (``grid_encode_backward``); the gradient for x is computed only
+    when x requires it."""
+    if x.device.type == "cpu":
+        return grid_encode_plain(x, embeddings, spec, bound)
+    _check_kernel_args(x, embeddings, spec)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or embeddings.requires_grad):
+        return _GridEncode.apply(x, embeddings, spec, bound)
+    return _grid_encode_kernel(x, embeddings, spec, bound)

@@ -1,6 +1,6 @@
 """Occupancy-grid ray marching and volume compositing.
 
-Counterpart of ``radnerf_tpu/ops/marching.py`` for the inference path:
+Counterpart of ``radnerf_tpu/ops/marching.py``:
 
 - ``MarchConfig``, ``build_sigma_bytes`` and ``dequant_sigma`` as there;
 - ``march_rays``: the wrapper of kernel B (``csrc/march_rays.cu``), with
@@ -8,12 +8,13 @@ Counterpart of ``radnerf_tpu/ops/marching.py`` for the inference path:
   ``t_k = t0 + (k0 + k) * dt`` (``dt_min == dt_max``, the shipped config)
   through the sigma-byte field, restricted to a per-ray ``t_window``, with
   the transmittance-bound cull, and keeps the first S occupied points.
+  Training perturbs each ray's orbit origin with ``noises``.
 - ``composite_rays``: the wrapper of kernel C (``csrc/composite_rays.cu``),
   with the plain twin ``composite_rays_plain``: front-to-back alpha
-  compositing with early termination at ``T_thresh``.
+  compositing with early termination at ``T_thresh``. Its gradient is kernel
+  C' (``csrc/composite_rays_backward.cu``, ``composite_rays_backward``).
 
-The non-affine orbit and ``cascade > 1`` are not on the inference path and
-raise; perturbation noises (a training feature) are not taken at all.
+The non-affine orbit and ``cascade > 1`` are not ported and raise.
 
 The twins run their running sums and products as explicit loops over the
 lattice axis in float32, in the order the kernels run them: PyTorch's CPU
@@ -29,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from ._kernels import KERNELS, require_cuda_tensors
+from ._kernels import KERNELS, refuse_grad, require_cuda_tensors
 from .morton import morton3d
 
 SQRT3 = 1.7320508075688772
@@ -109,13 +110,16 @@ def _f32(v: float) -> float:
 
 
 def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-                     t_window, cull_T: float = 0.0):
+                     t_window, cull_T: float = 0.0, noises=None):
     """Plain PyTorch marcher; the arguments and results of ``march_rays``."""
     _check_march(cfg)
     N, dev = rays_o.shape[0], rays_o.device
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
     dt = _f32(cfg.dt_min)
     t0 = nears
+    if noises is not None:
+        # on the affine orbit the clamped step _clamp_dt(nears) is exactly dt
+        t0 = t0 + torch.full_like(t0, dt) * noises
     t_lo, t_hi = t_window
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not the IEEE quotient
@@ -168,7 +172,7 @@ def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
 
 
 def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-               t_window, cull_T: float = 0.0):
+               t_window, cull_T: float = 0.0, noises=None):
     """Fixed-lattice marcher: kernel B on CUDA tensors, the plain twin on CPU
     tensors.
 
@@ -182,6 +186,9 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
       cull_T: drop occupied points once the running optical-depth bound
         ``sum(CULL_SAFETY * sigma_lo * dt)`` before them exceeds
         ``-ln(cull_T)`` (0 disables).
+      noises: optional [N] float32 in [0, 1): the orbit origin moves to
+        ``nears + dt * noises`` (training's perturbation); the window's
+        first step is taken from the moved origin.
 
     Returns dict: t, dt [N, S] (0 where invalid), valid [N, S] bool,
       xyz [N, S, 3] (0 where invalid), count [N] int32 occupied points per
@@ -189,18 +196,21 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     """
     if rays_o.device.type == "cpu":
         return march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg,
-                                t_window, cull_T)
+                                t_window, cull_T, noises)
     _check_march(cfg)
     N = rays_o.shape[0]
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
     t_lo, t_hi = t_window
+    refuse_grad("kernel B", rays_o=rays_o, rays_d=rays_d)
     ins = [v.contiguous() for v in (rays_o, rays_d, nears, fars, t_lo, t_hi)]
-    shapes = [(N, 3), (N, 3)] + [(N,)] * 4
+    if noises is not None:
+        ins.append(noises.contiguous())
+    shapes = [(N, 3), (N, 3)] + [(N,)] * (len(ins) - 2)
     if any(v.dtype != torch.float32 or v.shape != shape
            for v, shape in zip(ins, shapes)) \
             or sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != H**3:
-        raise ValueError("kernel B takes float32 rays [N, 3], intervals [N] and "
-                         "uint8 [H^3] bytes")
+        raise ValueError("kernel B takes float32 rays [N, 3], intervals and noises "
+                         "[N] and uint8 [H^3] bytes")
     require_cuda_tensors(*ins, sigma_bytes)
     dev = rays_o.device
     t = torch.empty((N, S), dtype=torch.float32, device=dev)
@@ -210,7 +220,8 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     count = torch.empty((N,), dtype=torch.int32, device=dev)
     if N > 0:
         KERNELS["march_rays"].launch(
-            "march_rays_fwd", dev, *[v.data_ptr() for v in ins], sigma_bytes.data_ptr(),
+            "march_rays_fwd", dev, *[v.data_ptr() for v in ins[:6]],
+            ins[6].data_ptr() if noises is not None else None, sigma_bytes.data_ptr(),
             t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(),
             count.data_ptr(), N, K, S, H, _f32(cfg.bound), _f32(min(1.0, cfg.bound)),
             _f32(cfg.dt_min), int(cull_T > 0.0),
@@ -242,6 +253,109 @@ def composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient,
             "ambient_sum": amb}
 
 
+def _composite_kernel(sigmas, rgbs, dts, ts, valid, ambient, T_thresh):
+    """Kernel C on checked, contiguous CUDA inputs."""
+    N, S = sigmas.shape
+    dev = sigmas.device
+    image = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty((N,), dtype=torch.float32, device=dev)
+    weights_sum = torch.empty_like(depth)
+    ambient_sum = torch.empty_like(depth)
+    if N > 0:
+        KERNELS["composite_rays"].launch(
+            "composite_rays_fwd", dev, sigmas.data_ptr(), rgbs.data_ptr(), dts.data_ptr(),
+            ts.data_ptr(), valid.data_ptr(), ambient.data_ptr(),
+            image.data_ptr(), depth.data_ptr(), weights_sum.data_ptr(),
+            ambient_sum.data_ptr(), N, S, _f32(T_thresh))
+    return image, depth, weights_sum, ambient_sum
+
+
+def _check_composite(sigmas, rgbs, dts, ts, valid, ambient):
+    N, S = sigmas.shape
+    ins = [sigmas, rgbs, dts, ts, ambient]
+    shapes = [(N, S), (N, S, 3), (N, S), (N, S), (N, S)]
+    if any(v.dtype != torch.float32 or v.shape != shape
+           for v, shape in zip(ins, shapes)) \
+            or valid.dtype != torch.bool or valid.shape != (N, S):
+        raise ValueError("kernel C takes float32 [N, S] samples, [N, S, 3] rgbs "
+                         "and a bool mask")
+    ins = [v.contiguous() for v in (*ins, valid)]
+    require_cuda_tensors(*ins)
+    return ins
+
+
+def composite_rays_backward_plain(sigmas, rgbs, dts, ts, valid, ambient, grads,
+                                  T_thresh: float = 1e-4):
+    """Plain version of ``composite_rays_backward``: autograd through
+    ``composite_rays_plain``."""
+    sig, rgb, amb = (v.detach().requires_grad_(True) for v in (sigmas, rgbs, ambient))
+    with torch.enable_grad():
+        out = composite_rays_plain(sig, rgb, dts, ts, valid, amb, T_thresh)
+        keys = ("image", "depth", "weights_sum", "ambient_sum")
+        return torch.autograd.grad([out[k] for k in keys], [sig, rgb, amb],
+                                   [grads[k] for k in keys])
+
+
+def composite_rays_backward(sigmas, rgbs, dts, ts, valid, ambient, grads, outputs,
+                            T_thresh: float = 1e-4):
+    """Gradients of ``composite_rays`` (the semantics of JAX's autodiff of
+    ``composite_rays``): ``grads`` holds d image [N, 3], d depth, d
+    weights_sum and d ambient_sum [N]; ``outputs`` the forward's image,
+    depth and weights_sum. Returns (d sigmas [N, S], d rgbs [N, S, 3],
+    d ambient [N, S]); the processed mask carries no gradient and invalid
+    steps get zero. Kernel C' on CUDA tensors, the plain version (which does
+    not read ``outputs``) on CPU tensors."""
+    if sigmas.device.type == "cpu":
+        return composite_rays_backward_plain(sigmas, rgbs, dts, ts, valid, ambient, grads,
+                                             T_thresh)
+    sig, rgb, dt, t, _, ok = _check_composite(sigmas, rgbs, dts, ts, valid, ambient)
+    N, S = sig.shape
+    keys = ("image", "depth", "weights_sum", "ambient_sum")
+    g = [grads[k].contiguous() for k in keys]
+    o = [outputs[k].contiguous() for k in keys[:3]]
+    want = [(N, 3), (N,), (N,), (N,), (N, 3), (N,), (N,)]
+    if any(v.dtype != torch.float32 or v.shape != w for v, w in zip(g + o, want)):
+        raise ValueError("kernel C' takes float32 image [N, 3] and [N] gradients "
+                         "and outputs")
+    require_cuda_tensors(sig, *g, *o)
+    g_sig = torch.empty_like(sig)
+    g_rgb = torch.empty_like(rgb)
+    g_amb = torch.empty_like(sig)
+    if N > 0:
+        KERNELS["composite_rays_backward"].launch(
+            "composite_rays_bwd", sig.device, sig.data_ptr(), rgb.data_ptr(), dt.data_ptr(),
+            t.data_ptr(), ok.data_ptr(), *[v.data_ptr() for v in o],
+            *[v.data_ptr() for v in g], g_sig.data_ptr(), g_rgb.data_ptr(),
+            g_amb.data_ptr(), N, S, _f32(T_thresh))
+    return g_sig, g_rgb, g_amb
+
+
+class _CompositeRays(torch.autograd.Function):
+    """Kernel C forward, kernel C' backward."""
+
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, dts, ts, valid, ambient, T_thresh):
+        outs = _composite_kernel(sigmas, rgbs, dts, ts, valid, ambient, T_thresh)
+        ctx.save_for_backward(sigmas, rgbs, dts, ts, valid, ambient, *outs[:3])
+        ctx.T_thresh = T_thresh
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_image, g_depth, g_ws, g_amb):
+        sigmas, rgbs, dts, ts, valid, ambient, image, depth, ws = ctx.saved_tensors
+        grads = {"image": g_image, "depth": g_depth, "weights_sum": g_ws,
+                 "ambient_sum": g_amb}
+        grads = {k: torch.zeros_like(v) if grads[k] is None else grads[k]
+                 for k, v in (("image", image), ("depth", depth),
+                              ("weights_sum", ws), ("ambient_sum", ws))}
+        g_sig, g_rgb, g_a = composite_rays_backward(
+            sigmas, rgbs, dts, ts, valid, ambient, grads,
+            {"image": image, "depth": depth, "weights_sum": ws}, ctx.T_thresh)
+        need = ctx.needs_input_grad
+        return (g_sig if need[0] else None, g_rgb if need[1] else None, None, None, None,
+                g_a if need[5] else None, None)
+
+
 def composite_rays(sigmas, rgbs, dts, ts, valid, ambient,
                    T_thresh: float = 1e-4):
     """Front-to-back compositing of a [N, S] sample lattice: kernel C on CUDA
@@ -254,33 +368,20 @@ def composite_rays(sigmas, rgbs, dts, ts, valid, ambient,
     unweighted sum of ``ambient`` over processed valid steps. Invalid steps
     contribute nothing.
 
+    On CUDA tensors, when autograd wants a gradient for sigmas, rgbs or
+    ambient, the call goes through a ``torch.autograd.Function`` whose
+    backward is kernel C'; dts and ts take no gradient (a request raises).
+
     Returns dict: image [N, 3] (premultiplied, no background), depth [N],
       weights_sum [N], ambient_sum [N].
     """
     if sigmas.device.type == "cpu":
         return composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient, T_thresh)
-    N, S = sigmas.shape
-    ins = [sigmas, rgbs, dts, ts, ambient]
-    shapes = [(N, S), (N, S, 3), (N, S), (N, S), (N, S)]
-    if any(v.dtype != torch.float32 or v.shape != shape
-           for v, shape in zip(ins, shapes)) \
-            or valid.dtype != torch.bool or valid.shape != (N, S):
-        raise ValueError("kernel C takes float32 [N, S] samples, [N, S, 3] rgbs "
-                         "and a bool mask")
-    ins = [v.contiguous() for v in ins]
-    valid = valid.contiguous()
-    require_cuda_tensors(*ins, valid)
-    dev = sigmas.device
-    image = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    depth = torch.empty((N,), dtype=torch.float32, device=dev)
-    weights_sum = torch.empty_like(depth)
-    ambient_sum = torch.empty_like(depth)
-    if N > 0:
-        sig, rgb, dt, t, amb = ins
-        KERNELS["composite_rays"].launch(
-            "composite_rays_fwd", dev, sig.data_ptr(), rgb.data_ptr(), dt.data_ptr(),
-            t.data_ptr(), valid.data_ptr(), amb.data_ptr(),
-            image.data_ptr(), depth.data_ptr(), weights_sum.data_ptr(),
-            ambient_sum.data_ptr(), N, S, _f32(T_thresh))
-    return {"image": image, "depth": depth, "weights_sum": weights_sum,
-            "ambient_sum": ambient_sum}
+    args = _check_composite(sigmas, rgbs, dts, ts, valid, ambient)
+    refuse_grad("kernel C", dts=dts, ts=ts)
+    sig, rgb, dt, t, amb, ok = args
+    if torch.is_grad_enabled() and any(v.requires_grad for v in (sig, rgb, amb)):
+        outs = _CompositeRays.apply(sig, rgb, dt, t, ok, amb, T_thresh)
+    else:
+        outs = _composite_kernel(sig, rgb, dt, t, ok, amb, T_thresh)
+    return dict(zip(("image", "depth", "weights_sum", "ambient_sum"), outs))

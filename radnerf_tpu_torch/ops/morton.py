@@ -50,3 +50,31 @@ def packbits(grid: torch.Tensor, thresh) -> torch.Tensor:
     occ = (grid.reshape(-1) > thresh).to(torch.uint8).reshape(-1, 8)
     shifts = torch.arange(8, dtype=torch.uint8, device=grid.device)
     return torch.bitwise_left_shift(occ, shifts).sum(dim=-1).to(torch.uint8)
+
+
+def unpackbits(bitfield: torch.Tensor, cascade: int, grid_size: int) -> torch.Tensor:
+    """Inverse of ``packbits``: bitfield uint8 [C*H^3//8] -> occupancy uint8
+    {0, 1} [C, H^3] in Morton order."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bitfield.device)
+    bits = torch.bitwise_right_shift(bitfield[:, None], shifts) & 1
+    return bits.reshape(cascade, grid_size**3)
+
+
+def morton_dilate(grid: torch.Tensor, H: int) -> torch.Tensor:
+    """6-neighbour max over a Morton-ordered grid [C, H^3]: each cell takes
+    the max of itself and its +-1 neighbours along each axis, all read from
+    the original grid; a neighbour outside the grid is skipped
+    (reference raymarching.cu:303-341)."""
+    C = grid.shape[0]
+    codes = morton3d_invert(torch.arange(H**3, device=grid.device))
+    dense = grid.new_empty((C, H, H, H))
+    dense[:, codes[:, 0], codes[:, 1], codes[:, 2]] = grid
+    out = dense.clone()
+    for axis in (1, 2, 3):
+        lo = [slice(None)] * 4
+        hi = [slice(None)] * 4
+        lo[axis], hi[axis] = slice(0, H - 1), slice(1, H)
+        # cell i takes neighbour i+1 and cell i+1 takes neighbour i
+        out[tuple(lo)] = torch.maximum(out[tuple(lo)], dense[tuple(hi)])
+        out[tuple(hi)] = torch.maximum(out[tuple(hi)], dense[tuple(lo)])
+    return out[:, codes[:, 0], codes[:, 1], codes[:, 2]]

@@ -162,7 +162,10 @@ def test_port_imports_no_jax():
                          env=env, cwd=str(REPO), timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert len(mods) >= 15
+    assert {"radnerf_tpu_torch.config", "radnerf_tpu_torch.ops.rowgather",
+            "radnerf_tpu_torch.train.losses", "radnerf_tpu_torch.train.trainer",
+            "radnerf_tpu_torch.utils.color"} <= set(mods)
+    assert len(mods) >= 24
 
     pat = re.compile(r"^\s*(import jax|from jax)|radnerf_tpu\.|from radnerf_tpu ", re.M)
     for path in _port_sources():
