@@ -23,7 +23,7 @@ The frame:
   6. timing: the frame over 30 frames, a torch.profiler breakdown of 3
      frames and of 3 torso passes alone (the torso's share of the GEMMs and
      `cat` copies), and each kernel beside its bound, its twin and (where
-     one exists) a single PyTorch call.
+     one exists) a single PyTorch call; kernel A per call.
 
 Training (``NetworkConfig(torso=False, exp_eye=True)``, ``Options``
 defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
@@ -35,14 +35,16 @@ defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
      the grid is non-empty after the first upkeep, and the loss on one
      fixed batch falls;
   8. the backward kernels and the perturbed march against their plain
-     versions at the train step's shapes;
+     versions at the train step's shapes; A' also on as many points spread
+     uniformly over the box (no contention);
   9. the gather study: kernel D at P = 2 Mi rows of 16 bf16, T in {4096,
      65536}, counts from 0, bit for bit with ``table[idx]``;
  10. timing: the trainer's own loop entry (``Trainer.step``: upkeep when
      due, batch, step) fenced call by call, so the step's ms and the
      upkeep's; a torch.profiler breakdown of 3 steps; the batch preparation
      alone; and the new kernels beside their bounds, plain versions and
-     (for D) ``index_select``.
+     (for D) ``index_select``: A' on the step's points and on the spread
+     ones; A on the step's D = 3 points (held bit for bit to its twin).
 
 Each phase prints one JSON line; then the kernels line, the nvidia-smi line,
 and last the device line. Any failed check raises, and the script exits
@@ -121,10 +123,18 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() on the current stream, after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    """Mean milliseconds of fn() over ``reps`` back-to-back calls on the
+    current stream, after warm-up calls for at least 50 ms (one at least):
+    after an idle stretch the card's clocks need a few ms of load to rise,
+    and 20 launches of a 0.05 ms kernel are not that long."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= 0.05:
+            break
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
@@ -148,8 +158,11 @@ def device_profile(fn, reps):
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
+    # a user-annotated range (``Optimizer.step#Adam.step``) also carries the
+    # device time of the kernels inside it: left out, as the operators are
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     events.sort(key=lambda e: -e.self_device_time_total)
     return prof, events
 
@@ -373,7 +386,7 @@ def main():
     logs = _kernels.build_all()
     report["build"] = {
         "seconds": time.perf_counter() - t0,
-        "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l]
+        "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
                   for k, v in logs.items()},
     }
     emit({"phase": "build", **report["build"]})
@@ -578,7 +591,9 @@ def main():
                  library_ms=None)
     report["timing"]["kernels"] = list(kernels)  # the frame's three only
     emit({"phase": "timing", "frame_ms": frame_ms, "fps": report["timing"]["fps"],
-          "kernel_ms": {k["name"]: k["ms"] for k in kernels}})
+          "kernel_ms": {k["name"]: k["ms"] for k in kernels},
+          "grid_encode_calls": {n: {k: v for k, v in c.items() if "ms" in k}
+                                for n, c in g["calls"].items()}})
 
     from radnerf_tpu_torch.config import Options
 
@@ -608,8 +623,8 @@ def train_phases(report, out_dir, scene, opt):
     from radnerf_tpu_torch.models.renderer import march_window
     from radnerf_tpu_torch.ops import (
         _kernels, composite_rays, composite_rays_backward, composite_rays_backward_plain,
-        grid_encode_backward, grid_encode_backward_plain, march_rays, march_rays_plain,
-        near_far_from_aabb,
+        grid_encode, grid_encode_backward, grid_encode_backward_plain, grid_encode_plain,
+        march_rays, march_rays_plain, near_far_from_aabb,
     )
     from radnerf_tpu_torch.train import Trainer
 
@@ -701,6 +716,14 @@ def train_phases(report, out_dir, scene, opt):
     }
     g_outs = {k: torch.randn((n_s, v[2].output_dim), generator=gen, device=dev)
               for k, v in bwd_calls.items()}
+    # as many points spread uniformly over each grid's box, the same grad_out:
+    # the uncontended regime of a trained field
+    gen_u = torch.Generator(dev).manual_seed(6)
+    for name, (x, *rest) in list(bwd_calls.items()):
+        bound = rest[2]
+        u = (torch.rand(x.shape, generator=gen_u, device=dev) * 2.0 - 1.0) * bound
+        bwd_calls[f"{name}_spread"] = (u, *rest)
+        g_outs[f"{name}_spread"] = g_outs[name]
     a_err = {}
     for name, (x, emb, spec, bound, need_x) in bwd_calls.items():
         gk = grid_encode_backward(x, emb, g_outs[name], spec, bound, need_x=need_x)
@@ -784,20 +807,24 @@ def train_phases(report, out_dir, scene, opt):
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
 
     kernels = []
+    # A': the kernels line sums the step's two calls; the spread points are
+    # beside them
     g = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
     for name, (x, emb, spec, bound, need_x) in bwd_calls.items():
         go = g_outs[name]
         ms = cuda_ms(lambda: grid_encode_backward(x, emb, go, spec, bound, need_x=need_x), 20)
-        pms = cuda_ms(lambda: grid_encode_backward_plain(x, emb, go, spec, bound,
-                                                         need_x=need_x), 3)
         nb, nf = grid_backward_work(x, spec, bound, need_x)
         bms, by = bound_ms(nb, nf)
-        g["calls"][name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                            "bytes": nb, "flops": nf, "n_points": n_s, "x_grad": need_x}
-        g["ms"] += ms
-        g["plain_ms"] += pms
-        g["bytes"] += nb
-        g["flops"] += nf
+        call = {"ms": ms, "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+                "n_points": n_s, "x_grad": need_x}
+        if not name.endswith("_spread"):
+            call["plain_ms"] = cuda_ms(lambda: grid_encode_backward_plain(
+                x, emb, go, spec, bound, need_x=need_x), 3)
+            g["ms"] += ms
+            g["plain_ms"] += call["plain_ms"]
+            g["bytes"] += nb
+            g["flops"] += nf
+        g["calls"][name] = call
     bms, by = bound_ms(g["bytes"], g["flops"])
     kernels.append({"name": "grid_encode_backward", "ms": g["ms"], "plain_ms": g["plain_ms"],
                     "bound_ms": bms, "bound_by": by, "calls": g["calls"],
@@ -818,6 +845,16 @@ def train_phases(report, out_dir, scene, opt):
         k.update(route="cuda", source=f"radnerf_tpu_torch/csrc/{k['name']}.cu",
                  replaces=REPLACES[k["name"]], launches=launches[k["name"]],
                  library_ms=None)
+    # kernel A at the step's D = 3 call (the spatial encode of its samples)
+    a_args = (xs, net.encoder.detach(), cfg.grid_spec, cfg.bound)
+    if not torch.equal(grid_encode(*a_args), grid_encode_plain(*a_args)):
+        raise RuntimeError("kernel A differs from its twin on the step's points")
+    nb, nf = grid_work(xs, cfg.grid_spec, cfg.bound)
+    bms, by = bound_ms(nb, nf)
+    a_step = {"n_points": n_s, "ms": cuda_ms(lambda: grid_encode(*a_args), 20),
+              "plain_ms": cuda_ms(lambda: grid_encode_plain(*a_args), 3),
+              "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf, "bit_for_bit": True}
+    tt["grid_encode_step"] = a_step
     tt["kernels"] = kernels
     report["train_timing"] = tt
     emit({"phase": "train_timing", **{k: v for k, v in tt.items()
@@ -825,7 +862,9 @@ def train_phases(report, out_dir, scene, opt):
           "device_busy_share": tt["profile"]["device_busy_share"],
           "ms_per_step_by_class": tt["profile"]["ms_per_step_by_class"],
           "top5": tt["profile"]["top"][:5],
-          "kernel_ms": {k["name"]: k["ms"] for k in kernels}})
+          "kernel_ms": {k["name"]: k["ms"] for k in kernels},
+          "grid_encode_backward_calls": {
+              n: {k: v for k, v in c.items() if "ms" in k} for n, c in g["calls"].items()}})
     return kernels
 
 

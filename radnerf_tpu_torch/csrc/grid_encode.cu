@@ -5,109 +5,94 @@
 // packed each cell's 2^D corners into one wide row (per-level rolls, an
 // appended zero row, a one-hot MXU fetch for small levels) because a TPU
 // gather costs per row. None of that carries over: a Hopper thread reads the
-// 2^D corner rows straight from the [n_emb, C] fp32 table.
+// 2^D corner rows straight from the [n_emb, 2] fp32 table.
 //
 // What bounds it on an H100: bytes. Per (point, level) it reads 2^D rows of
-// C floats and writes C floats, against ~10 flops per corner. The tables on
-// the render path are 7.2 MB (3-D) and 4.4 MB (2-D), so they sit in the
-// 50 MB L2 and the corner reads are L2 hits; the output [N, L*C] is the
-// largest stream. Design: one thread per (point, level), consecutive
-// threads on consecutive levels of one point, so the C-float output writes
-// of a warp are contiguous and the point's coordinates are a broadcast read.
+// 8 B and writes 8 B, against ~10 flops per corner. The tables on the
+// render path are 7.2 MB (3-D) and 4.4 MB (2-D), so they sit in the 50 MB
+// L2 and the corner reads are L2 (or L1) hits; the output [N, 2L] is the
+// largest stream. Design (grid_common.cuh): a block is 32 points x L
+// levels, each warp 32 consecutive points at one level, so at the coarse
+// levels neighbouring samples of a ray read the same L1 lines; C = 2 at
+// compile time, so a corner row is one 8-byte load, and the two corners
+// that differ in dim 0 (adjacent rows) one 16-byte load when the pair is
+// aligned, which cuts the scattered L1 requests a quarter; each warp puts its
+// float2s into a shared-memory tile [32][2L + 2] (the +2 keeps a half-warp's
+// float2 stores on distinct banks), and the block writes its 32 output rows,
+// one contiguous run of out, with coalesced float2 stores. Index math is
+// 32-bit and divides by nothing but a level's size, and only past it.
 //
 // Arithmetic mirrors the plain twin (ops/grid_encode.py grid_encode_plain)
-// in the same order; the library is built with -fmad=false so
-// x01*scale + 0.5 is rounded twice, as the twin rounds it, and every point
-// lands in the same cell.
+// in the same order (grid_common.cuh): corners 0..2^D-1, the weight's
+// product in dim order, the library built with -fmad=false; the result is
+// bit for bit the twin's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
+
 namespace {
 
-constexpr int kMaxC = 8;
-
 template <int D>
-__global__ void grid_encode_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ emb,
-                                   const float* __restrict__ scales,
-                                   const int* __restrict__ level_params,
-                                   float* __restrict__ out, long long N, int L,
-                                   int C, float bound, float two_bound) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
-  long long n = i / L;
-  int l = (int)(i - n * L);
-  float* o = out + n * (long long)(L * C) + (long long)l * C;
+__global__ void __launch_bounds__(1024) grid_encode_kernel(
+    const float* __restrict__ x, const float2* __restrict__ emb,
+    const float* __restrict__ scales, const int* __restrict__ level_params,
+    float2* __restrict__ out, int N, int L, float bound, float two_bound) {
+  __shared__ float2 tile[32 * (grid::kMaxLevels + 1)];
+  const int lane = threadIdx.x, l = threadIdx.y;
+  const int row_f2 = L + 1;  // tile row stride in float2
+  const int n0 = blockIdx.x * 32;
+  const int n = n0 + lane;
 
+  float2 acc = make_float2(0.0f, 0.0f);  // outside the box: exactly zero
   float p[D];
-  bool oob = false;
+  if (n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p)) {
+    const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+    uint32_t pg[D];
+    float frac[D];
+    grid::cell<D>(p, lv.scale, pg, frac);
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float v = (x[n * D + d] + bound) / two_bound;
-    oob |= (v < 0.0f) || (v > 1.0f);
-    p[d] = v;
-  }
-  if (oob) {  // outside [0,1]^D encodes to exactly zero
-    for (int c = 0; c < C; ++c) o[c] = 0.0f;
-    return;
-  }
-
-  const float scale = scales[l];
-  const int* lp = level_params + l * (2 + D);
-  const uint32_t offset = (uint32_t)lp[0];
-  const uint32_t size = (uint32_t)lp[1];
-  uint32_t stride[D];
-  uint32_t pg[D];
-  float frac[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    stride[d] = (uint32_t)lp[2 + d];
-    float pos = p[d] * scale + 0.5f;
-    float fl = floorf(pos);
-    frac[d] = pos - fl;
-    pg[d] = (uint32_t)fl;
-  }
-
-  float acc[kMaxC];
-#pragma unroll
-  for (int corner = 0; corner < (1 << D); ++corner) {
-    float w = 1.0f;
-    uint32_t idx = 0;  // uint32 wraparound, as the reference index
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const uint32_t bit = (corner >> d) & 1u;
-      w = w * (bit ? frac[d] : 1.0f - frac[d]);
-      idx += (pg[d] + bit) * stride[d];
-    }
-    const float* row = emb + (long long)(idx % size + offset) * C;
-    for (int c = 0; c < C; ++c) {
-      const float contrib = w * row[c];
-      acc[c] = corner == 0 ? contrib : acc[c] + contrib;
+    for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
+      float2 e0, e1;
+      grid::load_pair(emb, grid::corner_row<D>(lv, pg, c0), grid::corner_row<D>(lv, pg, c0 + 1),
+                      e0, e1);
+      const float w0 = grid::corner_weight<D>(frac, c0);
+      const float w1 = grid::corner_weight<D>(frac, c0 + 1);
+      const float2 a = make_float2(w0 * e0.x, w0 * e0.y);
+      acc = c0 == 0 ? a : make_float2(acc.x + a.x, acc.y + a.y);
+      acc = make_float2(acc.x + w1 * e1.x, acc.y + w1 * e1.y);
     }
   }
-  for (int c = 0; c < C; ++c) o[c] = acc[c];
+  tile[lane * row_f2 + l] = acc;
+  __syncthreads();
+
+  // the block's rows [n0, n0 + 32) are one run of out: thread t writes its
+  // t-th float2 (32 * L float2s, one per thread)
+  const int t = l * 32 + lane;
+  const int q = t / L;
+  if (n0 + q < N) out[(size_t)n0 * L + t] = tile[q * row_f2 + (t - q * L)];
 }
 
 }  // namespace
 
-extern "C" int grid_encode_fwd(const void* x, const void* emb,
-                               const void* scales, const void* level_params,
-                               void* out, long long N, int D, int L, int C,
-                               float bound, float two_bound, void* stream) {
-  if (C > kMaxC || (D != 2 && D != 3)) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = N * L;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scales,
+                               const void* level_params, void* out, long long N, int D,
+                               int L, float bound, float two_bound, void* stream) {
+  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 0 || N > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(32, L);
+  const unsigned blocks = (unsigned)((N + 31) / 32);
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 3) {
-    grid_encode_kernel<3><<<blocks, threads, 0, s>>>(
-        (const float*)x, (const float*)emb, (const float*)scales,
-        (const int*)level_params, (float*)out, N, L, C, bound, two_bound);
+    grid_encode_kernel<3><<<blocks, block, 0, s>>>(
+        (const float*)x, (const float2*)emb, (const float*)scales, (const int*)level_params,
+        (float2*)out, (int)N, L, bound, two_bound);
   } else {
-    grid_encode_kernel<2><<<blocks, threads, 0, s>>>(
-        (const float*)x, (const float*)emb, (const float*)scales,
-        (const int*)level_params, (float*)out, N, L, C, bound, two_bound);
+    grid_encode_kernel<2><<<blocks, block, 0, s>>>(
+        (const float*)x, (const float2*)emb, (const float*)scales, (const int*)level_params,
+        (float2*)out, (int)N, L, bound, two_bound);
   }
   return (int)cudaGetLastError();
 }

@@ -2,150 +2,187 @@
 //
 // Replaces the gradient of radnerf_tpu/ops/grid_encode.py: grid_encode01
 // (:168-216), which JAX takes by autodiff: XLA transposes the corner
-// gathers into a scatter-add over the [n_emb, C] table, and the position
+// gathers into a scatter-add over the [n_emb, 2] table, and the position
 // gradient flows only through frac = pos - stop_gradient(floor(pos))
 // (:193, :196). Per (point, level):
 //
 //   grad_table[row(corner)] += w(corner) * grad_out[point, level]
 //   grad_pos[d]             += sum_corner (grad_out . table[row]) * dw/dfrac_d
-//   grad_x[d]               += grad_pos[d] * scale_l / (2 * bound)
+//   grad_x[d]                = sum_level grad_pos[d] * scale_l / (2 * bound)
 //
 // Points outside [-bound, bound]^D get zero gradient for both, as their
 // forward output is exactly zero (every corner weight carries inb = 0).
 //
-// What bounds it on an H100: the atomics. Each (point, level) adds 2^D*C
-// floats into the table gradient; the coarse levels are small (17^3 =
-// 4,913 rows at the 3-D level 0, 17^2 at the 2-D one) and every sample hits
-// them, so many threads add into the same rows at once. The bytes are the
-// points, grad_out and the touched rows of the table (fp32, 7.2 MB / 4.4 MB,
-// L2-resident). Design: one thread per (point, level) recomputes the cell
-// and weights exactly as kernel A does and issues scalar float atomicAdds
-// (red.global.add.f32, no return value used); the position gradient stays
-// in registers across the corners and goes out as D atomics per level.
+// What bounds it on an H100: the table gradient's atomics, and their
+// contention. Each (point, level) adds 2^D rows of 2 floats; the coarse
+// levels are small (4,920 rows at the 3-D level 0, 296 at the 2-D one) and
+// every sample hits them, and while the field is untrained the ambient MLP
+// sends every sample of a step into the same 2-D cells at every level, so
+// the adds serialise on a few L2 addresses. Design (grid_common.cuh): a
+// block is P points x L levels and each warp is 32 consecutive points at
+// one level. The corners go in pairs that differ in dim 0 (adjacent rows).
+// Per pair, lanes whose rows equal the lane before's (the march writes
+// samples ray by ray, so contention comes as runs) sum their values with a
+// segmented shuffle reduction, and the run's first lane alone adds them: as
+// one float4 atomic when the two rows are an aligned 16-byte pair, else as
+// two float2 atomics (vector atomics in global memory: compute capability
+// 9.x). Every level adds into global memory: on the step's own points a
+// per-block sum of the coarse levels in shared memory is slower (PERF.md).
+// The x gradient needs no atomics: each level's share goes through shared
+// memory, and the point's level-0 thread sums them in level order and
+// stores grad_x (exact 0 outside the box), so the wrapper need not zero it.
+//
 // The atomic order varies from run to run, so the table gradient is not
 // bit-exact between runs or with the plain version; it agrees to the
-// rounding of a float32 sum taken in another order.
-//
-// The wrapper zeroes grad_table (and grad_x) before the launch; either may
-// be null when its gradient is not needed.
+// rounding of a float32 sum taken in another order. The wrapper zeroes
+// grad_table; either output may be null when its gradient is not needed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_common.cuh"
+
 namespace {
 
-constexpr int kMaxC = 8;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoRow = 0xffffffffu;  // a lane with nothing to add
 
-template <int D>
-__global__ void grid_encode_bwd_kernel(const float* __restrict__ x,
-                                       const float* __restrict__ emb,
-                                       const float* __restrict__ grad_out,
-                                       const float* __restrict__ scales,
-                                       const int* __restrict__ level_params,
-                                       float* __restrict__ grad_table,
-                                       float* __restrict__ grad_x, long long N,
-                                       int L, int C, float bound,
-                                       float two_bound) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
-  long long n = i / L;
-  int l = (int)(i - n * L);
-
-  float p[D];
-  bool oob = false;
+// Adds v.xy into row r0 and v.zw into row r1 of the table gradient (the
+// rows of corners 2q and 2q + 1), summed first over each run of lanes with
+// the same rows; the run's first lane issues the adds, as one float4 atomic
+// when the rows are an aligned pair, else two float2 atomics. Every lane of
+// the warp calls it.
+__device__ __forceinline__ void add_pair(float2* __restrict__ table, uint32_t r0, uint32_t r1,
+                                         float4 v, unsigned lane) {
+  const uint32_t prev0 = __shfl_up_sync(kFull, r0, 1);
+  const uint32_t prev1 = __shfl_up_sync(kFull, r1, 1);
+  const bool head = lane == 0 || prev0 != r0 || prev1 != r1;
+  const unsigned heads = __ballot_sync(kFull, head);
+  if (heads != kFull) {  // some run is longer than one lane
+    const unsigned later = heads & (0xfffffffeu << lane);  // heads of the runs after
+    const unsigned end = later ? __ffs(later) - 2 : 31;    // this run's last lane
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float v = (x[n * D + d] + bound) / two_bound;
-    oob |= (v < 0.0f) || (v > 1.0f);
-    p[d] = v;
+    for (unsigned off = 1; off < 32; off <<= 1) {
+      const float ox = __shfl_down_sync(kFull, v.x, off);
+      const float oy = __shfl_down_sync(kFull, v.y, off);
+      const float oz = __shfl_down_sync(kFull, v.z, off);
+      const float ow = __shfl_down_sync(kFull, v.w, off);
+      if (lane + off <= end) {
+        v.x += ox;
+        v.y += oy;
+        v.z += oz;
+        v.w += ow;
+      }
+    }
   }
-  if (oob) return;
+  if (!head || r0 == kNoRow) return;
+  if (grid::pair_aligned(r0, r1)) {
+    atomicAdd(reinterpret_cast<float4*>(table + r0), v);
+  } else {
+    atomicAdd(table + r0, make_float2(v.x, v.y));
+    atomicAdd(table + r1, make_float2(v.z, v.w));
+  }
+}
 
-  const float scale = scales[l];
-  const int* lp = level_params + l * (2 + D);
-  const uint32_t offset = (uint32_t)lp[0];
-  const uint32_t size = (uint32_t)lp[1];
-  uint32_t stride[D];
+template <int D, bool kNeedX>
+__global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
+    const float* __restrict__ x, const float2* __restrict__ emb,
+    const float2* __restrict__ grad_out, const float* __restrict__ scales,
+    const int* __restrict__ level_params, float2* __restrict__ grad_table,
+    float* __restrict__ grad_x, int N, int L, float bound, float two_bound) {
+  __shared__ float xg[kNeedX ? 1024 * D : 1];  // [L][P][D], P * L <= 1024
+  const int P = blockDim.x, l = threadIdx.y;
+  const unsigned lane = threadIdx.x & 31u;
+  const int n = blockIdx.x * P + threadIdx.x;
+
+  const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+  float p[D];
+  const bool live = n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p);
   uint32_t pg[D];
   float frac[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    stride[d] = (uint32_t)lp[2 + d];
-    float pos = p[d] * scale + 0.5f;
-    float fl = floorf(pos);
-    frac[d] = pos - fl;
-    pg[d] = (uint32_t)fl;
+  float2 g = make_float2(0.0f, 0.0f);
+  if (live) {
+    grid::cell<D>(p, lv.scale, pg, frac);
+    g = __ldg(grad_out + (size_t)n * L + l);
   }
-
-  float g[kMaxC];
-  const float* go = grad_out + n * (long long)(L * C) + (long long)l * C;
-  for (int c = 0; c < C; ++c) g[c] = go[c];
-
   float gpos[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) gpos[d] = 0.0f;
 
 #pragma unroll
-  for (int corner = 0; corner < (1 << D); ++corner) {
-    float w = 1.0f;
-    uint32_t idx = 0;  // uint32 wraparound, as the forward index
+  for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
+    uint32_t r0 = kNoRow, r1 = kNoRow;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (live) {
+      r0 = grid::corner_row<D>(lv, pg, c0);
+      r1 = grid::corner_row<D>(lv, pg, c0 + 1);
+      const float w0 = grid::corner_weight<D>(frac, c0);
+      const float w1 = grid::corner_weight<D>(frac, c0 + 1);
+      v = make_float4(w0 * g.x, w0 * g.y, w1 * g.x, w1 * g.y);
+      if (kNeedX) {
+        float2 e0, e1;
+        grid::load_pair(emb, r0, r1, e0, e1);
+        const float dot0 = g.x * e0.x + g.y * e0.y;
+        const float dot1 = g.x * e1.x + g.y * e1.y;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const uint32_t bit = (corner >> d) & 1u;
-      w = w * (bit ? frac[d] : 1.0f - frac[d]);
-      idx += (pg[d] + bit) * stride[d];
-    }
-    const long long row = (long long)(idx % size + offset) * C;
-    if (grad_table != nullptr) {
-      for (int c = 0; c < C; ++c) atomicAdd(grad_table + row + c, w * g[c]);
-    }
-    if (grad_x != nullptr) {
-      float dot = 0.0f;
-      for (int c = 0; c < C; ++c) dot = dot + g[c] * emb[row + c];
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        // dw/dfrac_d: the product of the other dims' factors, signed by
-        // the corner's bit in dim d
-        float dw = ((corner >> d) & 1u) ? 1.0f : -1.0f;
-#pragma unroll
-        for (int e = 0; e < D; ++e) {
-          if (e == d) continue;
-          dw = dw * (((corner >> e) & 1u) ? frac[e] : 1.0f - frac[e]);
+        for (int d = 0; d < D; ++d) {
+          gpos[d] = gpos[d] + dot0 * grid::corner_weight_grad<D>(frac, c0, d);
+          gpos[d] = gpos[d] + dot1 * grid::corner_weight_grad<D>(frac, c0 + 1, d);
         }
-        gpos[d] = gpos[d] + dot * dw;
       }
     }
+    if (grad_table != nullptr) add_pair(grad_table, r0, r1, v, lane);
   }
-  if (grad_x != nullptr) {
+
+  if (kNeedX) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      atomicAdd(grad_x + n * D + d, gpos[d] * scale / two_bound);
+      xg[(l * P + threadIdx.x) * D + d] = live ? gpos[d] * lv.scale / two_bound : 0.0f;
+    }
+    __syncthreads();
+    if (l == 0 && n < N) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        float s = 0.0f;
+        for (int k = 0; k < L; ++k) s = s + xg[(k * P + threadIdx.x) * D + d];
+        grad_x[(size_t)n * D + d] = s;
+      }
     }
   }
 }
 
+template <int D, bool kNeedX>
+int launch(const void* x, const void* emb, const void* grad_out, const void* scales,
+           const void* level_params, void* grad_table, void* grad_x, int N, int L,
+           float bound, float two_bound, cudaStream_t s) {
+  const int P = L <= 16 ? 64 : 32;  // a block of at most 1024 threads
+  grid_encode_bwd_kernel<D, kNeedX><<<(N + P - 1) / P, dim3(P, L), 0, s>>>(
+      (const float*)x, (const float2*)emb, (const float2*)grad_out, (const float*)scales,
+      (const int*)level_params, (float2*)grad_table, (float*)grad_x, N, L, bound, two_bound);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int grid_encode_bwd(const void* x, const void* emb,
-                               const void* grad_out, const void* scales,
-                               const void* level_params, void* grad_table,
-                               void* grad_x, long long N, int D, int L, int C,
-                               float bound, float two_bound, void* stream) {
-  if (C > kMaxC || (D != 2 && D != 3)) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = N * L;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 3) {
-    grid_encode_bwd_kernel<3><<<blocks, threads, 0, s>>>(
-        (const float*)x, (const float*)emb, (const float*)grad_out,
-        (const float*)scales, (const int*)level_params, (float*)grad_table,
-        (float*)grad_x, N, L, C, bound, two_bound);
-  } else {
-    grid_encode_bwd_kernel<2><<<blocks, threads, 0, s>>>(
-        (const float*)x, (const float*)emb, (const float*)grad_out,
-        (const float*)scales, (const int*)level_params, (float*)grad_table,
-        (float*)grad_x, N, L, C, bound, two_bound);
+extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_out,
+                               const void* scales, const void* level_params, void* grad_table,
+                               void* grad_x, long long N, int D, int L, float bound,
+                               float two_bound, void* stream) {
+  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 1 || N > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)N;
+  if (D == 3) {
+    return grad_x != nullptr
+               ? launch<3, true>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n,
+                                 L, bound, two_bound, s)
+               : launch<3, false>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
+                                  n, L, bound, two_bound, s);
+  }
+  return grad_x != nullptr
+             ? launch<2, true>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n, L,
+                               bound, two_bound, s)
+             : launch<2, false>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n,
+                                L, bound, two_bound, s);
 }

@@ -12,9 +12,10 @@ sample in the same cell (an FMA moves ``floor(x*scale+0.5)`` and
 ``o + t*d`` across cell boundaries). ``--use_fast_math`` is never used.
 
 Libraries go into ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads. ``build_all`` starts one ``nvcc`` per source,
-all at once. Importing this module builds nothing and needs no ``nvcc``.
+named by a hash of the source, every header in ``csrc/`` (``*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads. ``build_all`` starts one ``nvcc`` per source, all at once.
+Importing this module builds nothing and needs no ``nvcc``.
 
 Every C entry point takes pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :meth:`Kernel.launch` raises if
@@ -66,7 +67,9 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in [self.source, *sorted(self.source.parent.glob("*.cuh"))]:
+            h.update(path.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -123,13 +126,13 @@ _F = ctypes.c_float
 
 KERNELS = {
     "grid_encode": Kernel("grid_encode", {
-        # x, emb, scales, level_params, out, N, D, L, C, bound, two_bound, stream
-        "grid_encode_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P],
+        # x, emb, scales, level_params, out, N, D, L, bound, two_bound, stream
+        "grid_encode_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
     }),
     "grid_encode_backward": Kernel("grid_encode_backward", {
         # x, emb, grad_out, scales, level_params, grad_table, grad_x, N, D,
-        # L, C, bound, two_bound, stream
-        "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _P],
+        # L, bound, two_bound, stream
+        "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
     }),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,

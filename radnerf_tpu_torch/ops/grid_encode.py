@@ -191,10 +191,14 @@ def _check_kernel_args(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec
     D, C = spec.input_dim, spec.level_dim
     if x.shape[-1] != D or D not in (2, 3):
         raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)}")
-    if embeddings.shape != (spec.n_embeddings, C) or C > 8:
+    if C != 2 or spec.num_levels > 32:
+        raise ValueError(f"kernels A and A' take 2 channels and at most 32 levels, got {spec}")
+    if embeddings.shape != (spec.n_embeddings, C):
         raise ValueError(f"embeddings {tuple(embeddings.shape)} do not fit {spec}")
     if x.dtype != torch.float32 or embeddings.dtype != torch.float32:
         raise ValueError("kernel A takes float32 points and tables")
+    if embeddings.data_ptr() % 16:  # the kernels read and add row pairs as 16 B
+        raise ValueError("kernels A and A' take a table aligned to 16 bytes")
 
 
 def _grid_encode_kernel(x, embeddings, spec: GridSpec, bound: float) -> torch.Tensor:
@@ -208,7 +212,7 @@ def _grid_encode_kernel(x, embeddings, spec: GridSpec, bound: float) -> torch.Te
     scales, params = _level_tables(spec, x.device)
     KERNELS["grid_encode"].launch(
         "grid_encode_fwd", x.device, x.data_ptr(), embeddings.data_ptr(),
-        scales.data_ptr(), params.data_ptr(), out.data_ptr(), N, D, L, C,
+        scales.data_ptr(), params.data_ptr(), out.data_ptr(), N, D, L,
         float(bound), float(np.float32(2.0 * bound)))
     return out
 
@@ -247,8 +251,9 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
                          f"{tuple(x.shape)} and {spec}")
     x, grad_out = x.contiguous(), grad_out.contiguous()
     require_cuda_tensors(x, embeddings, grad_out)
+    # the kernel stores every element of grad_x; grad_table takes atomic adds
     g_table = torch.zeros_like(embeddings) if need_table else None
-    g_x = torch.zeros_like(x) if need_x else None
+    g_x = torch.empty_like(x) if need_x else None
     N = x.numel() // D
     if N > 0 and (need_table or need_x):
         scales, params = _level_tables(spec, x.device)
@@ -256,7 +261,7 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
             "grid_encode_bwd", x.device, x.data_ptr(), embeddings.data_ptr(),
             grad_out.data_ptr(), scales.data_ptr(), params.data_ptr(),
             g_table.data_ptr() if need_table else None,
-            g_x.data_ptr() if need_x else None, N, D, L, C,
+            g_x.data_ptr() if need_x else None, N, D, L,
             float(bound), float(np.float32(2.0 * bound)))
     return g_table, g_x
 

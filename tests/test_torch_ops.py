@@ -78,6 +78,53 @@ def test_grid_encode_rejects_unported_specs():
             T.grid_encode(x, torch.zeros(spec.n_embeddings, 2), spec)
 
 
+def _misaligned(t):
+    """t's values in a tensor whose data starts 4 bytes past a 16-byte line."""
+    flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
+    start = next(i for i in range(4) if (flat.data_ptr() + 4 * i) % 16 == 4)
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", ["channels", "levels", "alignment"])
+def test_grid_kernel_args_refuse_what_the_kernels_cannot_take(case):
+    """Kernels A and A' are built for 2 channels, at most 32 levels and a
+    table whose row pairs are 16-byte aligned: the wrappers' check raises
+    for anything else before a launch."""
+    from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args
+
+    kw = dict(input_dim=3, num_levels=4, base_resolution=4, log2_hashmap_size=8)
+    kw.update({"channels": dict(level_dim=4), "levels": dict(num_levels=33),
+               "alignment": {}}[case])
+    spec = T.GridSpec.create(**kw)
+    emb = torch.zeros(spec.n_embeddings, spec.level_dim)
+    x = torch.zeros(4, 3)
+    if case == "alignment":
+        _check_kernel_args(x, emb, spec)  # an aligned table passes
+        emb = _misaligned(emb)
+    with pytest.raises(ValueError):
+        _check_kernel_args(x, emb, spec)
+
+
+def test_kernel_library_hash_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of its source and of every
+    header in the kernel directory, so an edited shared header rebuilds the
+    kernels that include it, while another kernel's source does not."""
+    from radnerf_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "other.cu").write_text("// v1\n")
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    k = _kernels.Kernel("k", {})
+    path = k.library_path()
+    (tmp_path / "other.cu").write_text("// v2\n")
+    assert k.library_path() == path
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert k.library_path() != path
+
+
 # -------------------------------------------------------------- exact ops
 def test_morton_and_packbits_exact():
     rng = np.random.default_rng(1)

@@ -131,17 +131,39 @@ def test_march_with_noises_matches_jax():
 
 
 # ------------------------------------------------------- grid-encode grads
-@pytest.mark.parametrize("input_dim", [2, 3])
-def test_grid_encode_gradients_match_jax(input_dim):
+def _grid_points(layout, n, input_dim, rng):
+    """Points in the box laid out as the grid encoders meet them: "spread"
+    uniform; "ray" runs of 16 samples 0.02 apart along straight rays, the
+    march's order (neighbours share cells at the coarse levels); "collapsed"
+    every point within 1e-4 of one spot, the untrained ambient MLP's output
+    (every point adds into the same rows at every level)."""
+    if layout == "spread":
+        return rng.uniform(-0.98, 0.98, (n, input_dim)).astype(np.float32)
+    if layout == "ray":
+        o = rng.uniform(-0.6, 0.6, (n // 16, 1, input_dim))
+        d = rng.normal(size=(n // 16, 1, input_dim))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return (o + 0.02 * np.arange(16)[:, None] * d).reshape(n, input_dim).astype(np.float32)
+    return (rng.uniform(-0.5, 0.5, input_dim)
+            + rng.uniform(-1e-4, 1e-4, (n, input_dim))).astype(np.float32)
+
+
+# the uniform-spread cases keep their earlier ids ("2", "3")
+@pytest.mark.parametrize("layout,input_dim", [
+    pytest.param(layout, dim, id=str(dim) if layout == "spread" else f"{layout}-{dim}")
+    for layout in ("spread", "ray", "collapsed") for dim in (2, 3)])
+def test_grid_encode_gradients_match_jax(layout, input_dim):
     """Table and x gradients of the grid encode against jax.grad of
     grid_encode01 (op by op) at the shipped 16x2 shape, with points in and
-    out of the box: atol 1e-6, rtol 1e-5 (float32 sums in another order)."""
+    out of the box, spread, in rays and collapsed onto one spot (the
+    contended cases kernel A' combines): atol 1e-6, rtol 1e-5 (float32 sums
+    in another order)."""
     kw = dict(input_dim=input_dim, num_levels=16, level_dim=2, base_resolution=16,
               log2_hashmap_size=16, desired_resolution=2048)
     jspec, tspec = JGridSpec.create(**kw), T.GridSpec.create(**kw)
     rng = np.random.default_rng(input_dim + 10)
     emb = rng.normal(size=(jspec.n_embeddings, 2)).astype(np.float32)
-    x = rng.uniform(-0.98, 0.98, (192, input_dim)).astype(np.float32)
+    x = _grid_points(layout, 192, input_dim, rng)
     x[0, 0] = 1.2  # outside the box: zero gradient for both
     g = rng.normal(size=(192, 32)).astype(np.float32)
     bound = 1.0
