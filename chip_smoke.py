@@ -34,17 +34,23 @@ defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
      after; every kernel but D must have launched, every loss is finite,
      the grid is non-empty after the first upkeep, and the loss on one
      fixed batch falls;
-  8. the backward kernels and the perturbed march against their plain
-     versions at the train step's shapes; A' also on as many points spread
-     uniformly over the box (no contention);
+  8. the backward kernels, the perturbed march and the compositor against
+     their plain versions at the train step's shapes (C' on C's outputs);
+     A' also on as many points spread uniformly over the box (no
+     contention);
   9. the gather study: kernel D at P = 2 Mi rows of 16 bf16, T in {4096,
      65536}, counts from 0, bit for bit with ``table[idx]``;
  10. timing: the trainer's own loop entry (``Trainer.step``: upkeep when
      due, batch, step) fenced call by call, so the step's ms and the
      upkeep's; a torch.profiler breakdown of 3 steps; the batch preparation
-     alone; and the new kernels beside their bounds, plain versions and
-     (for D) ``index_select``: A' on the step's points and on the spread
-     ones; A on the step's D = 3 points (held bit for bit to its twin).
+     alone; and the kernels beside their bounds, plain versions and (for
+     D) ``index_select``: A' on the step's points and on the spread ones; A
+     on the step's D = 3 points (held bit for bit to its twin); B (with
+     noises) and C on phase 8's inputs, with their launches in the run.
+
+Kernel C's entries also carry its layout floor: the bytes the [N, S]
+lattice makes any compositor move (whole valid rows, whole 32-byte sectors
+around each processed step), which its bound does not count.
 
 Each phase prints one JSON line; then the kernels line, the nvidia-smi line,
 and last the device line. Any failed check raises, and the script exits
@@ -123,17 +129,26 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over ``reps`` back-to-back calls on the
-    current stream, after warm-up calls for at least 50 ms (one at least):
-    after an idle stretch the card's clocks need a few ms of load to rise,
-    and 20 launches of a 0.05 ms kernel are not that long."""
+    """Mean device milliseconds of fn() over ``reps`` back-to-back calls on
+    the current stream, after warm-up calls for at least 50 ms (one at
+    least): after an idle stretch the card's clocks need a few ms of load to
+    rise, and 20 launches of a 0.05 ms kernel are not that long. The timed
+    calls queue behind a sleep kernel that lasts about twice the host's time
+    to enqueue them (at most 100 ms), so the card runs them back to back: a
+    wrapper's Python can take longer than a short kernel, and without the
+    queue the events would time the host."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0, calls = time.perf_counter(), 0
     while True:
         fn()
         torch.cuda.synchronize()
+        calls += 1
         if time.perf_counter() - t0 >= 0.05:
             break
+    # a call's host time is at most its fenced time; the card's clock is at
+    # most ~2 GHz, so 2e6 cycles last at least 1 ms
+    host_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda._sleep(int(min(2.0 * reps * host_ms, 100.0) * 2e6))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -235,42 +250,48 @@ def grid_backward_work(x, spec, bound, need_x):
     return n_bytes, n_flops
 
 
-def march_work(rays_o, rays_d, nears, fars, window, sigma_bytes, mcfg):
-    """Bytes and flops the march needs: the ray geometry and window, the
-    distinct sigma bytes its steps look up, the [N, S] outputs; ~20 flops
-    per step walked (position, clamp, cell)."""
+def march_work(rays_o, rays_d, nears, fars, window, mcfg, noises=None):
+    """Bytes and flops the march needs: the ray geometry, window and noises,
+    the distinct sigma bytes its steps look up, the [N, S] outputs; ~20
+    flops per step walked (position, clamp, cell). The walk is the kernel's:
+    the orbit starts at ``nears + dt * noises`` where noises are given, and
+    a cell is ``floor(0.5 * (p / mip_bound + 1) * H)``."""
     from radnerf_tpu_torch.ops import morton3d
 
     N, S, K, H = rays_o.shape[0], mcfg.n_sample_slots, mcfg.n_march_iters, mcfg.grid_size
-    dt = mcfg.dt_min
+    dt = float(np.float32(mcfg.dt_min))
+    mip_bound = float(np.float32(min(1.0, mcfg.bound)))
     t_lo, t_hi = window
-    k0 = torch.clamp(torch.floor((t_lo - nears) / dt), min=0.0)
+    t0 = nears if noises is None else nears + dt * noises
+    k0 = torch.clamp(torch.floor((t_lo - t0) / torch.full_like(t0, dt)), min=0.0)
     t_end = torch.minimum(fars, t_hi)
     cells, steps = [], 0
     for k in range(K):
-        t = nears + (k0 + k) * dt
+        t = t0 + (k0 + k) * dt
         walk = t < t_end
         if not bool(walk.any()):
             break
         steps += int(walk.sum())
         p = torch.clamp(rays_o[walk] + t[walk, None] * rays_d[walk], -mcfg.bound, mcfg.bound)
-        c = torch.clamp(torch.floor(0.5 * (p + 1.0) * H), 0, H - 1).long()
+        c = torch.clamp(torch.floor(0.5 * (p / mip_bound + 1.0) * H), 0, H - 1).long()
         cells.append(morton3d(c))
     n_cells = int(torch.unique(torch.cat(cells)).numel()) if cells else 0
-    n_bytes = N * (24 + 16) + n_cells + N * S * (4 + 4 + 1 + 12) + N * 4
+    n_in = 24 + 16 + (4 if noises is not None else 0)
+    n_bytes = N * n_in + n_cells + N * S * (4 + 4 + 1 + 12) + N * 4
     return n_bytes, 20 * steps
 
 
 def composite_steps(sig, dts, valid, T_thresh):
-    """(steps examined, valid steps processed) up to each ray's early stop."""
+    """(steps examined, [N, S] mask of the valid steps processed) up to each
+    ray's early stop."""
     N, S = sig.shape
     T = torch.ones(N, device=sig.device)
     alive = torch.ones(N, dtype=torch.bool, device=sig.device)
-    examined = processed = 0
+    examined, processed = 0, torch.zeros_like(valid)
     for s in range(S):
         examined += int(alive.sum())
         v = alive & valid[:, s]
-        processed += int(v.sum())
+        processed[:, s] = v
         T = torch.where(v, T * torch.exp(-sig[:, s] * dts[:, s]), T)
         alive = alive & (T >= T_thresh)
     return examined, processed
@@ -281,7 +302,20 @@ def composite_work(sig, dts, valid, T_thresh):
     the early stop, 28 B (sigma, dt, t, rgb, ambient) and ~15 flops for each
     valid step it processes, 24 B out per ray."""
     examined, processed = composite_steps(sig, dts, valid, T_thresh)
-    return examined + processed * 28 + sig.shape[0] * 24, processed * 15
+    n = int(processed.sum())
+    return examined + n * 28 + sig.shape[0] * 24, n * 15
+
+
+def composite_layout_floor(sig, dts, valid, T_thresh):
+    """Bytes the [N, S] layout makes any compositor move, which the bound
+    above does not count: every valid row whole, each 32-byte sector that
+    holds a processed valid step's sigma, dt, t or ambient (8 slots a
+    sector) or part of its rgb triple, and 24 B out per ray."""
+    N, S = sig.shape
+    idx = composite_steps(sig, dts, valid, T_thresh)[1].reshape(-1).nonzero().squeeze(1)
+    scalar_sectors = int(torch.unique(idx // 8).numel())
+    rgb_sectors = int(torch.unique(torch.cat([(3 * idx) // 8, (3 * idx + 2) // 8])).numel())
+    return N * S + 32 * (4 * scalar_sectors + rgb_sectors) + N * 24
 
 
 def composite_backward_work(sig, dts, valid, T_thresh):
@@ -292,7 +326,8 @@ def composite_backward_work(sig, dts, valid, T_thresh):
     and ambient written once (20 B a slot); ~40 flops per processed step."""
     N, S = sig.shape
     examined, processed = composite_steps(sig, dts, valid, T_thresh)
-    return examined + processed * 24 + N * 44 + N * S * 20, processed * 40
+    n = int(processed.sum())
+    return examined + n * 24 + N * 44 + N * S * 20, n * 40
 
 
 def rel_err(got, want):
@@ -570,7 +605,7 @@ def main():
                     "max_abs_err": checks["grid_encode"]["max_abs_err"],
                     "calls": g["calls"]})
 
-    nb, nf = march_work(o, d, nears, fars, window, state.sigma_bytes, mcfg)
+    nb, nf = march_work(o, d, nears, fars, window, mcfg)
     bms, by = bound_ms(nb, nf)
     kernels.append({"name": "march_rays", "ms": cuda_ms(lambda: march_rays(*m_args), 20),
                     "plain_ms": cuda_ms(lambda: march_rays_plain(*m_args), 3),
@@ -579,10 +614,12 @@ def main():
 
     nb, nf = composite_work(c_args[0], c_args[2], c_args[4], rc.T_thresh)
     bms, by = bound_ms(nb, nf)
+    floor_b = composite_layout_floor(c_args[0], c_args[2], c_args[4], rc.T_thresh)
     kernels.append({"name": "composite_rays",
                     "ms": cuda_ms(lambda: composite_rays(*c_args, **c_kw), 20),
                     "plain_ms": cuda_ms(lambda: composite_rays_plain(*c_args, **c_kw), 3),
                     "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+                    "layout_floor_ms": bound_ms(floor_b, 0)[0], "layout_floor_bytes": floor_b,
                     "max_abs_err": checks["composite_rays"]["max_abs_err"]})
     for k in kernels:
         # no single PyTorch call computes any of the three functions
@@ -623,8 +660,8 @@ def train_phases(report, out_dir, scene, opt):
     from radnerf_tpu_torch.models.renderer import march_window
     from radnerf_tpu_torch.ops import (
         _kernels, composite_rays, composite_rays_backward, composite_rays_backward_plain,
-        grid_encode, grid_encode_backward, grid_encode_backward_plain, grid_encode_plain,
-        march_rays, march_rays_plain, near_far_from_aabb,
+        composite_rays_plain, grid_encode, grid_encode_backward, grid_encode_backward_plain,
+        grid_encode_plain, march_rays, march_rays_plain, near_far_from_aabb,
     )
     from radnerf_tpu_torch.train import Trainer
 
@@ -739,6 +776,8 @@ def train_phases(report, out_dir, scene, opt):
 
     c_args = (sig, col, mk["dt"], mk["t"], mk["valid"], amb.abs().sum(dim=-1))
     outs = composite_rays(*c_args, T_thresh=rc.T_thresh)
+    outs_p = composite_rays_plain(*c_args, T_thresh=rc.T_thresh)
+    c_fwd_err = max(float((outs[k] - outs_p[k]).abs().max()) for k in outs)
     N = o.shape[0]
     c_grads = {k: torch.randn((N, 3) if k == "image" else (N,), generator=gen, device=dev)
                for k in ("image", "depth", "weights_sum", "ambient_sum")}
@@ -753,6 +792,7 @@ def train_phases(report, out_dir, scene, opt):
                               "nonzero_unused_slot_values": nonzero_unused,
                               "n_samples": int(mk["valid"].sum())},
         "grid_encode_backward": {"calls": a_err, "tol_rel": TOL_BACKWARD_REL},
+        "composite_rays": {"max_abs_err": c_fwd_err, "tol": TOL_COMPOSITE},
         "composite_rays_backward": {"grads": c_err, "tol_rel": TOL_BACKWARD_REL},
     }
     report["train_kernel_checks"] = checks
@@ -763,6 +803,9 @@ def train_phases(report, out_dir, scene, opt):
         if not (e["table_rel_err"] <= e["table_tol_rel"]
                 and e.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL):
             raise RuntimeError(f"grid_encode_backward ({name}) differs: {e}")
+    if not c_fwd_err <= TOL_COMPOSITE:
+        raise RuntimeError(f"composite_rays differs from its twin at the step's shapes: "
+                           f"{c_fwd_err}")
     if not max(v["rel_err"] for v in c_err.values()) <= TOL_BACKWARD_REL:
         raise RuntimeError(f"composite_rays_backward differs: {c_err}")
 
@@ -845,6 +888,25 @@ def train_phases(report, out_dir, scene, opt):
         k.update(route="cuda", source=f"radnerf_tpu_torch/csrc/{k['name']}.cu",
                  replaces=REPLACES[k["name"]], launches=launches[k["name"]],
                  library_ms=None)
+    # kernels B (with noises) and C at the step's calls, on phase 8's inputs
+    nb, nf = march_work(o, d, nears, fars, m_args[6], mcfg, noises)
+    bms, by = bound_ms(nb, nf)
+    b_step = {"n_rays": N, "launches": launches["march_rays"],
+              "ms": cuda_ms(lambda: march_rays(*m_args, noises=noises), 20),
+              "plain_ms": cuda_ms(lambda: march_rays_plain(*m_args, noises=noises), 3),
+              "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+              "max_abs_err": march_err}
+    nb, nf = composite_work(sig, mk["dt"], mk["valid"], rc.T_thresh)
+    bms, by = bound_ms(nb, nf)
+    floor_b = composite_layout_floor(sig, mk["dt"], mk["valid"], rc.T_thresh)
+    c_step = {"n_rays": N, "n_valid": int(mk["valid"].sum()),
+              "launches": launches["composite_rays"],
+              "ms": cuda_ms(lambda: composite_rays(*c_args, T_thresh=rc.T_thresh), 20),
+              "plain_ms": cuda_ms(lambda: composite_rays_plain(*c_args, T_thresh=rc.T_thresh),
+                                  3),
+              "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+              "layout_floor_ms": bound_ms(floor_b, 0)[0], "layout_floor_bytes": floor_b}
+    tt["march_rays_step"], tt["composite_rays_step"] = b_step, c_step
     # kernel A at the step's D = 3 call (the spatial encode of its samples)
     a_args = (xs, net.encoder.detach(), cfg.grid_spec, cfg.bound)
     if not torch.equal(grid_encode(*a_args), grid_encode_plain(*a_args)):

@@ -4,58 +4,151 @@
 // form is a masked cumprod over the whole lattice (every step of every ray
 // is computed, then masked off past T_thresh) because a TPU has no per-ray
 // early exit. On Hopper it is the reference's own structure: one thread per
-// ray runs its S steps and stops once the transmittance after a step falls
+// ray runs its steps and stops once the transmittance after a step falls
 // below T_thresh (the crossing step is included; transmittance never rises,
 // so every later step would be masked).
 //
 // What bounds it on an H100: bytes. Per processed step it reads sigma, dt,
-// t, valid, rgb and ambient (29 B) for ~20 flops and one expf; per ray it
-// writes 24 B. Design: the valid byte is read first and an invalid step
-// reads nothing else; the early exit skips the rest of the row.
+// t, rgb and ambient (28 B) for ~15 flops and one expf; per ray it reads
+// its valid row and writes 24 B. The frame's rows are sparse (about one
+// valid slot a hit ray, none on most rays), the training step's dense.
+// Design:
 //
-// Arithmetic mirrors the plain twin (ops/marching.py composite_rays_plain)
-// op for op, with sequential float32 sums.
+// - The valid row is read first, whole: 16-byte loads when S is a multiple
+//   of 16 (one load at S = 16; a warp reads 512 contiguous bytes), bytes
+//   otherwise. A ray with no valid slot writes zeros and reads nothing
+//   else.
+// - Past that, only the 4-slot chunks that hold a valid slot are loaded,
+//   and as vectors when S is a multiple of 4 (rows 16-byte aligned): a
+//   float4 each of sigma, dt, t and ambient and three of rgb, all in flight
+//   together; a chunk costs about what one valid slot's scalar loads cost,
+//   and a dense row takes S / 4 rounds of loads instead of S.
+// - image [N, 3] goes out through a shared-memory tile, as one contiguous
+//   run of 16-byte stores a block.
+// - The arithmetic per ray stays sequential, op for op with the plain twin
+//   (ops/marching.py composite_rays_plain): the step is composite::step in
+//   composite_common.cuh, which kernel C' replays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-__global__ void composite_rays_kernel(
+constexpr int kThreads = 128;  // rays a block
+
+// valid slots c0 .. c0 + w - 1 (w <= 16) of a row as bits 0 .. w - 1
+template <bool kRow16>
+__device__ __forceinline__ uint32_t valid_bits(const uint8_t* __restrict__ v, int w) {
+  uint32_t bits = 0;
+  if (kRow16) {  // w == 16 and v 16-byte aligned
+    const uint4 q = *reinterpret_cast<const uint4*>(v);
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // one bit per nonzero byte, bytes 0..3 -> bits 0..3
+      const uint32_t m = __vcmpne4(words[j], 0u) & 0x01010101u;
+      bits |= ((m * 0x01020408u) >> 24) << (4 * j);
+    }
+  } else {
+    for (int j = 0; j < w; ++j) bits |= (uint32_t)(v[j] != 0) << j;
+  }
+  return bits;
+}
+
+template <bool kVec, bool kRow16>
+__global__ void __launch_bounds__(kThreads) composite_rays_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ dts, const float* __restrict__ ts,
-    const bool* __restrict__ valid, const float* __restrict__ ambient,
+    const uint8_t* __restrict__ valid, const float* __restrict__ ambient,
     float* __restrict__ image, float* __restrict__ depth,
-    float* __restrict__ weights_sum, float* __restrict__ ambient_sum,
-    long long N, int S, float T_thresh) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float T = 1.0f;  // transmittance before the step
-  float ws = 0.0f, dep = 0.0f, r = 0.0f, g = 0.0f, b = 0.0f, amb = 0.0f;
-  for (int s = 0; s < S; ++s) {
-    const long long i = n * S + s;
-    if (valid[i]) {
-      const float sig = sigmas[i];
-      const float dt = dts[i];
-      const float alpha = 1.0f - expf(-sig * dt);
-      const float w = alpha * T;
-      ws = ws + w;
-      dep = dep + w * (ts[i] + dt);
-      r = r + w * rgbs[3 * i];
-      g = g + w * rgbs[3 * i + 1];
-      b = b + w * rgbs[3 * i + 2];
-      amb = amb + ambient[i];
-      T = T * (1.0f - alpha);
+    float* __restrict__ weights_sum, float* __restrict__ ambient_sum, int N, int S,
+    float T_thresh) {
+  __shared__ __align__(16) float img[3 * kThreads];
+  const int n0 = blockIdx.x * kThreads;
+  const int n = n0 + threadIdx.x;
+  composite::Sums a;
+  float amb = 0.0f;
+  if (n < N) {
+    const size_t row = (size_t)n * S;
+    bool stop = false;
+    for (int c0 = 0; c0 < S && !stop; c0 += 16) {
+      uint32_t bits = valid_bits<kRow16>(valid + row + c0, min(16, S - c0));
+      while (bits != 0 && !stop) {
+        const int c = (__ffs(bits) - 1) & ~3;  // the next chunk with a valid slot
+        const uint32_t cb = (bits >> c) & 15u;
+        bits &= ~(15u << c);
+        const size_t i = row + c0 + c;
+        float sg[4], dt[4], tt[4], am[4], rgb[12];
+        if (kVec) {
+          const float4 s4 = *reinterpret_cast<const float4*>(sigmas + i);
+          const float4 d4 = *reinterpret_cast<const float4*>(dts + i);
+          const float4 t4 = *reinterpret_cast<const float4*>(ts + i);
+          const float4 a4 = *reinterpret_cast<const float4*>(ambient + i);
+          const float4* c4 = reinterpret_cast<const float4*>(rgbs + 3 * i);
+          const float4 c40 = c4[0], c41 = c4[1], c42 = c4[2];
+          sg[0] = s4.x, sg[1] = s4.y, sg[2] = s4.z, sg[3] = s4.w;
+          dt[0] = d4.x, dt[1] = d4.y, dt[2] = d4.z, dt[3] = d4.w;
+          tt[0] = t4.x, tt[1] = t4.y, tt[2] = t4.z, tt[3] = t4.w;
+          am[0] = a4.x, am[1] = a4.y, am[2] = a4.z, am[3] = a4.w;
+          rgb[0] = c40.x, rgb[1] = c40.y, rgb[2] = c40.z, rgb[3] = c40.w;
+          rgb[4] = c41.x, rgb[5] = c41.y, rgb[6] = c41.z, rgb[7] = c41.w;
+          rgb[8] = c42.x, rgb[9] = c42.y, rgb[10] = c42.z, rgb[11] = c42.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (cb >> j & 1u) {
+              sg[j] = sigmas[i + j], dt[j] = dts[i + j], tt[j] = ts[i + j];
+              am[j] = ambient[i + j];
+              rgb[3 * j] = rgbs[3 * (i + j)], rgb[3 * j + 1] = rgbs[3 * (i + j) + 1];
+              rgb[3 * j + 2] = rgbs[3 * (i + j) + 2];
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!(cb >> j & 1u)) continue;
+          if (!composite::processes(c0 + c + j, a, T_thresh)) {
+            stop = true;
+            break;
+          }
+          composite::step(a, sg[j], dt[j], tt[j], rgb[3 * j], rgb[3 * j + 1], rgb[3 * j + 2]);
+          amb = amb + am[j];
+        }
+      }
     }
-    if (!(T >= T_thresh)) break;  // later steps are not processed
+    depth[n] = a.depth;
+    weights_sum[n] = a.ws;
+    ambient_sum[n] = amb;
   }
-  image[3 * n] = r;
-  image[3 * n + 1] = g;
-  image[3 * n + 2] = b;
-  depth[n] = dep;
-  weights_sum[n] = ws;
-  ambient_sum[n] = amb;
+  img[3 * threadIdx.x] = a.r;
+  img[3 * threadIdx.x + 1] = a.g;
+  img[3 * threadIdx.x + 2] = a.b;
+  __syncthreads();
+  // the block's rows of image are one run of 3 * rays floats from a 16-byte
+  // boundary (n0 is a multiple of 128)
+  const int n_out = 3 * min(kThreads, N - n0);
+  float* const out = image + 3 * (size_t)n0;
+  for (int i = threadIdx.x; i < n_out / 4; i += kThreads) {
+    reinterpret_cast<float4*>(out)[i] = reinterpret_cast<const float4*>(img)[i];
+  }
+  const int tail = (n_out / 4) * 4 + threadIdx.x;
+  if (tail < n_out) out[tail] = img[tail];
 }
+
+template <bool kVec, bool kRow16>
+void launch(const void* sigmas, const void* rgbs, const void* dts, const void* ts,
+            const void* valid, const void* ambient, void* image, void* depth,
+            void* weights_sum, void* ambient_sum, int N, int S, float T_thresh,
+            cudaStream_t stream) {
+  composite_rays_kernel<kVec, kRow16><<<(N + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      (const float*)sigmas, (const float*)rgbs, (const float*)dts, (const float*)ts,
+      (const uint8_t*)valid, (const float*)ambient, (float*)image, (float*)depth,
+      (float*)weights_sum, (float*)ambient_sum, N, S, T_thresh);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -65,12 +158,27 @@ extern "C" int composite_rays_fwd(const void* sigmas, const void* rgbs,
                                   void* image, void* depth, void* weights_sum,
                                   void* ambient_sum, long long N, int S,
                                   float T_thresh, void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((N + threads - 1) / threads);
-  composite_rays_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)sigmas, (const float*)rgbs, (const float*)dts,
-      (const float*)ts, (const bool*)valid, (const float*)ambient,
-      (float*)image, (float*)depth, (float*)weights_sum, (float*)ambient_sum, N,
-      S, T_thresh);
+  if (N < 0 || N > 0x7fffffffLL - kThreads || S < 1 || !aligned16(image)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (N == 0) return 0;
+  // vectors where every row starts 16-byte aligned; an input view that
+  // does not takes the scalar path
+  const bool vec = S % 4 == 0 && aligned16(sigmas) && aligned16(rgbs) && aligned16(dts) &&
+                   aligned16(ts) && aligned16(ambient);
+  const bool row16 = S % 16 == 0 && aligned16(valid);
+  using Launch = void (*)(const void*, const void*, const void*, const void*, const void*,
+                         const void*, void*, void*, void*, void*, int, int, float,
+                         cudaStream_t);
+  Launch fn = launch<false, false>;
+  if (vec && row16) {
+    fn = launch<true, true>;
+  } else if (vec) {
+    fn = launch<true, false>;
+  } else if (row16) {
+    fn = launch<false, true>;
+  }
+  fn(sigmas, rgbs, dts, ts, valid, ambient, image, depth, weights_sum, ambient_sum, (int)N, S,
+     T_thresh, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

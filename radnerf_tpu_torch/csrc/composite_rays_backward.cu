@@ -19,11 +19,15 @@
 // t, valid and rgb (25 B) and writes 20 B of gradients for ~40 flops and
 // one expf; every step of the [N, S] lattice is written (zeros past the
 // stop). Design: one thread per ray, the walk of kernel C repeated with the
-// same float32 operations in the same order, so the prefix sums at the last
-// processed step equal the saved outputs exactly and the suffixes end at 0.
+// same float32 operations in the same order (composite::step and
+// composite::processes from composite_common.cuh, which kernel C runs), so
+// the prefix sums at the last processed step equal the saved outputs
+// exactly and the suffixes end at 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "composite_common.cuh"
 
 namespace {
 
@@ -45,28 +49,21 @@ __global__ void composite_rays_bwd_kernel(
               b_fin = image[3 * n + 2];
   const float d_fin = depth[n], ws_fin = weights_sum[n];
 
-  float T = 1.0f;  // transmittance before the step
-  float ws = 0.0f, dep = 0.0f, r = 0.0f, g = 0.0f, b = 0.0f;
+  composite::Sums a;
   int s = 0;
-  for (; s < S; ++s) {
+  for (; s < S && composite::processes(s, a, T_thresh); ++s) {
     const long long i = n * S + s;
     if (valid[i]) {
       const float sig = sigmas[i];
       const float dt = dts[i];
-      const float alpha = 1.0f - expf(-sig * dt);
-      const float w = alpha * T;
       const float td = ts[i] + dt;
       const float cr = rgbs[3 * i], cg = rgbs[3 * i + 1], cb = rgbs[3 * i + 2];
-      ws = ws + w;
-      dep = dep + w * td;
-      r = r + w * cr;
-      g = g + w * cg;
-      b = b + w * cb;
-      T = T * (1.0f - alpha);
+      const float w = composite::step(a, sig, dt, ts[i], cr, cg, cb);
+      const float T = a.T;  // after the step
       const float own = gw * T + gd * (td * T) + gr * (cr * T) + gg * (cg * T) +
                         gb * (cb * T);
-      const float later = gw * (ws_fin - ws) + gd * (d_fin - dep) +
-                          gr * (r_fin - r) + gg * (g_fin - g) + gb * (b_fin - b);
+      const float later = gw * (ws_fin - a.ws) + gd * (d_fin - a.depth) +
+                          gr * (r_fin - a.r) + gg * (g_fin - a.g) + gb * (b_fin - a.b);
       grad_sigmas[i] = dt * (own - later);
       grad_rgbs[3 * i] = gr * w;
       grad_rgbs[3 * i + 1] = gg * w;
@@ -79,11 +76,8 @@ __global__ void composite_rays_bwd_kernel(
       grad_rgbs[3 * i + 2] = 0.0f;
       grad_ambient[i] = 0.0f;
     }
-    if (!(T >= T_thresh)) {  // later steps were not processed
-      ++s;
-      break;
-    }
   }
+  // steps past the early stop were not processed
   for (; s < S; ++s) {
     const long long i = n * S + s;
     grad_sigmas[i] = 0.0f;

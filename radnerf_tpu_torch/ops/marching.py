@@ -34,6 +34,9 @@ from ._kernels import KERNELS, refuse_grad, require_cuda_tensors
 from .morton import morton3d
 
 SQRT3 = 1.7320508075688772
+# kernel B holds a block's rays' [S] rows in shared memory, 21 B a slot; at
+# 2,048 slots its fewest rays, four, take 172 KB of the 227 KB a block may have
+MAX_SLOTS = 2048
 # share of the lower-bound optical depth sigma_lo * dt the cull counts
 # (kCullSafety in csrc/march_rays.cu)
 CULL_SAFETY = 0.5
@@ -200,6 +203,8 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     _check_march(cfg)
     N = rays_o.shape[0]
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
+    if S > MAX_SLOTS:
+        raise ValueError(f"kernel B takes at most {MAX_SLOTS} sample slots, not {S}")
     t_lo, t_hi = t_window
     refuse_grad("kernel B", rays_o=rays_o, rays_d=rays_d)
     ins = [v.contiguous() for v in (rays_o, rays_d, nears, fars, t_lo, t_hi)]

@@ -29,6 +29,7 @@ import torch
 
 from radnerf_tpu_torch import ops as T
 from radnerf_tpu_torch.ops import _kernels
+from radnerf_tpu_torch.ops.marching import MAX_SLOTS
 
 pytestmark = pytest.mark.cuda
 
@@ -83,17 +84,13 @@ def test_grid_encode_kernel_matches_twin(dev, layout, input_dim):
     assert T.grid_encode(x[:0], emb, spec).shape == (0, 32)
 
 
-@pytest.mark.parametrize("cull_T", [0.0, 1e-4])
-def test_march_kernel_matches_twin(dev, cull_T):
-    H = 64
-    cfg = T.MarchConfig(grid_size=H, max_steps=16, dt_gamma=0.0)
-    rng = np.random.default_rng(5)
+def _march_scene(N, H, rng):
+    """A blob of density 30 (radius 0.5) with scattered cells of 300 on a
+    grid of H (Morton order) and N rays from z = -3 towards +z through it."""
     coords = T.morton3d_invert(torch.arange(H**3)).numpy()
     xyz = 2.0 * (coords + 0.5) / H - 1.0
     dens = np.where(np.linalg.norm(xyz, axis=-1) < 0.5, 30.0, 0.0).astype(np.float32)
     dens[rng.random(H**3) < 0.02] = 300.0
-    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
-    N = 20_000
     o = np.zeros((N, 3), np.float32)
     o[:, 2] = -3.0
     o[:, :2] = rng.uniform(-0.8, 0.8, (N, 2))
@@ -101,36 +98,72 @@ def test_march_kernel_matches_twin(dev, cull_T):
     d[:, 2] = 1.0
     d[:, :2] = rng.uniform(-0.1, 0.1, (N, 2))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return dens, o, d
+
+
+# S = 16 is the shipped lattice, 13 not a multiple of 4 (rows off 16-byte
+# lines); N = 20,003 is not a multiple of any block's ray count
+@pytest.mark.parametrize("noises", [False, True], ids=["plain", "noises"])
+@pytest.mark.parametrize("slots", [16, 13])
+@pytest.mark.parametrize("cull_T", [0.0, 1e-4])
+def test_march_kernel_matches_twin(dev, cull_T, slots, noises):
+    """Kernel B bit for bit with its twin: valid and count identical on
+    every ray, t, dt and xyz equal, unused slots exactly 0; with rays whose
+    count exceeds S (without the cull), a tenth of the windows empty
+    (t_lo == t_hi) and a tenth inverted (t_lo > t_hi), with and without
+    noises."""
+    H, N = 64, 20_003
+    cfg = T.MarchConfig(grid_size=H, max_steps=16, dt_gamma=0.0, sample_slots=slots)
+    rng = np.random.default_rng(5 + slots + 2 * noises)
+    dens, o, d = _march_scene(N, H, rng)
+    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
     o, d = _t(o, dev), _t(d, dev)
     aabb = torch.tensor([-1, -0.5, -1, 1, 0.5, 1], dtype=torch.float32, device=dev)
     nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
-    window = (nears + 0.3, fars - 0.2)
-    got = T.march_rays(o, d, nears, fars, sb, cfg, window, cull_T)
-    want = T.march_rays_plain(o, d, nears, fars, sb, cfg, window, cull_T)
+    t_lo, t_hi = nears + 0.3, fars - 0.2
+    kind = _t(rng.integers(0, 10, N), dev)
+    t_hi = torch.where(kind == 0, t_lo, torch.where(kind == 1, t_lo - 0.5, t_hi))
+    args = (o, d, nears, fars, sb, cfg, (t_lo, t_hi), cull_T)
+    kw = {"noises": _t(rng.random(N).astype(np.float32), dev)} if noises else {}
+    k = _kernels.KERNELS["march_rays"]
+    before = k.launches
+    got = T.march_rays(*args, **kw)
+    assert k.launches == before + 1
+    want = T.march_rays_plain(*args, **kw)
     torch.cuda.synchronize()
     assert int(want["valid"].sum()) > 10_000
+    if cull_T == 0.0:  # truncated rays (the cull keeps at most 13 points a ray here)
+        assert int((want["count"] > slots).sum()) > 1000
+    # an inverted window marches nothing, an empty one at most the step at t_lo
+    assert int(want["count"][kind == 1].max()) == 0
+    assert int(want["count"][kind == 0].max()) <= 1
     assert torch.equal(got["valid"], want["valid"])
     assert torch.equal(got["count"], want["count"])
-    for k in ("t", "dt", "xyz"):
-        assert float((got[k] - want[k]).abs().max()) <= 1e-6, k
+    for key in ("t", "dt", "xyz"):
+        assert torch.equal(got[key], want[key]), key
+        assert int((got[key].reshape(N, slots, -1)[~got["valid"]] != 0).sum()) == 0
+    if noises:
+        assert not torch.equal(got["t"], T.march_rays(*args)["t"])
 
 
-def test_composite_kernel_matches_twin(dev):
-    rng = np.random.default_rng(6)
-    N, S = 50_000, 16
-    sig = rng.uniform(0.0, 40.0, (N, S)).astype(np.float32)
-    dts = np.full((N, S), 0.05, np.float32)
-    ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
-    valid = rng.random((N, S)) < 0.85
-    dts[~valid] = 0.0
-    args = [_t(v, dev) for v in (sig, rng.random((N, S, 3)).astype(np.float32), dts, ts, valid)]
-    amb = _t(rng.random((N, S)).astype(np.float32), dev)
-    got = T.composite_rays(*args, ambient=amb, T_thresh=1e-4)
-    want = T.composite_rays_plain(*args, ambient=amb, T_thresh=1e-4)
+def test_march_kernel_takes_the_widest_lattice(dev):
+    """At S = MAX_SLOTS a block's tile needs more than the default 48 KB of
+    shared memory (the launch opts in to more): kernel B stays bit for bit
+    with its twin."""
+    H, N = 64, 1_003
+    cfg = T.MarchConfig(grid_size=H, max_steps=MAX_SLOTS, dt_gamma=0.0)
+    assert cfg.n_sample_slots == MAX_SLOTS
+    dens, o, d = _march_scene(N, H, np.random.default_rng(9))
+    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
+    o, d = _t(o, dev), _t(d, dev)
+    aabb = torch.tensor([-1, -0.5, -1, 1, 0.5, 1], dtype=torch.float32, device=dev)
+    nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
+    args = (o, d, nears, fars, sb, cfg, (nears, fars), 0.0)
+    got, want = T.march_rays(*args), T.march_rays_plain(*args)
     torch.cuda.synchronize()
-    for k in got:
-        assert float((got[k] - want[k]).abs().max()) <= 1e-5, k
-    assert -math.log(1e-4) < float((args[0] * args[2]).sum(1).max())
+    assert int(want["count"].max()) > 100
+    for key in ("valid", "count", "t", "dt", "xyz"):
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_kernel_wrapper_refuses_bad_inputs(dev):
@@ -145,8 +178,15 @@ def test_kernel_wrapper_refuses_bad_inputs(dev):
         T.composite_rays(z, torch.zeros(4, 3, 3, device=dev), z, z, z.bool(), z)
     o = torch.zeros(4, 3, device=dev)
     sb = torch.zeros(32**3, dtype=torch.uint8, device=dev)
+    mcfg = T.MarchConfig(grid_size=32, dt_gamma=0.0)
     with pytest.raises(ValueError):  # nears of the wrong length
-        T.march_rays(o, o, z[:3, 0], z[:, 0], sb, T.MarchConfig(grid_size=32, dt_gamma=0.0),
+        T.march_rays(o, o, z[:3, 0], z[:, 0], sb, mcfg, (z[:, 0], z[:, 0]))
+    with pytest.raises(ValueError):  # more slots than a block's tile holds
+        T.march_rays(o, o, z[:, 0], z[:, 0], sb,
+                     T.MarchConfig(grid_size=32, dt_gamma=0.0, max_steps=MAX_SLOTS + 1),
+                     (z[:, 0], z[:, 0]))
+    with pytest.raises(RuntimeError):  # kernel B has no backward
+        T.march_rays(o.clone().requires_grad_(True), o, z[:, 0], z[:, 0], sb, mcfg,
                      (z[:, 0], z[:, 0]))
 
 
@@ -207,68 +247,97 @@ def test_grid_encode_backward_kernel_matches_plain(dev, layout, input_dim):
     assert T.grid_encode_backward(x, emb, g, spec, need_x=False)[1] is None
 
 
-def test_composite_backward_kernel_matches_plain(dev):
-    rng = np.random.default_rng(26)
-    N, S = 50_000, 16
+def _composite_rows(layout, N, S, rng):
+    """Composite inputs (sigma, rgb, dt, t, valid, ambient) as numpy:
+    "dense" rows (85% valid, transmittance crossing T_thresh = 1e-4
+    mid-lattice: the training step), "sparse" (at most one valid slot a ray,
+    none on half the rays: the frame), "empty", "stop-first" (every slot
+    valid; every other ray stops after its first slot) and "stop-last"
+    (every slot valid; the crossing step is the second-to-last slot on half
+    the rays, the last on the other half). A stop-first ray alone would
+    hold C' to nothing: its one processed step has an alpha that rounds to
+    1 in float32, so the forward's transmittance after it is exactly 0 and
+    C' gives d sigma = 0 where autograd's exp gives ~1e-10."""
     sig = rng.uniform(0.0, 40.0, (N, S)).astype(np.float32)
     dts = np.full((N, S), 0.05, np.float32)
     ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
-    valid = rng.random((N, S)) < 0.85
+    valid = np.ones((N, S), bool)
+    if layout == "dense":
+        valid = rng.random((N, S)) < 0.85
+    elif layout == "sparse":
+        valid = np.zeros((N, S), bool)
+        valid[np.arange(N), rng.integers(0, S, N)] = True
+        valid[rng.random(N) < 0.5] = False
+    elif layout == "empty":
+        valid[:] = False
+    elif layout == "stop-first":
+        sig[::2, 0] = 400.0  # optical depth 20 > -ln(1e-4) in the first step
+    elif layout == "stop-last":
+        sig[:] = 1.0  # 0.05 a step
+        last = np.where(np.arange(N) % 2 == 0, S - 2, S - 1)
+        sig[np.arange(N), last] = 400.0
     dts[~valid] = 0.0
-    args = [_t(v, dev) for v in (sig, rng.random((N, S, 3)).astype(np.float32), dts, ts,
-                                 valid, rng.random((N, S)).astype(np.float32))]
+    return (sig, rng.random((N, S, 3)).astype(np.float32), dts, ts, valid,
+            rng.random((N, S)).astype(np.float32))
+
+
+# S = 16: vector loads of every input and of the valid row; 20: vector
+# loads, valid bytes one by one; 13: scalar loads; "offset": S = 16 with
+# the float inputs one float past a 16-byte line (the scalar path)
+_COMPOSITE_CASES = [("dense", 16), ("sparse", 16), ("empty", 16), ("stop-first", 16),
+                    ("stop-last", 16), ("dense", 20), ("dense", 13), ("sparse", 13),
+                    ("stop-last", 13), ("offset", 16)]
+
+
+@pytest.mark.parametrize("layout,S", _COMPOSITE_CASES, ids=lambda v: str(v))
+def test_composite_kernels_match_plain(dev, layout, S):
+    """Kernel C within 1e-5 of its twin, and kernel C' on C's outputs within
+    1e-5 of the largest gradient of autograd through the twin (see the
+    module's note)."""
+    rng = np.random.default_rng(6 + S)
+    N = 50_003
+    arrays = _composite_rows("dense" if layout == "offset" else layout, N, S, rng)
+    args = [_t(v, dev) for v in arrays]
+    if layout == "offset":  # the same values one float past an aligned start
+        for j in (0, 1, 2, 3, 5):
+            flat = torch.zeros(args[j].numel() + 1, device=dev)
+            flat[1:] = args[j].reshape(-1)
+            args[j] = flat[1:].view(args[j].shape)
+    kc, kb = _kernels.KERNELS["composite_rays"], _kernels.KERNELS["composite_rays_backward"]
+    before = kc.launches
+    got = T.composite_rays(*args, T_thresh=1e-4)
+    assert kc.launches == before + 1
+    want = T.composite_rays_plain(*args, T_thresh=1e-4)
+    torch.cuda.synchronize()
+    for k in got:
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5, k
+    if layout == "empty":
+        assert all(float(v.abs().max()) == 0.0 for v in got.values())
+    if layout == "stop-first":  # the even rays stop after their first slot
+        assert bool((want["weights_sum"][::2] > 0.999).all())
+        assert bool((got["depth"][::2] == (args[3][::2, 0] + args[2][::2, 0]) *
+                     got["weights_sum"][::2]).all())
+    if layout == "stop-last":  # every ray stops at or before its last slot
+        assert bool((want["weights_sum"] > 0.999).all())
+
     keys = ("image", "depth", "weights_sum", "ambient_sum")
     grads = {k: _t(rng.normal(size=(N, 3) if k == "image" else (N,)).astype(np.float32), dev)
              for k in keys}
-    outs = T.composite_rays(*args, T_thresh=1e-4)
-    k = _kernels.KERNELS["composite_rays_backward"]
-    before = k.launches
-    got = T.composite_rays_backward(*args, grads, outs, T_thresh=1e-4)
-    assert k.launches == before + 1
-    want = T.composite_rays_backward_plain(*args, grads, T_thresh=1e-4)
+    before = kb.launches
+    g_k = T.composite_rays_backward(*args, grads, got, T_thresh=1e-4)
+    assert kb.launches == before + 1
+    g_p = T.composite_rays_backward_plain(*args, grads, T_thresh=1e-4)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
+    for a, b in zip(g_k, g_p):
         assert _rel_err(a, b) <= 1e-5
-    assert float(got[0][~args[4]].abs().max()) == 0.0
-    # the autograd path
-    sr, rr, ar = (v.clone().requires_grad_(True) for v in (args[0], args[1], args[5]))
-    out = T.composite_rays(sr, rr, args[2], args[3], args[4], ar, T_thresh=1e-4)
-    assert out["image"].grad_fn is not None
-    sum((out[k2] * grads[k2]).sum() for k2 in keys).backward()
-    for a, b in zip((sr.grad, rr.grad, ar.grad), want):
-        assert _rel_err(a, b) <= 1e-5
-
-
-def test_march_kernel_with_noises_matches_twin(dev):
-    H = 64
-    cfg = T.MarchConfig(grid_size=H, max_steps=16, dt_gamma=0.0)
-    rng = np.random.default_rng(27)
-    coords = T.morton3d_invert(torch.arange(H**3)).numpy()
-    xyz = 2.0 * (coords + 0.5) / H - 1.0
-    dens = np.where(np.linalg.norm(xyz, axis=-1) < 0.5, 30.0, 0.0).astype(np.float32)
-    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
-    N = 20_000
-    o = np.zeros((N, 3), np.float32)
-    o[:, 2] = -3.0
-    o[:, :2] = rng.uniform(-0.8, 0.8, (N, 2))
-    d = np.zeros((N, 3), np.float32)
-    d[:, 2] = 1.0
-    o, d = _t(o, dev), _t(d, dev)
-    aabb = torch.tensor([-1, -0.5, -1, 1, 0.5, 1], dtype=torch.float32, device=dev)
-    nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
-    noises = _t(rng.random(N).astype(np.float32), dev)
-    args = (o, d, nears, fars, sb, cfg, (nears + 0.3, fars - 0.2), 1e-4)
-    got = T.march_rays(*args, noises=noises)
-    want = T.march_rays_plain(*args, noises=noises)
-    torch.cuda.synchronize()
-    assert int(want["valid"].sum()) > 10_000
-    assert torch.equal(got["valid"], want["valid"]) and torch.equal(got["count"], want["count"])
-    for key in ("t", "dt", "xyz"):
-        assert float((got[key] - want[key]).abs().max()) <= 1e-6, key
-        assert int((got[key].reshape(N, 16, -1)[~got["valid"]] != 0).sum()) == 0
-    assert not torch.equal(got["t"], T.march_rays(*args)["t"])
-    with pytest.raises(RuntimeError):  # kernel B has no backward
-        T.march_rays(o.clone().requires_grad_(True), *args[1:])
+    assert float(g_k[0][~args[4]].abs().sum()) == 0.0  # no gradient into invalid slots
+    if (layout, S) == ("dense", 16):  # the autograd path
+        sr, rr, ar = (v.clone().requires_grad_(True) for v in (args[0], args[1], args[5]))
+        out = T.composite_rays(sr, rr, args[2], args[3], args[4], ar, T_thresh=1e-4)
+        assert out["image"].grad_fn is not None
+        sum((out[k2] * grads[k2]).sum() for k2 in keys).backward()
+        for a, b in zip((sr.grad, rr.grad, ar.grad), g_p):
+            assert _rel_err(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 16), (torch.float32, 3),

@@ -206,15 +206,21 @@ def _blob_scene(H=32, N=96, seed=3):
     return dens, o, d, rng
 
 
-@pytest.mark.parametrize("cull_T", [0.0, 1e-4])
-def test_march_twin_matches_jax(cull_T):
+# the earlier cases keep their ids ("0.0", "0.0001"); "-slots3" cuts the
+# lattice to 3 slots, below many rays' counts
+@pytest.mark.parametrize("cull_T,slots", [
+    pytest.param(c, s, id=f"{c}" if s is None else f"{c}-slots{s}")
+    for s in (None, 3) for c in (0.0, 1e-4)])
+def test_march_twin_matches_jax(cull_T, slots):
     """Twin vs JAX march_rays (sigma-byte path, affine orbit, windowed) on a
-    blob grid of 32 with max_steps 8: the same sample set (valid identical),
-    t and xyz within 1e-5 where valid, the same max_count."""
+    blob grid of 32 with max_steps 8, and with the lattice truncated to
+    ``sample_slots``: the same sample set (valid identical), t and xyz
+    within 1e-5 where valid, the same max_count."""
     H = 32
-    cfg_j = jmarch.MarchConfig(bound=1.0, grid_size=H, max_steps=8, dt_gamma=0.0)
-    cfg_t = T.MarchConfig(bound=1.0, grid_size=H, max_steps=8, dt_gamma=0.0)
+    kw = dict(bound=1.0, grid_size=H, max_steps=8, dt_gamma=0.0, sample_slots=slots)
+    cfg_j, cfg_t = jmarch.MarchConfig(**kw), T.MarchConfig(**kw)
     assert cfg_t.n_march_iters == cfg_j.n_march_iters
+    assert cfg_t.n_sample_slots == cfg_j.n_sample_slots
     dens, o, d, rng = _blob_scene(H)
     aabb = jnp.asarray([-1.0, -0.5, -1.0, 1.0, 0.5, 1.0])
     nears, fars = (_np(v) for v in j_near_far(jnp.asarray(o), jnp.asarray(d), aabb, 0.05))
@@ -231,7 +237,10 @@ def test_march_twin_matches_jax(cull_T):
                        T.build_sigma_bytes(_T(dens), 5.0), cfg_t,
                        t_window=(_T(t_lo), _T(t_hi)), cull_T=cull_T)
     valid = _np(want["valid"])
-    assert valid.sum() > 100  # the scene is not trivial
+    assert valid.sum() > (100 if slots is None else 50)  # the scene is not trivial
+    assert valid.shape == (96, cfg_t.n_sample_slots)
+    if slots is not None:  # the truncation cuts many rays
+        assert (got["count"].numpy() > slots).sum() >= 10
     np.testing.assert_array_equal(got["valid"].numpy(), valid)
     for k in ("t", "dt", "xyz"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), atol=1e-5, rtol=0)
@@ -249,26 +258,49 @@ def test_march_rejects_unported_orbits():
 
 
 # --------------------------------------------------------------- composite
-def test_composite_twin_matches_jax():
-    """Twin vs JAX composite_rays on rays whose transmittance crosses
-    T_thresh mid-lattice, with invalid holes. Tolerance 1e-6 (abs and rel):
-    the sums run over 16 steps in another order."""
-    rng = np.random.default_rng(4)
-    N, S = 256, 16
+def _composite_rows(layout, N, S, rng):
+    """Composite inputs (sigma, rgb, dt, t, valid, ambient) whose valid rows
+    are laid out as the paths give them: "dense" (85% valid, the training
+    step), "sparse" (at most one valid slot a ray, none on half the rays:
+    the frame), "empty" (no valid slot)."""
     sig = rng.uniform(0.0, 40.0, (N, S)).astype(np.float32)
     dts = np.full((N, S), 0.05, np.float32)
     ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
-    valid = rng.random((N, S)) < 0.85
+    if layout == "dense":
+        valid = rng.random((N, S)) < 0.85
+    elif layout == "sparse":
+        valid = np.zeros((N, S), bool)
+        valid[np.arange(N), rng.integers(0, S, N)] = True
+        valid[rng.random(N) < 0.5] = False
+    else:
+        valid = np.zeros((N, S), bool)
     rgb = rng.random((N, S, 3)).astype(np.float32)
     amb = rng.random((N, S)).astype(np.float32)
     dts[~valid] = 0.0
+    return sig, rgb, dts, ts, valid, amb
+
+
+# the earlier case keeps its id ("dense-16")
+@pytest.mark.parametrize("layout,S", [("dense", 16), ("sparse", 16), ("empty", 16),
+                                      ("dense", 13), ("sparse", 13)],
+                         ids=lambda v: str(v))
+def test_composite_twin_matches_jax(layout, S):
+    """Twin vs JAX composite_rays on dense rows whose transmittance crosses
+    T_thresh mid-lattice with invalid holes, on sparse and on empty rows,
+    and at an S that is not 16. Tolerance 1e-6 (abs and rel): the sums run
+    over S steps in another order."""
+    rng = np.random.default_rng(4)
+    N = 256
+    sig, rgb, dts, ts, valid, amb = _composite_rows(layout, N, S, rng)
     want = jmarch.composite_rays(*(jnp.asarray(v) for v in (sig, rgb, dts, ts, valid)),
                                  ambient=jnp.asarray(amb), T_thresh=1e-4)
     got = T.composite_rays(*(_T(v) for v in (sig, rgb, dts, ts, valid)),
                            ambient=_T(amb), T_thresh=1e-4)
-    # the early stop really cuts rays mid-lattice
-    tau = np.cumsum(np.where(valid, sig * dts, 0.0), axis=1)
-    crossed = (tau[:, :-1] > -math.log(1e-4)).any(axis=1)
-    assert 0.2 < crossed.mean() < 1.0
+    if layout == "dense":  # the early stop really cuts rays mid-lattice
+        tau = np.cumsum(np.where(valid, sig * dts, 0.0), axis=1)
+        crossed = (tau[:, :-1] > -math.log(1e-4)).any(axis=1)
+        assert 0.2 < crossed.mean() < 1.0
+    if layout == "empty":
+        assert all(float(v.abs().max()) == 0.0 for v in got.values())
     for k in ("image", "depth", "weights_sum", "ambient_sum"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), atol=1e-6, rtol=1e-6)
