@@ -48,6 +48,9 @@ defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
      on the step's D = 3 points (held bit for bit to its twin); B (with
      noises) and C on phase 8's inputs, with their launches in the run.
 
+Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
+calls as the host enqueues them (a kernel shorter than its wrapper's Python
+reads the host); ``device_ms`` times the same calls queued on the card.
 Kernel C's entries also carry its layout floor: the bytes the [N, S]
 lattice makes any compositor move (whole valid rows, whole 32-byte sectors
 around each processed step), which its bound does not count.
@@ -128,15 +131,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of fn() over ``reps`` back-to-back calls on
-    the current stream, after warm-up calls for at least 50 ms (one at
-    least): after an idle stretch the card's clocks need a few ms of load to
-    rise, and 20 launches of a 0.05 ms kernel are not that long. The timed
-    calls queue behind a sleep kernel that lasts about twice the host's time
-    to enqueue them (at most 100 ms), so the card runs them back to back: a
-    wrapper's Python can take longer than a short kernel, and without the
-    queue the events would time the host."""
+def _warm_up(fn):
+    """fn() fenced call by call for at least 50 ms (one call at least):
+    after an idle stretch the card's clocks need a few ms of load to rise,
+    and 20 launches of a 0.05 ms kernel are not that long. Returns the mean
+    ms of a fenced call."""
     torch.cuda.synchronize()
     t0, calls = time.perf_counter(), 0
     while True:
@@ -144,11 +143,10 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         calls += 1
         if time.perf_counter() - t0 >= 0.05:
-            break
-    # a call's host time is at most its fenced time; the card's clock is at
-    # most ~2 GHz, so 2e6 cycles last at least 1 ms
-    host_ms = (time.perf_counter() - t0) / calls * 1e3
-    torch.cuda._sleep(int(min(2.0 * reps * host_ms, 100.0) * 2e6))
+            return (time.perf_counter() - t0) / calls * 1e3
+
+
+def _events_ms(fn, reps):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -156,6 +154,25 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of fn() over ``reps`` back-to-back calls on the
+    current stream, after the warm-up. The events bracket the calls as the
+    host enqueues them, so where a wrapper's Python takes longer than its
+    kernel this reads the host; ``device_ms`` reads the card."""
+    _warm_up(fn)
+    return _events_ms(fn, reps)
+
+
+def device_ms(fn, reps):
+    """``cuda_ms`` with the timed calls queued behind a sleep kernel that
+    lasts about twice the host's time to enqueue them (at most 100 ms), so
+    the card runs them back to back and the events time the card alone."""
+    host_ms = _warm_up(fn)  # a call's host time is at most its fenced time
+    # the card's clock is at most ~2 GHz, so 2e6 cycles last at least 1 ms
+    torch.cuda._sleep(int(min(2.0 * reps * host_ms, 100.0) * 2e6))
+    return _events_ms(fn, reps)
 
 
 def bound_ms(n_bytes, n_flops):
@@ -587,27 +604,31 @@ def main():
 
     kernels = []
     # grid encode: one kernel, three launches a frame; times and work summed
-    g = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
+    g = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
     for name, args in grid_calls.items():
         ms = cuda_ms(lambda: grid_encode(*args), 20)
+        dms = device_ms(lambda: grid_encode(*args), 20)
         pms = cuda_ms(lambda: grid_encode_plain(*args), 3)
         nb, nf = grid_work(args[0], args[2], args[3])
         bms, by = bound_ms(nb, nf)
-        g["calls"][name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                            "bytes": nb, "flops": nf, "n_points": int(args[0].shape[0])}
+        g["calls"][name] = {"ms": ms, "device_ms": dms, "plain_ms": pms, "bound_ms": bms,
+                            "bound_by": by, "bytes": nb, "flops": nf,
+                            "n_points": int(args[0].shape[0])}
         g["ms"] += ms
+        g["device_ms"] += dms
         g["plain_ms"] += pms
         g["bytes"] += nb
         g["flops"] += nf
     bms, by = bound_ms(g["bytes"], g["flops"])
-    kernels.append({"name": "grid_encode", "ms": g["ms"], "plain_ms": g["plain_ms"],
-                    "bound_ms": bms, "bound_by": by,
+    kernels.append({"name": "grid_encode", "ms": g["ms"], "device_ms": g["device_ms"],
+                    "plain_ms": g["plain_ms"], "bound_ms": bms, "bound_by": by,
                     "max_abs_err": checks["grid_encode"]["max_abs_err"],
                     "calls": g["calls"]})
 
     nb, nf = march_work(o, d, nears, fars, window, mcfg)
     bms, by = bound_ms(nb, nf)
     kernels.append({"name": "march_rays", "ms": cuda_ms(lambda: march_rays(*m_args), 20),
+                    "device_ms": device_ms(lambda: march_rays(*m_args), 20),
                     "plain_ms": cuda_ms(lambda: march_rays_plain(*m_args), 3),
                     "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
                     "max_abs_err": march_err})
@@ -617,6 +638,7 @@ def main():
     floor_b = composite_layout_floor(c_args[0], c_args[2], c_args[4], rc.T_thresh)
     kernels.append({"name": "composite_rays",
                     "ms": cuda_ms(lambda: composite_rays(*c_args, **c_kw), 20),
+                    "device_ms": device_ms(lambda: composite_rays(*c_args, **c_kw), 20),
                     "plain_ms": cuda_ms(lambda: composite_rays_plain(*c_args, **c_kw), 3),
                     "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
                     "layout_floor_ms": bound_ms(floor_b, 0)[0], "layout_floor_bytes": floor_b,
@@ -629,6 +651,7 @@ def main():
     report["timing"]["kernels"] = list(kernels)  # the frame's three only
     emit({"phase": "timing", "frame_ms": frame_ms, "fps": report["timing"]["fps"],
           "kernel_ms": {k["name"]: k["ms"] for k in kernels},
+          "kernel_device_ms": {k["name"]: k["device_ms"] for k in kernels},
           "grid_encode_calls": {n: {k: v for k, v in c.items() if "ms" in k}
                                 for n, c in g["calls"].items()}})
 
@@ -641,7 +664,7 @@ def main():
         json.dump(report, f, indent=1)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -852,24 +875,28 @@ def train_phases(report, out_dir, scene, opt):
     kernels = []
     # A': the kernels line sums the step's two calls; the spread points are
     # beside them
-    g = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
+    g = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "calls": {}}
     for name, (x, emb, spec, bound, need_x) in bwd_calls.items():
         go = g_outs[name]
-        ms = cuda_ms(lambda: grid_encode_backward(x, emb, go, spec, bound, need_x=need_x), 20)
+        def bwd():
+            return grid_encode_backward(x, emb, go, spec, bound, need_x=need_x)
+        ms, dms = cuda_ms(bwd, 20), device_ms(bwd, 20)
         nb, nf = grid_backward_work(x, spec, bound, need_x)
         bms, by = bound_ms(nb, nf)
-        call = {"ms": ms, "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
-                "n_points": n_s, "x_grad": need_x}
+        call = {"ms": ms, "device_ms": dms, "bound_ms": bms, "bound_by": by, "bytes": nb,
+                "flops": nf, "n_points": n_s, "x_grad": need_x}
         if not name.endswith("_spread"):
             call["plain_ms"] = cuda_ms(lambda: grid_encode_backward_plain(
                 x, emb, go, spec, bound, need_x=need_x), 3)
             g["ms"] += ms
+            g["device_ms"] += dms
             g["plain_ms"] += call["plain_ms"]
             g["bytes"] += nb
             g["flops"] += nf
         g["calls"][name] = call
     bms, by = bound_ms(g["bytes"], g["flops"])
-    kernels.append({"name": "grid_encode_backward", "ms": g["ms"], "plain_ms": g["plain_ms"],
+    kernels.append({"name": "grid_encode_backward", "ms": g["ms"], "device_ms": g["device_ms"],
+                    "plain_ms": g["plain_ms"],
                     "bound_ms": bms, "bound_by": by, "calls": g["calls"],
                     "max_abs_err": max(v for e in a_err.values() for k, v in e.items()
                                        if k.endswith("max_abs_err"))})
@@ -879,6 +906,8 @@ def train_phases(report, out_dir, scene, opt):
         "name": "composite_rays_backward",
         "ms": cuda_ms(lambda: composite_rays_backward(*c_args, c_grads, outs,
                                                       T_thresh=rc.T_thresh), 20),
+        "device_ms": device_ms(lambda: composite_rays_backward(*c_args, c_grads, outs,
+                                                              T_thresh=rc.T_thresh), 20),
         "plain_ms": cuda_ms(lambda: composite_rays_backward_plain(*c_args, c_grads,
                                                                   T_thresh=rc.T_thresh), 3),
         "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
@@ -893,6 +922,7 @@ def train_phases(report, out_dir, scene, opt):
     bms, by = bound_ms(nb, nf)
     b_step = {"n_rays": N, "launches": launches["march_rays"],
               "ms": cuda_ms(lambda: march_rays(*m_args, noises=noises), 20),
+              "device_ms": device_ms(lambda: march_rays(*m_args, noises=noises), 20),
               "plain_ms": cuda_ms(lambda: march_rays_plain(*m_args, noises=noises), 3),
               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
               "max_abs_err": march_err}
@@ -902,6 +932,7 @@ def train_phases(report, out_dir, scene, opt):
     c_step = {"n_rays": N, "n_valid": int(mk["valid"].sum()),
               "launches": launches["composite_rays"],
               "ms": cuda_ms(lambda: composite_rays(*c_args, T_thresh=rc.T_thresh), 20),
+              "device_ms": device_ms(lambda: composite_rays(*c_args, T_thresh=rc.T_thresh), 20),
               "plain_ms": cuda_ms(lambda: composite_rays_plain(*c_args, T_thresh=rc.T_thresh),
                                   3),
               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
@@ -914,6 +945,7 @@ def train_phases(report, out_dir, scene, opt):
     nb, nf = grid_work(xs, cfg.grid_spec, cfg.bound)
     bms, by = bound_ms(nb, nf)
     a_step = {"n_points": n_s, "ms": cuda_ms(lambda: grid_encode(*a_args), 20),
+              "device_ms": device_ms(lambda: grid_encode(*a_args), 20),
               "plain_ms": cuda_ms(lambda: grid_encode_plain(*a_args), 3),
               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf, "bit_for_bit": True}
     tt["grid_encode_step"] = a_step
@@ -925,6 +957,7 @@ def train_phases(report, out_dir, scene, opt):
           "ms_per_step_by_class": tt["profile"]["ms_per_step_by_class"],
           "top5": tt["profile"]["top"][:5],
           "kernel_ms": {k["name"]: k["ms"] for k in kernels},
+          "kernel_device_ms": {k["name"]: k["device_ms"] for k in kernels},
           "grid_encode_backward_calls": {
               n: {k: v for k, v in c.items() if "ms" in k} for n, c in g["calls"].items()}})
     return kernels
@@ -949,6 +982,7 @@ def gather_phase(report, dev):
         bms, by = bound_ms(nb, 0)
         per_t[T] = {"equal": r["equal"], "max_abs_err": r["max_abs_err"],
                     "ms": cuda_ms(lambda: take_rows(table, idx), 20),
+                    "device_ms": device_ms(lambda: take_rows(table, idx), 20),
                     "plain_ms": cuda_ms(lambda: take_rows_plain(table, idx), 20),
                     "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx), 20),
                     "bound_ms": bms, "bound_by": by, "bytes": nb}
@@ -965,6 +999,7 @@ def gather_phase(report, dev):
     return {"name": "row_gather", "route": "cuda",
             "source": "radnerf_tpu_torch/csrc/row_gather.cu", "replaces": REPLACES["row_gather"],
             "launches": launches, "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+            "device_ms": big["device_ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
 

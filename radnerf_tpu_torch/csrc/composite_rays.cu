@@ -17,12 +17,16 @@
 // - The valid row is read first, whole: 16-byte loads when S is a multiple
 //   of 16 (one load at S = 16; a warp reads 512 contiguous bytes), bytes
 //   otherwise. A ray with no valid slot writes zeros and reads nothing
-//   else.
+//   else. At S = 16 the 16-byte read took 0.0142 ms against the byte
+//   loop's 0.0150 on the frame's sparse rows and 0.0113 against 0.0118 on
+//   the step's dense ones (NVIDIA H100 80GB HBM3, 700 W, in turns on the
+//   same tensors; PERF.md).
 // - Past that, only the 4-slot chunks that hold a valid slot are loaded,
-//   and as vectors when S is a multiple of 4 (rows 16-byte aligned): a
-//   float4 each of sigma, dt, t and ambient and three of rgb, all in flight
-//   together; a chunk costs about what one valid slot's scalar loads cost,
-//   and a dense row takes S / 4 rounds of loads instead of S.
+//   and as vectors when S is a multiple of 4 (the wrapper hands over arrays
+//   that start 16-byte aligned, so every row is): a float4 each of sigma,
+//   dt, t and ambient and three of rgb, all in flight together; a chunk
+//   costs about what one valid slot's scalar loads cost, and a dense row
+//   takes S / 4 rounds of loads instead of S.
 // - image [N, 3] goes out through a shared-memory tile, as one contiguous
 //   run of 16-byte stores a block.
 // - The arithmetic per ray stays sequential, op for op with the plain twin
@@ -42,7 +46,7 @@ constexpr int kThreads = 128;  // rays a block
 template <bool kRow16>
 __device__ __forceinline__ uint32_t valid_bits(const uint8_t* __restrict__ v, int w) {
   uint32_t bits = 0;
-  if (kRow16) {  // w == 16 and v 16-byte aligned
+  if (kRow16) {  // w == 16 and v 16-byte aligned (S a multiple of 16)
     const uint4 q = *reinterpret_cast<const uint4*>(v);
     const uint32_t words[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
@@ -158,25 +162,19 @@ extern "C" int composite_rays_fwd(const void* sigmas, const void* rgbs,
                                   void* image, void* depth, void* weights_sum,
                                   void* ambient_sum, long long N, int S,
                                   float T_thresh, void* stream) {
-  if (N < 0 || N > 0x7fffffffLL - kThreads || S < 1 || !aligned16(image)) {
-    return (int)cudaErrorInvalidValue;
+  // every array starts 16-byte aligned (the wrapper copies a view that does
+  // not), so rows are aligned for vectors wherever S allows them
+  const void* arrays[] = {sigmas, rgbs, dts, ts, valid, ambient, image};
+  for (const void* p : arrays) {
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
   }
+  if (N < 0 || N > 0x7fffffffLL - kThreads || S < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  // vectors where every row starts 16-byte aligned; an input view that
-  // does not takes the scalar path
-  const bool vec = S % 4 == 0 && aligned16(sigmas) && aligned16(rgbs) && aligned16(dts) &&
-                   aligned16(ts) && aligned16(ambient);
-  const bool row16 = S % 16 == 0 && aligned16(valid);
-  using Launch = void (*)(const void*, const void*, const void*, const void*, const void*,
-                         const void*, void*, void*, void*, void*, int, int, float,
-                         cudaStream_t);
-  Launch fn = launch<false, false>;
-  if (vec && row16) {
+  auto fn = launch<false, false>;
+  if (S % 16 == 0) {
     fn = launch<true, true>;
-  } else if (vec) {
+  } else if (S % 4 == 0) {
     fn = launch<true, false>;
-  } else if (row16) {
-    fn = launch<false, true>;
   }
   fn(sigmas, rgbs, dts, ts, valid, ambient, image, depth, weights_sum, ambient_sum, (int)N, S,
      T_thresh, (cudaStream_t)stream);

@@ -94,11 +94,12 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fffffff) : (a < b ? a : b);
 }
 
-// p / mip_bound is exactly p when mip_bound is 1 (the shipped bound):
-// the division's subroutine is skipped, not its result
-__device__ __forceinline__ uint32_t cell_coord(float p, float mip_bound, bool unit_mip,
-                                               float H) {
-  const float u = unit_mip ? p : p / mip_bound;
+// p / mip_bound is p itself where mip_bound is 1 (the shipped bound), and
+// skipping the IEEE division there is measurable: B took 0.0601 ms against
+// 0.0642 at the frame's shapes and 0.0503 against 0.0557 at the step's
+// (NVIDIA H100 80GB HBM3, 700 W, in turns on the same tensors; PERF.md)
+__device__ __forceinline__ uint32_t cell_coord(float p, float mip_bound, float H) {
+  const float u = mip_bound == 1.0f ? p : p / mip_bound;
   const float c = clampf(floorf(0.5f * (u + 1.0f) * H), 0.0f, H - 1.0f);
   return (uint32_t)c;
 }
@@ -187,7 +188,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
     k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
     t_end = min_nan(fars[n], t_hi[n]);
   }
-  const bool unit_mip = mip_bound == 1.0f;
   const float Hf = (float)H;
   float incl = 0.0f;  // the cull's running sum, in orbit order
   int count = 0;      // kept steps so far
@@ -203,9 +203,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
         px = clampf(ox + t * dx, -bound, bound);
         py = clampf(oy + t * dy, -bound, bound);
         pz = clampf(oz + t * dz, -bound, bound);
-        byte = sigma_bytes[morton3d(cell_coord(px, mip_bound, unit_mip, Hf),
-                                    cell_coord(py, mip_bound, unit_mip, Hf),
-                                    cell_coord(pz, mip_bound, unit_mip, Hf))];
+        byte = sigma_bytes[morton3d(cell_coord(px, mip_bound, Hf), cell_coord(py, mip_bound, Hf),
+                                    cell_coord(pz, mip_bound, Hf))];
         occ = (byte & 128u) != 0;
       }
     }

@@ -284,7 +284,10 @@ def _check_composite(sigmas, rgbs, dts, ts, valid, ambient):
             or valid.dtype != torch.bool or valid.shape != (N, S):
         raise ValueError("kernel C takes float32 [N, S] samples, [N, S, 3] rgbs "
                          "and a bool mask")
+    # kernel C takes arrays that start 16-byte aligned: a view that does not
+    # is copied
     ins = [v.contiguous() for v in (*ins, valid)]
+    ins = [v if v.data_ptr() % 16 == 0 else v.clone() for v in ins]
     require_cuda_tensors(*ins)
     return ins
 

@@ -247,8 +247,9 @@ def test_grid_encode_backward_kernel_matches_plain(dev, layout, input_dim):
     assert T.grid_encode_backward(x, emb, g, spec, need_x=False)[1] is None
 
 
-def _composite_rows(layout, N, S, rng):
-    """Composite inputs (sigma, rgb, dt, t, valid, ambient) as numpy:
+def composite_rows(layout, N, S, rng):
+    """Composite inputs (sigma, rgb, dt, t, valid, ambient) as numpy (the
+    CPU parity of tests/test_torch_ops.py builds its rows here too):
     "dense" rows (85% valid, transmittance crossing T_thresh = 1e-4
     mid-lattice: the training step), "sparse" (at most one valid slot a ray,
     none on half the rays: the frame), "empty", "stop-first" (every slot
@@ -283,7 +284,7 @@ def _composite_rows(layout, N, S, rng):
 
 # S = 16: vector loads of every input and of the valid row; 20: vector
 # loads, valid bytes one by one; 13: scalar loads; "offset": S = 16 with
-# the float inputs one float past a 16-byte line (the scalar path)
+# the float inputs one float past a 16-byte line (the wrapper copies them)
 _COMPOSITE_CASES = [("dense", 16), ("sparse", 16), ("empty", 16), ("stop-first", 16),
                     ("stop-last", 16), ("dense", 20), ("dense", 13), ("sparse", 13),
                     ("stop-last", 13), ("offset", 16)]
@@ -296,7 +297,7 @@ def test_composite_kernels_match_plain(dev, layout, S):
     module's note)."""
     rng = np.random.default_rng(6 + S)
     N = 50_003
-    arrays = _composite_rows("dense" if layout == "offset" else layout, N, S, rng)
+    arrays = composite_rows("dense" if layout == "offset" else layout, N, S, rng)
     args = [_t(v, dev) for v in arrays]
     if layout == "offset":  # the same values one float past an aligned start
         for j in (0, 1, 2, 3, 5):

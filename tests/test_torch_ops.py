@@ -31,6 +31,7 @@ from radnerf_tpu.ops.ray_aabb import near_far_from_aabb as j_near_far
 from radnerf_tpu.ops.sh_encode import sh_encode as j_sh_encode
 
 from radnerf_tpu_torch import ops as T
+from test_torch_kernels import composite_rows
 
 def _T(a):
     return torch.from_numpy(np.array(a))
@@ -258,40 +259,20 @@ def test_march_rejects_unported_orbits():
 
 
 # --------------------------------------------------------------- composite
-def _composite_rows(layout, N, S, rng):
-    """Composite inputs (sigma, rgb, dt, t, valid, ambient) whose valid rows
-    are laid out as the paths give them: "dense" (85% valid, the training
-    step), "sparse" (at most one valid slot a ray, none on half the rays:
-    the frame), "empty" (no valid slot)."""
-    sig = rng.uniform(0.0, 40.0, (N, S)).astype(np.float32)
-    dts = np.full((N, S), 0.05, np.float32)
-    ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
-    if layout == "dense":
-        valid = rng.random((N, S)) < 0.85
-    elif layout == "sparse":
-        valid = np.zeros((N, S), bool)
-        valid[np.arange(N), rng.integers(0, S, N)] = True
-        valid[rng.random(N) < 0.5] = False
-    else:
-        valid = np.zeros((N, S), bool)
-    rgb = rng.random((N, S, 3)).astype(np.float32)
-    amb = rng.random((N, S)).astype(np.float32)
-    dts[~valid] = 0.0
-    return sig, rgb, dts, ts, valid, amb
-
-
 # the earlier case keeps its id ("dense-16")
 @pytest.mark.parametrize("layout,S", [("dense", 16), ("sparse", 16), ("empty", 16),
+                                      ("stop-first", 16), ("stop-last", 16),
                                       ("dense", 13), ("sparse", 13)],
                          ids=lambda v: str(v))
 def test_composite_twin_matches_jax(layout, S):
     """Twin vs JAX composite_rays on dense rows whose transmittance crosses
     T_thresh mid-lattice with invalid holes, on sparse and on empty rows,
-    and at an S that is not 16. Tolerance 1e-6 (abs and rel): the sums run
-    over S steps in another order."""
+    on rows that stop at their first or last slots, and at an S that is not
+    16. Tolerance 1e-6 (abs and rel): the sums run over S steps in another
+    order."""
     rng = np.random.default_rng(4)
     N = 256
-    sig, rgb, dts, ts, valid, amb = _composite_rows(layout, N, S, rng)
+    sig, rgb, dts, ts, valid, amb = composite_rows(layout, N, S, rng)
     want = jmarch.composite_rays(*(jnp.asarray(v) for v in (sig, rgb, dts, ts, valid)),
                                  ambient=jnp.asarray(amb), T_thresh=1e-4)
     got = T.composite_rays(*(_T(v) for v in (sig, rgb, dts, ts, valid)),
