@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace composite {
 
@@ -27,19 +28,48 @@ __device__ __forceinline__ bool processes(int s, const Sums& a, float T_thresh) 
   return s == 0 || a.T >= T_thresh;
 }
 
-// One processed valid step: alpha = 1 - exp(-sigma dt), weight w = alpha T,
-// the five weighted sums, then T *= 1 - alpha. Returns w.
-__device__ __forceinline__ float step(Sums& a, float sigma, float dt, float t, float cr,
-                                      float cg, float cb) {
-  const float alpha = 1.0f - expf(-sigma * dt);
+// A step's opacity, alpha = 1 - exp(-sigma dt).
+__device__ __forceinline__ float alpha_of(float sigma, float dt) {
+  return 1.0f - expf(-sigma * dt);
+}
+
+// One processed valid step of opacity alpha at td = t + dt: weight
+// w = alpha T, the five weighted sums, then T *= 1 - alpha. Returns w.
+__device__ __forceinline__ float accumulate(Sums& a, float alpha, float td, float cr, float cg,
+                                            float cb) {
   const float w = alpha * a.T;
   a.ws = a.ws + w;
-  a.depth = a.depth + w * (t + dt);
+  a.depth = a.depth + w * td;
   a.r = a.r + w * cr;
   a.g = a.g + w * cg;
   a.b = a.b + w * cb;
   a.T = a.T * (1.0f - alpha);
   return w;
+}
+
+// One processed valid step. Returns its weight.
+__device__ __forceinline__ float step(Sums& a, float sigma, float dt, float t, float cr,
+                                      float cg, float cb) {
+  return accumulate(a, alpha_of(sigma, dt), t + dt, cr, cg, cb);
+}
+
+// valid slots c0 .. c0 + w - 1 (w <= 16) of a row as bits 0 .. w - 1
+template <bool kRow16>
+__device__ __forceinline__ uint32_t valid_bits(const uint8_t* __restrict__ v, int w) {
+  uint32_t bits = 0;
+  if (kRow16) {  // w == 16 and v 16-byte aligned (S a multiple of 16)
+    const uint4 q = *reinterpret_cast<const uint4*>(v);
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // one bit per nonzero byte, bytes 0..3 -> bits 0..3
+      const uint32_t m = __vcmpne4(words[j], 0u) & 0x01010101u;
+      bits |= ((m * 0x01020408u) >> 24) << (4 * j);
+    }
+  } else {
+    for (int j = 0; j < w; ++j) bits |= (uint32_t)(v[j] != 0) << j;
+  }
+  return bits;
 }
 
 }  // namespace composite

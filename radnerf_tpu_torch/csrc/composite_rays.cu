@@ -42,25 +42,6 @@ namespace {
 
 constexpr int kThreads = 128;  // rays a block
 
-// valid slots c0 .. c0 + w - 1 (w <= 16) of a row as bits 0 .. w - 1
-template <bool kRow16>
-__device__ __forceinline__ uint32_t valid_bits(const uint8_t* __restrict__ v, int w) {
-  uint32_t bits = 0;
-  if (kRow16) {  // w == 16 and v 16-byte aligned (S a multiple of 16)
-    const uint4 q = *reinterpret_cast<const uint4*>(v);
-    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // one bit per nonzero byte, bytes 0..3 -> bits 0..3
-      const uint32_t m = __vcmpne4(words[j], 0u) & 0x01010101u;
-      bits |= ((m * 0x01020408u) >> 24) << (4 * j);
-    }
-  } else {
-    for (int j = 0; j < w; ++j) bits |= (uint32_t)(v[j] != 0) << j;
-  }
-  return bits;
-}
-
 template <bool kVec, bool kRow16>
 __global__ void __launch_bounds__(kThreads) composite_rays_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
@@ -78,7 +59,7 @@ __global__ void __launch_bounds__(kThreads) composite_rays_kernel(
     const size_t row = (size_t)n * S;
     bool stop = false;
     for (int c0 = 0; c0 < S && !stop; c0 += 16) {
-      uint32_t bits = valid_bits<kRow16>(valid + row + c0, min(16, S - c0));
+      uint32_t bits = composite::valid_bits<kRow16>(valid + row + c0, min(16, S - c0));
       while (bits != 0 && !stop) {
         const int c = (__ffs(bits) - 1) & ~3;  // the next chunk with a valid slot
         const uint32_t cb = (bits >> c) & 15u;

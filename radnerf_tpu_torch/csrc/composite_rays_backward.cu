@@ -18,11 +18,15 @@
 // What bounds it on an H100: bytes. Per processed step it reads sigma, dt,
 // t, valid and rgb (25 B) and writes 20 B of gradients for ~40 flops and
 // one expf; every step of the [N, S] lattice is written (zeros past the
-// stop). Design: one thread per ray, the walk of kernel C repeated with the
-// same float32 operations in the same order (composite::step and
-// composite::processes from composite_common.cuh, which kernel C runs), so
-// the prefix sums at the last processed step equal the saved outputs
-// exactly and the suffixes end at 0.
+// stop). Design: a group of kG = 16 lanes takes one ray (two rays a warp)
+// and a chunk of 16 slots at once, lane j slot c0 + j, so every load and
+// store of a warp is contiguous. Lane j computes its slot's alpha and
+// t + dt; the walk itself stays sequential: every lane of the group runs
+// the chunk's steps in slot order on the values it takes from the owning
+// lanes by shuffles (alpha, t + dt, rgb), with composite::accumulate, the
+// second half of the step kernel C runs, so every lane holds the same
+// float32 sums as C's walk and keeps those after its own slot. A warp whose
+// rays have both stopped writes the rest of its rows as zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,62 +35,108 @@
 
 namespace {
 
-__global__ void composite_rays_bwd_kernel(
+constexpr int kG = 16;          // lanes a ray, slots a chunk
+constexpr int kThreads = 256;   // 16 rays a block
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(kThreads) composite_rays_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ dts, const float* __restrict__ ts,
-    const bool* __restrict__ valid, const float* __restrict__ image,
+    const uint8_t* __restrict__ valid, const float* __restrict__ image,
     const float* __restrict__ depth, const float* __restrict__ weights_sum,
     const float* __restrict__ grad_image, const float* __restrict__ grad_depth,
     const float* __restrict__ grad_ws, const float* __restrict__ grad_amb,
     float* __restrict__ grad_sigmas, float* __restrict__ grad_rgbs,
-    float* __restrict__ grad_ambient, long long N, int S, float T_thresh) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const float gr = grad_image[3 * n], gg = grad_image[3 * n + 1],
-              gb = grad_image[3 * n + 2];
-  const float gd = grad_depth[n], gw = grad_ws[n], ga = grad_amb[n];
-  const float r_fin = image[3 * n], g_fin = image[3 * n + 1],
-              b_fin = image[3 * n + 2];
-  const float d_fin = depth[n], ws_fin = weights_sum[n];
-
+    float* __restrict__ grad_ambient, int N, int S, float T_thresh) {
+  const int lane = threadIdx.x % kG;
+  const int half = threadIdx.x & 16;  // the group's first lane in its warp
+  const int n = blockIdx.x * (kThreads / kG) + threadIdx.x / kG;
+  const bool ray = n < N;
+  float gr = 0.0f, gg = 0.0f, gb = 0.0f, gd = 0.0f, gw = 0.0f, ga = 0.0f;
+  float r_fin = 0.0f, g_fin = 0.0f, b_fin = 0.0f, d_fin = 0.0f, ws_fin = 0.0f;
+  if (ray) {
+    const size_t n3 = 3 * (size_t)n;
+    gr = grad_image[n3], gg = grad_image[n3 + 1], gb = grad_image[n3 + 2];
+    gd = grad_depth[n], gw = grad_ws[n], ga = grad_amb[n];
+    r_fin = image[n3], g_fin = image[n3 + 1], b_fin = image[n3 + 2];
+    d_fin = depth[n], ws_fin = weights_sum[n];
+  }
+  const size_t row = (size_t)n * S;
   composite::Sums a;
-  int s = 0;
-  for (; s < S && composite::processes(s, a, T_thresh); ++s) {
-    const long long i = n * S + s;
-    if (valid[i]) {
-      const float sig = sigmas[i];
-      const float dt = dts[i];
-      const float td = ts[i] + dt;
-      const float cr = rgbs[3 * i], cg = rgbs[3 * i + 1], cb = rgbs[3 * i + 2];
-      const float w = composite::step(a, sig, dt, ts[i], cr, cg, cb);
-      const float T = a.T;  // after the step
-      const float own = gw * T + gd * (td * T) + gr * (cr * T) + gg * (cg * T) +
-                        gb * (cb * T);
-      const float later = gw * (ws_fin - a.ws) + gd * (d_fin - a.depth) +
-                          gr * (r_fin - a.r) + gg * (g_fin - a.g) + gb * (b_fin - a.b);
-      grad_sigmas[i] = dt * (own - later);
-      grad_rgbs[3 * i] = gr * w;
-      grad_rgbs[3 * i + 1] = gg * w;
-      grad_rgbs[3 * i + 2] = gb * w;
-      grad_ambient[i] = ga;
-    } else {
-      grad_sigmas[i] = 0.0f;
-      grad_rgbs[3 * i] = 0.0f;
-      grad_rgbs[3 * i + 1] = 0.0f;
-      grad_rgbs[3 * i + 2] = 0.0f;
-      grad_ambient[i] = 0.0f;
+  bool live = ray;  // the ray has not stopped
+  for (int c0 = 0; c0 < S; c0 += kG) {
+    const int s = c0 + lane;
+    const bool in = ray && s < S;
+    const size_t i = row + s;
+    bool v = false;
+    float sig = 0.0f, dt = 0.0f, t = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+    if (in) {
+      v = valid[i] != 0;
+      if (v) {
+        sig = sigmas[i], dt = dts[i], t = ts[i];
+        cr = rgbs[3 * i], cg = rgbs[3 * i + 1], cb = rgbs[3 * i + 2];
+      }
+    }
+    const float alpha = composite::alpha_of(sig, dt);
+    const float td = t + dt;
+    const unsigned vbits = __ballot_sync(kFull, v) >> half;
+    // the chunk's steps in slot order (the same count on every lane of the
+    // warp: S is uniform); the lane keeps the sums after its own slot
+    float w_own = 0.0f;
+    composite::Sums own_sums;
+    bool done = false;  // this lane's slot processed
+    const int n_slots = min(kG, S - c0);
+    for (int j = 0; j < n_slots; ++j) {
+      const float aj = __shfl_sync(kFull, alpha, j, kG);
+      const float tdj = __shfl_sync(kFull, td, j, kG);
+      const float rj = __shfl_sync(kFull, cr, j, kG);
+      const float gj = __shfl_sync(kFull, cg, j, kG);
+      const float bj = __shfl_sync(kFull, cb, j, kG);
+      live = live && composite::processes(c0 + j, a, T_thresh);
+      const bool p = live && ((vbits >> j) & 1u);
+      float w = 0.0f;
+      if (p) w = composite::accumulate(a, aj, tdj, rj, gj, bj);
+      if (j == lane) {
+        done = p;
+        w_own = w;
+        own_sums = a;
+      }
+    }
+    if (in) {
+      float g_sig = 0.0f, g_r = 0.0f, g_g = 0.0f, g_b = 0.0f, g_a = 0.0f;
+      if (done) {
+        const composite::Sums& o = own_sums;
+        const float T = o.T;  // after the step
+        const float own = gw * T + gd * (td * T) + gr * (cr * T) + gg * (cg * T) +
+                          gb * (cb * T);
+        const float later = gw * (ws_fin - o.ws) + gd * (d_fin - o.depth) +
+                            gr * (r_fin - o.r) + gg * (g_fin - o.g) + gb * (b_fin - o.b);
+        g_sig = dt * (own - later);
+        g_r = gr * w_own, g_g = gg * w_own, g_b = gb * w_own;
+        g_a = ga;
+      }
+      grad_sigmas[i] = g_sig;
+      grad_rgbs[3 * i] = g_r;
+      grad_rgbs[3 * i + 1] = g_g;
+      grad_rgbs[3 * i + 2] = g_b;
+      grad_ambient[i] = g_a;
+    }
+    // both rays of the warp stopped: the rest of their rows are zeros
+    if (!__any_sync(kFull, live)) {
+      for (int k = c0 + kG + lane; ray && k < S; k += kG) {
+        const size_t q = row + k;
+        grad_sigmas[q] = 0.0f;
+        grad_rgbs[3 * q] = 0.0f;
+        grad_rgbs[3 * q + 1] = 0.0f;
+        grad_rgbs[3 * q + 2] = 0.0f;
+        grad_ambient[q] = 0.0f;
+      }
+      break;
     }
   }
-  // steps past the early stop were not processed
-  for (; s < S; ++s) {
-    const long long i = n * S + s;
-    grad_sigmas[i] = 0.0f;
-    grad_rgbs[3 * i] = 0.0f;
-    grad_rgbs[3 * i + 1] = 0.0f;
-    grad_rgbs[3 * i + 2] = 0.0f;
-    grad_ambient[i] = 0.0f;
-  }
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -97,14 +147,22 @@ extern "C" int composite_rays_bwd(
     const void* grad_ws, const void* grad_amb, void* grad_sigmas,
     void* grad_rgbs, void* grad_ambient, long long N, int S, float T_thresh,
     void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((N + threads - 1) / threads);
-  composite_rays_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)sigmas, (const float*)rgbs, (const float*)dts,
-      (const float*)ts, (const bool*)valid, (const float*)image,
-      (const float*)depth, (const float*)weights_sum, (const float*)grad_image,
-      (const float*)grad_depth, (const float*)grad_ws, (const float*)grad_amb,
-      (float*)grad_sigmas, (float*)grad_rgbs, (float*)grad_ambient, N, S,
-      T_thresh);
+  // every array starts 16-byte aligned (the wrapper copies one that does not)
+  const void* arrays[] = {sigmas, rgbs, dts, ts, valid, image, depth, weights_sum,
+                          grad_image, grad_depth, grad_ws, grad_amb, grad_sigmas,
+                          grad_rgbs, grad_ambient};
+  for (const void* p : arrays) {
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  }
+  if (N < 0 || N > 0x7fffffffLL - kThreads || S < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const int rays = kThreads / kG;
+  composite_rays_bwd_kernel<<<(unsigned)((N + rays - 1) / rays), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const float*)sigmas, (const float*)rgbs, (const float*)dts, (const float*)ts,
+      (const uint8_t*)valid, (const float*)image, (const float*)depth,
+      (const float*)weights_sum, (const float*)grad_image, (const float*)grad_depth,
+      (const float*)grad_ws, (const float*)grad_amb, (float*)grad_sigmas, (float*)grad_rgbs,
+      (float*)grad_ambient, (int)N, S, T_thresh);
   return (int)cudaGetLastError();
 }

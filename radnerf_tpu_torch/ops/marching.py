@@ -275,6 +275,13 @@ def _composite_kernel(sigmas, rgbs, dts, ts, valid, ambient, T_thresh):
     return image, depth, weights_sum, ambient_sum
 
 
+def _aligned(v):
+    """v contiguous and starting 16-byte aligned, as kernels C and C' take
+    their arrays: a view that does not is copied."""
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _check_composite(sigmas, rgbs, dts, ts, valid, ambient):
     N, S = sigmas.shape
     ins = [sigmas, rgbs, dts, ts, ambient]
@@ -284,10 +291,7 @@ def _check_composite(sigmas, rgbs, dts, ts, valid, ambient):
             or valid.dtype != torch.bool or valid.shape != (N, S):
         raise ValueError("kernel C takes float32 [N, S] samples, [N, S, 3] rgbs "
                          "and a bool mask")
-    # kernel C takes arrays that start 16-byte aligned: a view that does not
-    # is copied
-    ins = [v.contiguous() for v in (*ins, valid)]
-    ins = [v if v.data_ptr() % 16 == 0 else v.clone() for v in ins]
+    ins = [_aligned(v) for v in (*ins, valid)]
     require_cuda_tensors(*ins)
     return ins
 
@@ -319,8 +323,8 @@ def composite_rays_backward(sigmas, rgbs, dts, ts, valid, ambient, grads, output
     sig, rgb, dt, t, _, ok = _check_composite(sigmas, rgbs, dts, ts, valid, ambient)
     N, S = sig.shape
     keys = ("image", "depth", "weights_sum", "ambient_sum")
-    g = [grads[k].contiguous() for k in keys]
-    o = [outputs[k].contiguous() for k in keys[:3]]
+    g = [_aligned(grads[k]) for k in keys]
+    o = [_aligned(outputs[k]) for k in keys[:3]]
     want = [(N, 3), (N,), (N,), (N,), (N, 3), (N,), (N,)]
     if any(v.dtype != torch.float32 or v.shape != w for v, w in zip(g + o, want)):
         raise ValueError("kernel C' takes float32 image [N, 3] and [N] gradients "

@@ -188,6 +188,17 @@ def test_kernel_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(RuntimeError):  # kernel B has no backward
         T.march_rays(o.clone().requires_grad_(True), o, z[:, 0], z[:, 0], sb, mcfg,
                      (z[:, 0], z[:, 0]))
+    # kernels C and C' refuse an array that does not start 16-byte aligned
+    # (their wrappers copy such a view first)
+    buf = torch.zeros(64, device=dev)
+    p = buf.data_ptr()
+    for name, fn, n_arrays in (("composite_rays", "composite_rays_fwd", 10),
+                               ("composite_rays_backward", "composite_rays_bwd", 15)):
+        k = _kernels.KERNELS[name]
+        before = k.launches
+        with pytest.raises(RuntimeError):
+            k.launch(fn, dev, p + 4, *[p] * (n_arrays - 1), 1, 4, 1e-4)
+        assert k.launches == before
 
 
 def _rel_err(got, want):
@@ -255,7 +266,10 @@ def composite_rows(layout, N, S, rng):
     none on half the rays: the frame), "empty", "stop-first" (every slot
     valid; every other ray stops after its first slot) and "stop-last"
     (every slot valid; the crossing step is the second-to-last slot on half
-    the rays, the last on the other half). A stop-first ray alone would
+    the rays, the last on the other half), "long" (every slot valid, sigma
+    U(0, 2): rays stop after ~180 slots, so a walk spans many 16-slot
+    tiles when S is large) and "few" (dense rows, for a lattice of fewer
+    rays than a block of kernel C'). A stop-first ray alone would
     hold C' to nothing: its one processed step has an alpha that rounds to
     1 in float32, so the forward's transmittance after it is exactly 0 and
     C' gives d sigma = 0 where autograd's exp gives ~1e-10."""
@@ -263,8 +277,10 @@ def composite_rows(layout, N, S, rng):
     dts = np.full((N, S), 0.05, np.float32)
     ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
     valid = np.ones((N, S), bool)
-    if layout == "dense":
+    if layout in ("dense", "few"):
         valid = rng.random((N, S)) < 0.85
+    elif layout == "long":
+        sig *= np.float32(0.05)
     elif layout == "sparse":
         valid = np.zeros((N, S), bool)
         valid[np.arange(N), rng.integers(0, S, N)] = True
@@ -283,27 +299,51 @@ def composite_rows(layout, N, S, rng):
 
 
 # S = 16: vector loads of every input and of the valid row; 20: vector
-# loads, valid bytes one by one; 13: scalar loads; "offset": S = 16 with
-# the float inputs one float past a 16-byte line (the wrapper copies them)
+# loads, valid bytes one by one, two tiles of C'; 13: scalar loads;
+# 2,048: 128 tiles of C' ("long" rows live through ~11 of them);
+# "offset": S = 16 with every input, upstream gradient and saved output one
+# element past a 16-byte line (the wrappers copy them). N = 50,003 (4,099
+# at S = 2,048; 37 for "few") is a multiple of no block's ray count
 _COMPOSITE_CASES = [("dense", 16), ("sparse", 16), ("empty", 16), ("stop-first", 16),
                     ("stop-last", 16), ("dense", 20), ("dense", 13), ("sparse", 13),
-                    ("stop-last", 13), ("offset", 16)]
+                    ("stop-last", 13), ("offset", 16), ("dense", 2048), ("long", 2048),
+                    ("few", 16)]
+
+
+def _offset(v):
+    """v's values in a view that starts one element past a 16-byte line."""
+    flat = torch.zeros(v.numel() + 1, dtype=v.dtype, device=v.device)
+    flat[1:] = v.reshape(-1)
+    return flat[1:].view(v.shape)
+
+
+def _processed(sig, dts, valid, T_thresh):
+    """[N, S] bool: the valid slots each ray processes before its early
+    stop, by composite_rays_plain's own float32 operations."""
+    T = torch.ones_like(sig[:, 0])
+    alive = torch.ones_like(valid[:, 0])
+    out = torch.zeros_like(valid)
+    for s in range(sig.shape[1]):
+        out[:, s] = alive & valid[:, s]
+        alpha = 1.0 - torch.exp(-torch.where(valid[:, s], sig[:, s], torch.zeros_like(T))
+                                * dts[:, s])
+        T = T * (1.0 - alpha)
+        alive = alive & (T >= float(np.float32(T_thresh)))
+    return out
 
 
 @pytest.mark.parametrize("layout,S", _COMPOSITE_CASES, ids=lambda v: str(v))
 def test_composite_kernels_match_plain(dev, layout, S):
     """Kernel C within 1e-5 of its twin, and kernel C' on C's outputs within
     1e-5 of the largest gradient of autograd through the twin (see the
-    module's note)."""
+    module's note); all three gradients exactly 0 on every invalid slot and
+    every slot past a ray's early stop."""
     rng = np.random.default_rng(6 + S)
-    N = 50_003
+    N = {2048: 4_099}.get(S, 37 if layout == "few" else 50_003)
     arrays = composite_rows("dense" if layout == "offset" else layout, N, S, rng)
     args = [_t(v, dev) for v in arrays]
-    if layout == "offset":  # the same values one float past an aligned start
-        for j in (0, 1, 2, 3, 5):
-            flat = torch.zeros(args[j].numel() + 1, device=dev)
-            flat[1:] = args[j].reshape(-1)
-            args[j] = flat[1:].view(args[j].shape)
+    if layout == "offset":
+        args = [_offset(v) for v in args]
     kc, kb = _kernels.KERNELS["composite_rays"], _kernels.KERNELS["composite_rays_backward"]
     before = kc.launches
     got = T.composite_rays(*args, T_thresh=1e-4)
@@ -324,14 +364,24 @@ def test_composite_kernels_match_plain(dev, layout, S):
     keys = ("image", "depth", "weights_sum", "ambient_sum")
     grads = {k: _t(rng.normal(size=(N, 3) if k == "image" else (N,)).astype(np.float32), dev)
              for k in keys}
+    outs = got
+    if layout == "offset":
+        grads = {k: _offset(v) for k, v in grads.items()}
+        outs = {k: _offset(v) for k, v in got.items()}
     before = kb.launches
-    g_k = T.composite_rays_backward(*args, grads, got, T_thresh=1e-4)
+    g_k = T.composite_rays_backward(*args, grads, outs, T_thresh=1e-4)
     assert kb.launches == before + 1
     g_p = T.composite_rays_backward_plain(*args, grads, T_thresh=1e-4)
     torch.cuda.synchronize()
     for a, b in zip(g_k, g_p):
         assert _rel_err(a, b) <= 1e-5
-    assert float(g_k[0][~args[4]].abs().sum()) == 0.0  # no gradient into invalid slots
+    # no gradient into an invalid slot or a slot past the early stop
+    processed = _processed(args[0], args[2], args[4], 1e-4)
+    for g in g_k:
+        assert float(g[~processed].abs().sum()) == 0.0
+    if layout == "long":  # the walks run through many 16-slot tiles
+        last = (processed * torch.arange(S, device=dev)).max(dim=1).values
+        assert float(last.float().mean()) > 100
     if (layout, S) == ("dense", 16):  # the autograd path
         sr, rr, ar = (v.clone().requires_grad_(True) for v in (args[0], args[1], args[5]))
         out = T.composite_rays(sr, rr, args[2], args[3], args[4], ar, T_thresh=1e-4)

@@ -59,6 +59,7 @@ from radnerf_tpu_torch.models import (
 from radnerf_tpu_torch.train import Trainer, build_optimizer, head_loss
 from radnerf_tpu_torch.utils import srgb_to_linear
 
+from test_torch_kernels import composite_rows
 from test_train import data_dir  # noqa: F401  (the on-disk dataset fixture)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -186,19 +187,20 @@ def test_grid_encode_gradients_match_jax(layout, input_dim):
 
 
 # --------------------------------------------------------- composite grads
-def test_composite_gradients_match_jax():
-    """d sigma, d rgb and d ambient of composite_rays against jax.grad, on
-    rays whose transmittance crosses T_thresh mid-lattice, with invalid
-    holes: atol 1e-6, rtol 1e-5."""
+# the earlier case keeps its id ("dense-16") and its rows
+@pytest.mark.parametrize("layout,S", [("dense", 16), ("sparse", 16), ("empty", 16),
+                                      ("stop-first", 16), ("stop-last", 16),
+                                      ("dense", 13), ("sparse", 13)],
+                         ids=lambda v: str(v))
+def test_composite_gradients_match_jax(layout, S):
+    """d sigma, d rgb and d ambient of composite_rays against jax.grad on
+    the row layouts kernel C' is held to on the card (tests/test_torch_kernels.py
+    composite_rows): rays whose transmittance crosses T_thresh mid-lattice
+    with invalid holes, sparse and empty rows, rows that stop at their
+    first or last slot, and S = 13. atol 1e-6, rtol 1e-5."""
     rng = np.random.default_rng(21)
-    N, S = 256, 16
-    sig = rng.uniform(0.0, 40.0, (N, S)).astype(np.float32)
-    dts = np.full((N, S), 0.05, np.float32)
-    ts = (3.0 + np.cumsum(dts, axis=1)).astype(np.float32)
-    valid = rng.random((N, S)) < 0.85
-    dts[~valid] = 0.0
-    rgb = rng.random((N, S, 3)).astype(np.float32)
-    amb = rng.random((N, S)).astype(np.float32)
+    N = 256
+    sig, rgb, dts, ts, valid, amb = composite_rows(layout, N, S, rng)
     keys = ("image", "depth", "weights_sum", "ambient_sum")
     gs = {k: rng.normal(size=(N, 3) if k == "image" else (N,)).astype(np.float32)
           for k in keys}
@@ -214,7 +216,7 @@ def test_composite_gradients_match_jax():
     for gt_, w in zip(got, want):
         np.testing.assert_allclose(gt_.numpy(), _np(w), atol=1e-6, rtol=1e-5)
     # invalid steps get exactly zero
-    assert np.all(got[0].numpy()[~valid] == 0.0) and np.all(got[2].numpy()[~valid] == 0.0)
+    assert all(np.all(g.numpy()[~valid] == 0.0) for g in got)
 
 
 # ------------------------------------------------------ one head train step
