@@ -28,29 +28,19 @@ __device__ __forceinline__ bool processes(int s, const Sums& a, float T_thresh) 
   return s == 0 || a.T >= T_thresh;
 }
 
-// A step's opacity, alpha = 1 - exp(-sigma dt).
-__device__ __forceinline__ float alpha_of(float sigma, float dt) {
-  return 1.0f - expf(-sigma * dt);
-}
-
-// One processed valid step of opacity alpha at td = t + dt: weight
-// w = alpha T, the five weighted sums, then T *= 1 - alpha. Returns w.
-__device__ __forceinline__ float accumulate(Sums& a, float alpha, float td, float cr, float cg,
-                                            float cb) {
+// One processed valid step: alpha = 1 - exp(-sigma dt), weight w = alpha T,
+// the five weighted sums, then T *= 1 - alpha. Returns w.
+__device__ __forceinline__ float step(Sums& a, float sigma, float dt, float t, float cr,
+                                      float cg, float cb) {
+  const float alpha = 1.0f - expf(-sigma * dt);
   const float w = alpha * a.T;
   a.ws = a.ws + w;
-  a.depth = a.depth + w * td;
+  a.depth = a.depth + w * (t + dt);
   a.r = a.r + w * cr;
   a.g = a.g + w * cg;
   a.b = a.b + w * cb;
   a.T = a.T * (1.0f - alpha);
   return w;
-}
-
-// One processed valid step. Returns its weight.
-__device__ __forceinline__ float step(Sums& a, float sigma, float dt, float t, float cr,
-                                      float cg, float cb) {
-  return accumulate(a, alpha_of(sigma, dt), t + dt, cr, cg, cb);
 }
 
 // valid slots c0 .. c0 + w - 1 (w <= 16) of a row as bits 0 .. w - 1
