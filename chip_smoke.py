@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the hand-written CUDA kernels: one
+Drives the port's paths through the hand-written CUDA kernels: one
 512x512 head+torso inference frame of the bench scene
 (radnerf_tpu_torch/scene.py, a copy of bench.py's) at the shipped model
 widths in float32 (kernels A, B, C); a head-stage training run from scratch
-at full width (A, B, C and the backward kernels A', C'); and the gather
-study at the Pallas row-loop kernel's shapes (kernel D).
+at full width (A, B, C and the backward kernels A', C'); the gather study
+at the Pallas row-loop kernel's shapes (kernel D); the torso stage from the
+head run's checkpoint (A, A', B, C; no C'); and that checkpoint loaded into
+a fresh trainer.
 
 The frame:
 
@@ -48,6 +50,30 @@ defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
      on the step's D = 3 points (held bit for bit to its twin); B (with
      noises) and C on phase 8's inputs, with their launches in the run.
 
+The torso stage (``Options(torso=True, exp_eye=True)``: full width, 65,536
+rays, grid 128, upkeep every 16 steps), as main.py runs it with
+``--torso --head_ckpt``:
+ 11. torso_train: phase 7's head trainer saved as a full checkpoint in a
+     temporary workspace (deleted at the end), a fresh torso trainer that
+     loads it with ``freeze_loaded_head``, 32 steps on the same targets
+     (the torso plate is the target, the plain background the background)
+     with every launch count set to 0 just before and read just after: A
+     launched, A', B and C 32 times, C' never; every head parameter equal
+     to the checkpoint's and frozen, every torso parameter moved, every
+     loss finite, the torso grid non-empty after the first upkeep, pixels
+     under the torso mask at the last step, the fixed batch's torso loss
+     falling;
+ 12. torso_kernel_checks: A' at a torso step's own inputs (the deformed
+     points, the torso table, the upstream gradient) against autograd
+     through the plain encode; A at the torso upkeep's 16,384 points bit
+     for bit with its plain version;
+     torso_timing: ``Trainer.step`` of the torso stage fenced call by call
+     (median), a torch.profiler breakdown of 3 steps, A' and A at those
+     shapes beside their bounds and plain versions;
+ 13. checkpoint: a fresh head trainer loads the phase-11 checkpoint: its
+     parameters and renderer state equal the writer's, and it renders the
+     512x512 frame bit for bit as the writer does.
+
 Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
 calls as the host enqueues them (a kernel shorter than its wrapper's Python
 reads the host); ``device_ms`` times the same calls queued on the card.
@@ -55,8 +81,9 @@ Kernel C's entries also carry its layout floor: the bytes the [N, S]
 lattice makes any compositor move (whole valid rows, whole 32-byte sectors
 around each processed step), which its bound does not count.
 
-Each phase prints one JSON line; then the kernels line, the nvidia-smi line,
-and last the device line. Any failed check raises, and the script exits
+Each phase prints one JSON line; then the kernels line (A' also carries its
+torso-stage reading in the report), the nvidia-smi line, and last the
+device line. Any failed check raises, and the script exits
 non-zero. It exits non-zero without a CUDA device, and outside the
 repository (the port is imported from the checkout). A full report goes to
 chiprun_out/chip_smoke.json, the profiler's tables to
@@ -69,6 +96,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,6 +142,7 @@ REPLACES = {
     "row_gather": "scripts/bench_gather.py:79",
 }
 TRAIN_STEPS = 48
+TORSO_STEPS = 32
 TRAIN_FRAMES = 4
 TRAIN_SIZE = 512  # the targets' height and width
 PROFILED_STEPS = 3
@@ -353,17 +382,21 @@ def rel_err(got, want):
 
 
 class FrameDataset:
-    """In-memory head-stage dataset: ``n_frames`` targets rendered by the
-    port's frame path from the bench camera, each with its own audio window
-    (numpy seed-1 features); the torso-over-background layer of the same
-    render is the background plate, as the head stage's torso plate is; a
-    central face rect; eye 0.25. Numpy, with what the trainer reads."""
+    """In-memory dataset: ``n_frames`` targets rendered by the port's frame
+    path from the bench camera, each with its own audio window (numpy seed-1
+    features); the torso-over-background layer of the same render is the
+    torso plate; a central face rect; eye 0.25. Numpy, with what the trainer
+    reads. The head stage (``torso`` False) takes the torso plate as its
+    background; the torso stage fits the torso plate (``bg_torso_color``)
+    over the plain background."""
 
     def __init__(self, net, rc, state, batch, n_frames, H, W, num_rays, seed=1):
         from radnerf_tpu_torch.data import get_audio_features, get_bg_coords
         from radnerf_tpu_torch.models import render_rays
 
         self.H, self.W, self.num_rays = H, W, num_rays
+        self.torso = False
+        self.background = batch["bg_color"].cpu().numpy()
         self.rng = np.random.default_rng(seed)
         self.auds = self.rng.normal(size=(n_frames, 44, 16)).astype(np.float32)
         pose = np.eye(4, dtype=np.float32)
@@ -397,13 +430,15 @@ class FrameDataset:
                         rng=self.rng)
         inds = rays["inds"]
         xmin, xmax, ymin, ymax = self.face_rect
+        stage = ({"bg_color": self.background[inds], "bg_torso_color": self.plates[i][inds]}
+                 if self.torso else {"bg_color": self.plates[i][inds]})
         return {
             "auds": get_audio_features(self.auds, 2, i), "index": i,
             "H": self.H, "W": self.W, "rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
             "face_mask": ((rays["j"] >= xmin) & (rays["j"] < xmax)
                           & (rays["i"] >= ymin) & (rays["i"] < ymax)),
             "eye": self.eye_area[i].reshape(1, 1),
-            "bg_color": self.plates[i][inds], "images": self.images[i][inds],
+            "images": self.images[i][inds], **stage,
             "bg_coords": self.bg_coords[inds], "poses": convert_poses(self.poses[i][None]),
         }
 
@@ -657,8 +692,14 @@ def main():
 
     from radnerf_tpu_torch.config import Options
 
-    kernels += train_phases(report, out_dir, (net, rc, state, b), Options(exp_eye=True))
+    train_kernels, head_trainer, ds = train_phases(report, out_dir, (net, rc, state, b),
+                                                   Options(exp_eye=True))
+    kernels += train_kernels
     kernels.append(gather_phase(report, dev))
+    with tempfile.TemporaryDirectory() as workspace:
+        head_ckpt, torso_bwd = torso_phases(report, out_dir, head_trainer, ds, workspace)
+        checkpoint_phase(report, head_trainer, head_ckpt, (net, rc, state, b), auds[0])
+    next(k for k in kernels if k["name"] == "grid_encode_backward")["calls"]["torso"] = torso_bwd
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -674,8 +715,8 @@ def main():
 def train_phases(report, out_dir, scene, opt):
     """Phases 7, 8 and 10 (training) on the scene's device: ``scene`` is
     (net, render config, state, batch) of the frame, which renders the
-    targets; ``opt`` the trainer's options. Returns the kernels-line
-    entries of A' and C'."""
+    targets; ``opt`` the trainer's options. Returns (the kernels-line
+    entries of A' and C', the trainer, the dataset)."""
     from radnerf_tpu_torch.data import get_audio_features
     from radnerf_tpu_torch.models import (
         RendererState, field_on_lattice, mark_untrained_grid, update_density_grid,
@@ -960,7 +1001,231 @@ def train_phases(report, out_dir, scene, opt):
           "kernel_device_ms": {k["name"]: k["device_ms"] for k in kernels},
           "grid_encode_backward_calls": {
               n: {k: v for k, v in c.items() if "ms" in k} for n, c in g["calls"].items()}})
-    return kernels
+    return kernels, tr, ds
+
+
+def torso_phases(report, out_dir, head, ds, workspace):
+    """Phases 11 and 12 and the torso timing on the head trainer's device:
+    ``head`` is phase 7's trainer, ``ds`` its dataset, ``workspace`` a
+    temporary directory for the head checkpoint. Returns (the checkpoint's
+    path, A''s reading at the torso step's call)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.models import update_torso_grid
+    from radnerf_tpu_torch.ops import (
+        _kernels, grid_encode, grid_encode_backward, grid_encode_backward_plain,
+        grid_encode_plain,
+    )
+    from radnerf_tpu_torch.train import Trainer
+
+    dev = head.device
+    # ---- 11. the torso stage from the head run's checkpoint
+    head.workspace = workspace
+    head.save_checkpoint(full=True)
+    head_ckpt = head.stats["checkpoints"][-1]
+    saved = {k: v.detach().clone() for k, v in head.net.named_parameters()}
+    opt = Options(torso=True, exp_eye=True)
+    tr = Trainer(opt, device=dev)
+    tr.freeze_loaded_head(head_ckpt)
+    rc, net = tr.render_cfg, tr.net
+    torso_names = [n for n, _ in net.named_parameters() if n not in saved]
+    before = {k: v.detach().clone() for k, v in net.named_parameters()}
+    ds_t = copy.copy(ds)
+    ds_t.torso = True
+
+    # the fixed batch, and the model at step 0 on a torso grid upkept once
+    fixed = tr.next_batch(ds_t, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(123),
+                              device=dev)
+    with torch.no_grad():
+        probe = update_torso_grid(net, rc, tr.state, fixed["poses"],
+                                  net.individual_codes_torso[0],
+                                  generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr.loss(fixed, fixed_noises, 0, state=probe)[0])
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr.train(ds_t, max_epochs=TORSO_STEPS // len(ds_t))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    losses = tr.stats["step_loss"]
+    telemetry = {k: int(v) for k, v in tr.telemetry.items()}
+    head_unchanged = all(torch.equal(p, saved[n]) and not p.requires_grad
+                         for n, p in net.named_parameters() if n in saved)
+    torso_moved = {n: not torch.equal(p, before[n]) for n, p in net.named_parameters()
+                   if n in torso_names}
+    tp = {"steps": tr.global_step, "launches": launches, "seconds": run_s,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+          "mean_density_torso_after_upkeeps": tr.stats["mean_density_torso"],
+          "telemetry_last_step": telemetry, "head_parameters_unchanged": head_unchanged,
+          "torso_parameters_moved": torso_moved,
+          "model": "NetworkConfig(torso=True, exp_eye=True), float32, Options(torso=True) "
+                   "defaults, torso seeded init (torch.Generator seed 0), head from phase 7's "
+                   "checkpoint"}
+    report["torso_train"] = {**tp, "step_losses": losses}
+    emit({"phase": "torso_train", **tp})
+    want = {"march_rays": TORSO_STEPS, "composite_rays": TORSO_STEPS,
+            "grid_encode_backward": TORSO_STEPS, "composite_rays_backward": 0}
+    if launches["grid_encode"] <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise RuntimeError(f"torso stage launches {launches}, want A > 0 and {want}")
+    if tr.global_step != TORSO_STEPS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"torso training: {tr.global_step} steps, losses {losses}")
+    if not head_unchanged or not torso_names or not all(torso_moved.values()):
+        raise RuntimeError(f"head changed or torso still: head unchanged {head_unchanged}, "
+                           f"torso moved {torso_moved}")
+    if not tr.stats["mean_density_torso"][0] > 0 or not telemetry["n_torso_mask"] > 0:
+        raise RuntimeError(f"empty torso grid or mask: {tr.stats['mean_density_torso']}, "
+                           f"{telemetry}")
+    if not loss_end < loss_0:
+        raise RuntimeError(f"fixed-batch torso loss did not fall: {loss_0} -> {loss_end}")
+
+    # ---- 12. A' and A at the torso stage's own calls: the encode's points
+    # and upstream gradient recorded in a step, its points in an upkeep
+    seen = {}
+    encode = network_mod.grid_encode
+
+    def recording(x, table, spec, bound=1.0):
+        out = encode(x, table, spec, bound)
+        if table is net.torso_encoder:
+            seen["x"] = x.detach()
+            if out.requires_grad:
+                out.register_hook(lambda g: seen.__setitem__("grad_out", g.detach()))
+        return out
+
+    network_mod.grid_encode = recording
+    try:
+        batch = tr.next_batch(ds_t, 1)
+        tr.loss(batch, tr.draw_noises(opt.num_rays), tr.global_step)[0].backward()
+        tr.optimizer.zero_grad(set_to_none=True)
+        x_step, grad_out = seen["x"], seen["grad_out"]
+        update_torso_grid(net, rc, tr.state, batch["poses"], net.individual_codes_torso[1],
+                          generator=torch.Generator(dev).manual_seed(8))
+        x_upkeep = seen["x"]
+    finally:
+        network_mod.grid_encode = encode
+    table, spec = net.torso_encoder.detach(), net.cfg.torso_spec
+    gk = grid_encode_backward(x_step, table, grad_out, spec, 1.0, need_x=True)
+    gp = grid_encode_backward_plain(x_step, table, grad_out, spec, 1.0, need_x=True)
+    n_busy = int(row_counts(x_step, spec, 1.0)[0].max())
+    a_bwd = {"n_points": int(x_step.shape[0]), "busiest_row_contributions": n_busy,
+             "table_tol_rel": max(TOL_BACKWARD_REL, 4.0 * math.sqrt(n_busy) * 2**-24),
+             "table_rel_err": rel_err(gk[0], gp[0]),
+             "table_max_abs_err": float((gk[0] - gp[0]).abs().max()),
+             "x_rel_err": rel_err(gk[1], gp[1]), "x_tol_rel": TOL_BACKWARD_REL,
+             "x_max_abs_err": float((gk[1] - gp[1]).abs().max())}
+    a_args = (x_upkeep, table, spec, 1.0)
+    a_fwd = {"n_points": int(x_upkeep.shape[0]),
+             "bit_for_bit": bool(torch.equal(grid_encode(*a_args), grid_encode_plain(*a_args)))}
+    torch.cuda.synchronize()
+    checks = {"grid_encode_backward_torso": a_bwd, "grid_encode_torso_upkeep": a_fwd}
+    report["torso_kernel_checks"] = checks
+    emit({"phase": "torso_kernel_checks", **checks})
+    if not (a_bwd["table_rel_err"] <= a_bwd["table_tol_rel"]
+            and a_bwd["x_rel_err"] <= TOL_BACKWARD_REL):
+        raise RuntimeError(f"grid_encode_backward differs at the torso step: {a_bwd}")
+    if not a_fwd["bit_for_bit"] or a_fwd["n_points"] != rc.grid_size**2:
+        raise RuntimeError(f"grid_encode differs from its twin at the torso upkeep: {a_fwd}")
+
+    # ---- torso timing: the loop entry fenced call by call, a profile of
+    # steps that run no upkeep, A' and A at the stage's calls
+    interval = opt.update_extra_interval
+    order = ds_t.epoch_indices()
+    step_ms, upkeep_step_ms = [], []
+    for n in range(2 * interval - PROFILED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step(ds_t, order[n % len(order)])
+        torch.cuda.synchronize()
+        (upkeep_step_ms if upkeep else step_ms).append((time.perf_counter() - t0) * 1e3)
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS)):
+        raise RuntimeError("a profiled torso step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds_t, order[i % len(order)]),
+                                  PROFILED_STEPS)
+    with open(os.path.join(out_dir, "chip_smoke_torso_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    med = float(np.median(step_ms))
+
+    def bwd():
+        return grid_encode_backward(x_step, table, grad_out, spec, 1.0, need_x=True)
+
+    nb, nf = grid_backward_work(x_step, spec, 1.0, True)
+    bms, by = bound_ms(nb, nf)
+    torso_bwd = {"n_points": int(x_step.shape[0]), "x_grad": True,
+                 "launches_in_torso_run": launches["grid_encode_backward"],
+                 "ms": cuda_ms(bwd, 20), "device_ms": device_ms(bwd, 20),
+                 "plain_ms": cuda_ms(lambda: grid_encode_backward_plain(
+                     x_step, table, grad_out, spec, 1.0, need_x=True), 3),
+                 "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+                 "max_abs_err": max(a_bwd["table_max_abs_err"], a_bwd["x_max_abs_err"])}
+    nb, nf = grid_work(x_upkeep, spec, 1.0)
+    bms, by = bound_ms(nb, nf)
+    upkeep_fwd = {"n_points": int(x_upkeep.shape[0]),
+                  "ms": cuda_ms(lambda: grid_encode(*a_args), 20),
+                  "device_ms": device_ms(lambda: grid_encode(*a_args), 20),
+                  "plain_ms": cuda_ms(lambda: grid_encode_plain(*a_args), 3),
+                  "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
+    tt = {"torso_step_ms_median": med, "torso_step_ms": step_ms,
+          "upkeep_step_ms": upkeep_step_ms, "upkeep_ms": [u - med for u in upkeep_step_ms],
+          "rays": opt.num_rays,
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS),
+                      "top": [{"name": e.key[:80],
+                               "ms_per_step": e.self_device_time_total / PROFILED_STEPS / 1e3,
+                               "calls_per_step": e.count / PROFILED_STEPS}
+                              for e in events[:15]]},
+          "grid_encode_backward_torso_step": torso_bwd, "grid_encode_torso_upkeep": upkeep_fwd}
+    report["torso_timing"] = tt
+    emit({"phase": "torso_timing", **{k: v for k, v in tt.items()
+                                      if k not in ("profile", "torso_step_ms")},
+          "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / med,
+          "ms_per_step_by_class": tt["profile"]["ms_per_step_by_class"],
+          "top5": tt["profile"]["top"][:5]})
+    return head_ckpt, torso_bwd
+
+
+def checkpoint_phase(report, head, head_ckpt, scene, aud):
+    """Phase 13: a fresh head trainer loads the head checkpoint; its
+    parameters and renderer state must equal the writer's, and its 512x512
+    frame of the bench camera must equal the writer's bit for bit."""
+    import dataclasses
+
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.models import render_rays
+    from radnerf_tpu_torch.train import Trainer
+
+    b = scene[3]
+    fresh = Trainer(Options(exp_eye=True), device=head.device)
+    fresh.load_checkpoint(head_ckpt)
+    own = dict(head.net.named_parameters())
+    params_equal = all(torch.equal(p, own[n]) for n, p in fresh.net.named_parameters())
+    state_differs = [f.name for f in dataclasses.fields(fresh.state)
+                     if not torch.equal(getattr(fresh.state, f.name), getattr(head.state, f.name))]
+
+    def frame(tr):
+        return render_rays(tr.net, tr.render_cfg, tr.state, b["rays_o"], b["rays_d"], aud,
+                           b["bg_coords"], b["poses"], b["eye"], b["index"], b["bg_color"])[0]
+
+    mine, theirs = frame(head), frame(fresh)
+    frame_differs = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    cp = {"params_equal": params_equal, "state_fields_differing": state_differs,
+          "frame_fields_differing": frame_differs,
+          "frame_max_abs_err": float((mine["image"] - theirs["image"]).abs().max()),
+          "weights_sum_max": float(mine["weights_sum"].max()),
+          "telemetry": {k: int(v) for k, v in theirs.items() if k.startswith("n_")},
+          "global_step": fresh.global_step, "epoch": fresh.epoch}
+    report["checkpoint"] = cp
+    emit({"phase": "checkpoint", **cp})
+    if not params_equal or state_differs or frame_differs:
+        raise RuntimeError(f"the loaded checkpoint differs from its writer: {cp}")
+    if fresh.global_step != head.global_step:
+        raise RuntimeError(f"step count {fresh.global_step}, writer {head.global_step}")
 
 
 def gather_phase(report, dev):

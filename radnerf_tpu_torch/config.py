@@ -11,6 +11,9 @@ from typing import Optional
 @dataclasses.dataclass
 class Options:
     seed: int = 0
+    workspace: str = "workspace"
+    # the head stage's checkpoint the torso stage starts from
+    head_ckpt: str = ""
 
     # training
     iters: int = 200_000

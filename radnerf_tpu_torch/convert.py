@@ -2,9 +2,12 @@
 
 ``network_from_jax`` takes the JAX parameter pytree as numpy arrays (the
 ``init_params`` layout, or what the JAX package's torch-checkpoint import
-returns) and loads it into a ``NeRFNetwork``. ``state_from_numpy`` builds a
+returns) and loads it into a new ``NeRFNetwork``; ``load_jax_params`` loads
+such a pytree, or part of one, into an existing network in place;
+``network_to_jax`` gives the pytree back. ``state_from_numpy`` builds a
 ``RendererState`` from numpy grids, deriving the sigma bytes and the
-occupied bbox and sphere in the port itself. Both default to the card.
+occupied bbox and sphere in the port itself. The constructors default to
+the card.
 """
 
 from __future__ import annotations
@@ -56,6 +59,61 @@ def _state_dict_from_jax(np_params: dict) -> dict:
         else:
             sd[key] = np.asarray(p)
     return sd
+
+
+def jax_from_state_dict(sd: dict) -> dict:
+    """The inverse of ``_state_dict_from_jax``: ``NeRFNetwork`` state_dict
+    names (numpy values) -> the JAX pytree, linear weights as [in, out]."""
+    def linear(prefix):
+        p = {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T)}
+        if f"{prefix}.bias" in sd:
+            p["b"] = sd[f"{prefix}.bias"]
+        return p
+
+    def count(prefix):
+        return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+
+    tree = {}
+    for key in dict.fromkeys(k.split(".")[0] for k in sd):
+        if key in ("audio_net", "audio_att_net"):
+            conv = [{"w": sd[f"{key}.conv.{j}.weight"], "b": sd[f"{key}.conv.{j}.bias"]}
+                    for j in range(count(f"{key}.conv."))]
+            fc = ([linear(f"{key}.fc.{j}") for j in range(count(f"{key}.fc."))]
+                  if key == "audio_net" else linear(f"{key}.fc"))
+            tree[key] = {"conv": conv, "fc": fc}
+        elif f"{key}.layers.0.weight" in sd:
+            tree[key] = {"layers": [linear(f"{key}.layers.{j}")
+                                    for j in range(count(f"{key}.layers."))]}
+        else:
+            tree[key] = sd[key]
+    return tree
+
+
+def network_to_jax(net: NeRFNetwork) -> dict:
+    """The network's parameters as the JAX pytree of numpy arrays (what
+    ``init_params`` builds and the JAX checkpoints hold)."""
+    return jax_from_state_dict({k: v.detach().cpu().numpy()
+                                for k, v in net.state_dict().items()})
+
+
+@torch.no_grad()
+def load_jax_params(net: NeRFNetwork, np_params: dict) -> list:
+    """Copy a JAX pytree (numpy), or the part of one a checkpoint holds, into
+    the network's parameters in place: an optimizer that holds them keeps
+    them, and parameters the pytree lacks keep their values. Raises
+    ValueError on a shape mismatch; returns the names the network does not
+    have."""
+    own = dict(net.named_parameters())
+    unknown = []
+    for name, value in _state_dict_from_jax(np_params).items():
+        if name not in own:
+            unknown.append(name)
+        elif tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)}, "
+                             f"network {tuple(own[name].shape)}")
+        else:
+            own[name].copy_(torch.from_numpy(np.array(value, np.float32)))
+    return unknown
 
 
 def network_from_jax(np_params: dict, cfg: NetworkConfig, device="cuda") -> NeRFNetwork:

@@ -1,5 +1,5 @@
 """Model layer of the port: the audio-conditioned field, the renderer and
-the head grid's maintenance."""
+the maintenance of the head and torso grids."""
 
 from .network import NeRFNetwork, NetworkConfig, param_groups
 from .renderer import (
@@ -17,6 +17,7 @@ from .renderer import (
     reset_extra_state,
     smooth_audio_code,
     update_density_grid,
+    update_torso_grid,
 )
 
 __all__ = [
@@ -37,4 +38,5 @@ __all__ = [
     "reset_extra_state",
     "smooth_audio_code",
     "update_density_grid",
+    "update_torso_grid",
 ]

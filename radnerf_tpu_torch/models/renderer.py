@@ -14,12 +14,16 @@ result equals the JAX one at exhaustive capacities. ``march_iters`` (K) and
 The march (kernel B), the three grid encodes (kernel A) and the compositor
 (kernel C) run as hand-written CUDA kernels on the card. With
 ``training=True`` the march takes the perturbation ``noises`` and autograd
-runs through the grid encodes and the compositor into kernels A' and C'.
+runs through the grid encodes and the compositor into kernels A' and C'
+(the head stage), or through the torso's grid encode alone into A' (the
+torso stage, whose frozen head records no graph).
 
-Grid maintenance for the head stage: ``RendererState.create``,
-``reset_extra_state``, ``mark_untrained_grid`` (cells no training camera
-sees become -1) and ``update_density_grid`` (jittered density queries at
-every cell centre, 6-neighbour dilation, EMA max, re-derived occupancy).
+Grid maintenance: ``RendererState.create``, ``reset_extra_state``,
+``mark_untrained_grid`` (cells no training camera sees become -1),
+``update_density_grid`` (the head: jittered density queries at every cell
+centre, 6-neighbour dilation, EMA max, re-derived occupancy) and
+``update_torso_grid`` (the torso: jittered alpha queries at every pixel of
+an H x H lattice, 5x5 max pool, EMA max).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops import (
@@ -242,14 +247,17 @@ def bilinear_sample_2d(grid_flat: torch.Tensor, coords: torch.Tensor, H: int) ->
 
 def smooth_audio_code(state: RendererState, enc_a: torch.Tensor, enabled: bool):
     """enc_a EMA 0.35*prev + 0.65*new (reference renderer.py:190-194).
-    Returns (code, new state)."""
+    Returns (code, new state). The state keeps the code detached: the next
+    call reads it as a constant, as the JAX step reads its incoming state
+    (kept with its graph, a training step would backpropagate into the
+    previous step's freed graph)."""
     if not enabled:
         return enc_a, state
     lam = 0.35
     smoothed = torch.where(state.enc_a_initialized,
                            lam * state.enc_a_smooth + (1 - lam) * enc_a, enc_a)
     return smoothed, dataclasses.replace(
-        state, enc_a_smooth=smoothed,
+        state, enc_a_smooth=smoothed.detach(),
         enc_a_initialized=torch.ones_like(state.enc_a_initialized))
 
 
@@ -295,13 +303,16 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     Args:
       rays_o, rays_d: [N, 3]; auds: [seq, audio_in_dim, 16] or None;
       bg_coords: [N, 2]; pose6: [1, 6]; eye: [1, 1] or None; index: frame
-      index (the individual code's row when training; row 0 otherwise);
+      index (the row of the individual codes, head and torso, when
+      training; row 0 otherwise);
       bg_color: [N, 3]; noises: [N] in [0, 1) or None, the march
       perturbation.
-      training: run with autograd (the head stage's train step) and return
-        ``ambient``, the per-ray ambient sum the loss reads. Inference runs
-        under ``torch.no_grad()``. The torso stage and learnable camera
-        offsets are not ported for training and raise.
+      training: run with autograd (a train step of either stage) and
+        return ``ambient``, the per-ray ambient sum the head loss reads.
+        Inference runs under ``torch.no_grad()``. Learnable camera offsets
+        are not ported for training and raise. The torso runs on every
+        pixel and is masked afterwards (the JAX path at
+        ``torso_capacity_frac >= 1``).
 
     Returns (results, state): image [N, 3], weights_sum [N] (the head's
       opacity), depth [N] (normalised by the full-AABB near/far),
@@ -318,8 +329,6 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     if net.cfg.train_camera:
         raise NotImplementedError("training camera offsets needs a backward through "
                                   "kernel B; not ported")
-    if cfg.torso:
-        raise NotImplementedError("the torso stage is not ported for training")
     return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                    bg_color, noises, True)
 
@@ -359,7 +368,7 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
         results["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
 
     if cfg.torso:
-        code_t = (net.individual_codes_torso[0]
+        code_t = (net.individual_codes_torso[index]
                   if net.individual_codes_torso is not None else None)
         thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
         occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
@@ -436,6 +445,40 @@ def update_density_grid(net: NeRFNetwork, cfg: RenderConfig, state: RendererStat
     thresh = torch.clamp(mean_density, max=cfg.density_thresh)
     return dataclasses.replace(state, density_grid=grid, mean_density=mean_density,
                                **_occupancy(cfg, grid, thresh))
+
+
+@torch.no_grad()
+def update_torso_grid(net: NeRFNetwork, cfg: RenderConfig, state: RendererState, pose6, code,
+                      generator: Optional[torch.Generator] = None, jitter=None,
+                      decay: float = 0.95) -> RendererState:
+    """Torso alpha-grid maintenance (JAX ``update_torso_grid``, reference
+    renderer.py:451-490): query the torso's alpha at every point of an H x H
+    lattice in [-1, 1] * (1 - 1/H), jittered by U(-1/H, 1/H) per coordinate,
+    scatter to ``y * H + x`` (x and y transposed, as the reference), take a
+    5x5 max pool (stride 1, padded with -inf), the max with the decayed grid,
+    and its mean.
+
+    pose6: [1, 6]; code: the torso code row or None. The jitter comes from
+    ``generator`` (on the state's device), or is given as ``jitter`` [H^2, 2].
+    """
+    H = cfg.grid_size
+    dev = state.density_grid_torso.device
+    lin = torch.arange(H, device=dev)
+    coords = torch.stack(torch.meshgrid(lin, lin, indexing="ij"), dim=-1).reshape(-1, 2)
+    indices = coords[:, 1] * H + coords[:, 0]
+    half = 1.0 / H
+    # divide by a tensor (see _grid_points)
+    xys = (2.0 * coords.float() / torch.full((), H - 1.0, device=dev) - 1.0) * (1.0 - half)
+    if jitter is not None:
+        noise = jitter.to(dev)
+    else:
+        noise = torch.rand(xys.shape, generator=generator, device=dev) * (2.0 * half) - half
+    alphas = net.forward_torso(xys + noise, pose6, code)[0]
+    tmp = torch.zeros_like(state.density_grid_torso)
+    tmp[indices] = alphas[:, 0]
+    pooled = F.max_pool2d(tmp.view(1, 1, H, H), 5, stride=1, padding=2).reshape(-1)
+    grid = torch.maximum(state.density_grid_torso * decay, pooled)
+    return dataclasses.replace(state, density_grid_torso=grid, mean_density_torso=grid.mean())
 
 
 @torch.no_grad()

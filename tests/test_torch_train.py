@@ -43,7 +43,12 @@ from radnerf_tpu.utils.color import srgb_to_linear as j_srgb_to_linear
 
 from radnerf_tpu_torch import ops as T
 from radnerf_tpu_torch.config import Options
-from radnerf_tpu_torch.convert import _state_dict_from_jax, network_from_jax, state_from_numpy
+from radnerf_tpu_torch.convert import (
+    _state_dict_from_jax,
+    load_jax_params,
+    network_from_jax,
+    state_from_numpy,
+)
 from radnerf_tpu_torch.data import convert_poses, get_audio_features
 from radnerf_tpu_torch.models import (
     NeRFNetwork,
@@ -307,6 +312,8 @@ def test_head_train_step_matches_jax(head_params):
 
 
 def test_render_rays_training_raises_for_unported_parts():
+    """Training camera offsets raise in render_rays, the LPIPS term (lips
+    finetune, patch training) in the Trainer; the torso stage trains."""
     cfg = NetworkConfig(exp_eye=True, ind_num=4, train_camera=True)
     net = NeRFNetwork(cfg, device="cpu")
     rc = RenderConfig(grid_size=16)
@@ -315,8 +322,93 @@ def test_render_rays_training_raises_for_unported_parts():
     with pytest.raises(NotImplementedError):
         render_rays(net, rc, st, z3, z3, None, z, torch.zeros(1, 6), None, 0, z3,
                     training=True)
-    with pytest.raises(NotImplementedError):
-        Trainer(Options(torso=True), device="cpu")
+    small = NetworkConfig(**SMALL)
+    for opt in (Options(finetune_lips=True), Options(patch_size=32)):
+        with pytest.raises(NotImplementedError, match="LPIPS"):
+            Trainer(opt, small, rc, device="cpu")
+    assert Trainer(Options(torso=True), NetworkConfig(**SMALL, torso=True),
+                   RenderConfig(grid_size=16, torso=True), device="cpu").opt.torso
+
+
+def test_audio_labels_keep_their_type(head_params):
+    """With ``emb``, the audio windows are int64 labels: the trainer's
+    to_device and its grid upkeep keep them integers (JAX's jnp.asarray keeps
+    the dtype), and the port's encode_audio of them equals JAX's to rel
+    1e-5."""
+    from types import SimpleNamespace
+
+    cfg_j = JNetworkConfig(**SMALL, emb=True)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax.jit(lambda k: init_params(k, cfg_j))(jax.random.PRNGKey(17)))
+    rc = RenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0)
+    tr = Trainer(Options(emb=True, exp_eye=True), NetworkConfig(**SMALL, emb=True), rc,
+                 device="cpu")
+    load_jax_params(tr.net, params)
+    rng = np.random.default_rng(18)
+    labels = rng.integers(0, 44, size=(10, 16))
+    batch = tr.to_device({"auds": labels[:8], "index": 2, "face_mask": labels[0] > 20,
+                          "bg_color": rng.random((4, 3)), "H": 48})
+    assert batch["auds"].dtype == torch.int64 and batch["face_mask"].dtype == torch.bool
+    assert batch["bg_color"].dtype == torch.float32 and batch["H"] == 48
+    with torch.no_grad():
+        got = tr.net.encode_audio(batch["auds"]).numpy()
+    want = np.asarray(encode_audio(jax.tree_util.tree_map(jnp.asarray, params), cfg_j,
+                                   jnp.asarray(labels[:8])))
+    assert got.shape == want.shape == (1, 64)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -3.3
+    tr.update_extra_state(SimpleNamespace(auds=labels, eye_area=np.full((10, 1), 0.25),
+                                          poses=pose[None].repeat(10, 0)))
+    assert float(tr.state.mean_density) > 0
+
+
+def test_smooth_lips_code_advances_across_steps(head_params):
+    """With ``smooth_lips`` the trainer keeps the state each step's render
+    leaves: after two train steps its audio-code EMA equals the one two JAX
+    renders carry, to rel 1e-5, and the second backward runs (the state
+    holds the code detached, not the first step's graph). The learning
+    rates are 0, so both steps see the same weights."""
+    from radnerf_tpu.data.rays import get_bg_coords, get_rays
+    from test_train import _blob_grid
+
+    rng = np.random.default_rng(19)
+    n = 256
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -3.3
+    opt = Options(smooth_lips=True, lr=0.0, lr_net=0.0, exp_eye=True, iters=100,
+                  dt_gamma=0.0)
+    rc = RenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0, smooth_lips=True)
+    tr = Trainer(opt, NetworkConfig(**SMALL), rc, device="cpu")
+    load_jax_params(tr.net, head_params)
+    grid = _blob_grid(GRID)
+    tr.state = state_from_numpy(rc, grid, np.zeros(GRID * GRID, np.float32), 1.0, 0.0,
+                                thresh=1.0, device="cpu")
+    rc_j = JRenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0, exp_eye=True,
+                         smooth_lips=True, sample_capacity_mult=16.0, ray_capacity_frac=1.0)
+    state_j = _blob_state_j(rc_j, grid, 1.0)
+    params_j = jax.tree_util.tree_map(jnp.asarray, head_params)
+    render_j = jax.jit(lambda s, a, i: j_render_rays(
+        params_j, JNetworkConfig(**SMALL), rc_j, s, a["rays_o"], a["rays_d"], a["auds"],
+        a["bg_coords"], a["poses"], a["eye"], i, a["bg_color"], training=True)[1])
+    for step in range(2):
+        rays = get_rays(pose, (80.0, 80.0, 24.0, 24.0), 48, 48, n, rng=rng)
+        batch = dict(rays_o=rays["rays_o"], rays_d=rays["rays_d"], index=step,
+                     bg_coords=get_bg_coords(48, 48)[rays["inds"]],
+                     poses=np.zeros((1, 6), np.float32),
+                     auds=rng.normal(size=(8, 44, 16)).astype(np.float32),
+                     eye=np.array([[0.25]], np.float32),
+                     bg_color=rng.random((n, 3)).astype(np.float32),
+                     images=rng.random((n, 3)).astype(np.float32),
+                     face_mask=rng.random(n) < 0.5)
+        tr.global_step += 1
+        loss = tr.train_step(tr.to_device(batch))
+        assert np.isfinite(float(loss))
+        state_j = render_j(state_j, {k: jnp.asarray(v) for k, v in batch.items()
+                                     if k != "index"}, jnp.asarray(step, jnp.int32))
+    got, want = tr.state.enc_a_smooth, np.asarray(state_j.enc_a_smooth)
+    assert bool(tr.state.enc_a_initialized) and not got.requires_grad
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 # --------------------------------------------------------------- optimizer
