@@ -9,8 +9,13 @@ Drives the port's paths through the hand-written CUDA kernels: one
 widths in float32 (kernels A, B, C); a head-stage training run from scratch
 at full width (A, B, C and the backward kernels A', C'); the gather study
 at the Pallas row-loop kernel's shapes (kernel D); the torso stage from the
-head run's checkpoint (A, A', B, C; no C'); and that checkpoint loaded into
-a fresh trainer.
+head run's checkpoint (A, A', B, C; no C'); that checkpoint loaded into a
+fresh trainer; and the CLIs. Every training phase reads the same
+processed-video directory, written in a temporary place (deleted at the
+end) before phase 7: 8 frames of 512x512 rendered by the frame path, their
+RGBA torso plates, landmarks, background, audio table and train / val
+transforms, every image PNG content under the format's own names; loaded
+with ``--preload 2``, so each batch is built on the card.
 
 The frame:
 
@@ -29,8 +34,8 @@ The frame:
 
 Training (``NetworkConfig(torso=False, exp_eye=True)``, ``Options``
 defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
-  7. train: an in-memory dataset of 512x512 targets rendered by the frame
-     path, the trainer started as main.py starts it (seeded init, empty
+  7. train: the directory's dataset (``TalkingHeadDataset``), the trainer
+     started as main.py starts it (seeded init, empty
      state, untrained cells marked, upkeep at step 0 and every 16 steps),
      48 steps with every launch count set to 0 just before and read just
      after; every kernel but D must have launched, every loss is finite,
@@ -43,7 +48,7 @@ defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
   9. the gather study: kernel D at P = 2 Mi rows of 16 bf16, T in {4096,
      65536}, counts from 0, bit for bit with ``table[idx]``;
  10. timing: the trainer's own loop entry (``Trainer.step``: upkeep when
-     due, batch, step) fenced call by call, so the step's ms and the
+     due, the card's batch, step) fenced call by call, so the step's ms and the
      upkeep's; a torch.profiler breakdown of 3 steps; the batch preparation
      alone; and the kernels beside their bounds, plain versions and (for
      D) ``index_select``: A' on the step's points and on the spread ones; A
@@ -55,8 +60,8 @@ rays, grid 128, upkeep every 16 steps), as main.py runs it with
 ``--torso --head_ckpt``:
  11. torso_train: phase 7's head trainer saved as a full checkpoint in a
      temporary workspace (deleted at the end), a fresh torso trainer that
-     loads it with ``freeze_loaded_head``, 32 steps on the same targets
-     (the torso plate is the target, the plain background the background)
+     loads it with ``freeze_loaded_head``, 32 steps on the directory's
+     torso dataset (the torso plate over the background is the target)
      with every launch count set to 0 just before and read just after: A
      launched, A', B and C 32 times, C' never; every head parameter equal
      to the checkpoint's and frozen, every torso parameter moved, every
@@ -74,6 +79,28 @@ rays, grid 128, upkeep every 16 steps), as main.py runs it with
      parameters and renderer state equal the writer's, and it renders the
      512x512 frame bit for bit as the writer does.
 
+The dataset and the entry points, on the same directory:
+ 14. dataset: phase 7's dataset, whose frames on the card must equal the
+     decoded files; one training batch equal to the host's numpy gather of
+     the same pixels bit for bit, its rays within one float32 ulp;
+     ``next_batch`` timed against that numpy batch; one torso plate's
+     decode timed through ``imread_u8`` and the port's own PNG reader;
+ 15. entry: ``radnerf_tpu_torch.main`` in this process at full width
+     (``--exp_eye --preload 2 --ema_update_interval 1``, 65,536 rays, 2
+     epochs of the 8 frames, the evaluation, the test split evaluated and
+     rendered) with every launch count set to 0 just before and read just
+     after: A, A', B, C and C' launched, every loss finite,
+     ``ngp_ep0002.npz`` and the best ``ngp.npz`` written, ``ngp.npz``
+     holding the EMA, moved off the initial draw wherever training moved
+     the live parameters, the eval PSNR finite, the validation PNGs and the
+     test video (or its PNGs) written; then ``radnerf_tpu_torch.infer`` from
+     that ``ngp.npz`` on a pose json and 6 audio rows: one frame each;
+ 16. entry_timing: that trainer's ``Trainer.step`` fenced call by call
+     (median, beside phase 10's), a 3-step profile and its busy share, the
+     batch preparation alone, A (both calls), B and C against their plain
+     versions on one eval frame's own inputs (~4.2M samples, [262,144, 16]
+     lattice), the eval frame fenced and profiled, ``test``'s FPS.
+
 Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
 calls as the host enqueues them (a kernel shorter than its wrapper's Python
 reads the host); ``device_ms`` times the same calls queued on the card.
@@ -88,6 +115,7 @@ non-zero. It exits non-zero without a CUDA device, and outside the
 repository (the port is imported from the checkout). A full report goes to
 chiprun_out/chip_smoke.json, the profiler's tables to
 chiprun_out/chip_smoke_profile.txt and chiprun_out/chip_smoke_train_profile.txt.
+The torso and entry steps' tables go beside them.
 """
 
 import copy
@@ -143,8 +171,10 @@ REPLACES = {
 }
 TRAIN_STEPS = 48
 TORSO_STEPS = 32
-TRAIN_FRAMES = 4
 TRAIN_SIZE = 512  # the targets' height and width
+# the on-disk dataset of phases 14-16: its frames, the validation (and test)
+# split's, the entry run's epochs, the audio rows infer renders
+DATASET_FRAMES, VAL_FRAMES, ENTRY_EPOCHS, INFER_FRAMES = 8, 4, 2, 6
 PROFILED_STEPS = 3
 GATHER_ROWS, GATHER_WIDTH, GATHER_TABLES = 2 * 1024 * 1024, 16, (4096, 65536)
 
@@ -381,66 +411,26 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-class FrameDataset:
-    """In-memory dataset: ``n_frames`` targets rendered by the port's frame
-    path from the bench camera, each with its own audio window (numpy seed-1
-    features); the torso-over-background layer of the same render is the
-    torso plate; a central face rect; eye 0.25. Numpy, with what the trainer
-    reads. The head stage (``torso`` False) takes the torso plate as its
-    background; the torso stage fits the torso plate (``bg_torso_color``)
-    over the plain background."""
+def render_targets(scene, rng, n_frames):
+    """``n_frames`` frames of the bench camera rendered by the port's frame
+    path, each with its own audio window: (the audio features [n, 44, 16]
+    drawn from ``rng``, then per frame the image [H*W, 3], the torso layer
+    over the background [H*W, 3] and the torso's alpha [H*W, 1], numpy)."""
+    from radnerf_tpu_torch.data import get_audio_features
+    from radnerf_tpu_torch.models import render_rays
 
-    def __init__(self, net, rc, state, batch, n_frames, H, W, num_rays, seed=1):
-        from radnerf_tpu_torch.data import get_audio_features, get_bg_coords
-        from radnerf_tpu_torch.models import render_rays
-
-        self.H, self.W, self.num_rays = H, W, num_rays
-        self.torso = False
-        self.background = batch["bg_color"].cpu().numpy()
-        self.rng = np.random.default_rng(seed)
-        self.auds = self.rng.normal(size=(n_frames, 44, 16)).astype(np.float32)
-        pose = np.eye(4, dtype=np.float32)
-        pose[:3, 3] = [0.0, 0.0, -3.3]
-        focal = 1200.0 * H / 450.0  # the bench camera (scene.build_scene)
-        self.poses = np.stack([pose] * n_frames)
-        self.intrinsics = np.array([focal, focal, W / 2, H / 2])
-        self.eye_area = np.full((n_frames, 1), 0.25, np.float32)
-        self.face_rect = (H // 4, 3 * H // 4, W // 4, 3 * W // 4)
-        self.bg_coords = get_bg_coords(H, W)
-        self.images, self.plates = [], []
-        dev = batch["rays_o"].device
-        for i in range(n_frames):
-            aud = torch.from_numpy(get_audio_features(self.auds, 2, i)).to(dev)
-            res, _ = render_rays(net, rc, state, batch["rays_o"], batch["rays_d"], aud,
-                                 batch["bg_coords"], batch["poses"], batch["eye"],
-                                 batch["index"], batch["bg_color"])
-            self.images.append(res["image"].cpu().numpy())
-            self.plates.append(res["torso_color"].cpu().numpy())
-
-    def __len__(self):
-        return len(self.images)
-
-    def epoch_indices(self):
-        return self.rng.permutation(len(self))
-
-    def collate(self, i):
-        from radnerf_tpu_torch.data import convert_poses, get_audio_features, get_rays
-
-        rays = get_rays(self.poses[i], self.intrinsics, self.H, self.W, self.num_rays,
-                        rng=self.rng)
-        inds = rays["inds"]
-        xmin, xmax, ymin, ymax = self.face_rect
-        stage = ({"bg_color": self.background[inds], "bg_torso_color": self.plates[i][inds]}
-                 if self.torso else {"bg_color": self.plates[i][inds]})
-        return {
-            "auds": get_audio_features(self.auds, 2, i), "index": i,
-            "H": self.H, "W": self.W, "rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
-            "face_mask": ((rays["j"] >= xmin) & (rays["j"] < xmax)
-                          & (rays["i"] >= ymin) & (rays["i"] < ymax)),
-            "eye": self.eye_area[i].reshape(1, 1),
-            "images": self.images[i][inds], **stage,
-            "bg_coords": self.bg_coords[inds], "poses": convert_poses(self.poses[i][None]),
-        }
+    net, rc, state, batch = scene
+    auds = rng.normal(size=(n_frames, 44, 16)).astype(np.float32)
+    images, plates, alphas = [], [], []
+    for i in range(n_frames):
+        aud = torch.from_numpy(get_audio_features(auds, 2, i)).to(batch["rays_o"].device)
+        res, _ = render_rays(net, rc, state, batch["rays_o"], batch["rays_d"], aud,
+                             batch["bg_coords"], batch["poses"], batch["eye"], batch["index"],
+                             batch["bg_color"])
+        images.append(res["image"].cpu().numpy())
+        plates.append(res["torso_color"].cpu().numpy())
+        alphas.append(res["torso_alpha"].cpu().numpy())
+    return auds, images, plates, alphas
 
 
 def main():
@@ -692,14 +682,24 @@ def main():
 
     from radnerf_tpu_torch.config import Options
 
-    train_kernels, head_trainer, ds = train_phases(report, out_dir, (net, rc, state, b),
-                                                   Options(exp_eye=True))
-    kernels += train_kernels
-    kernels.append(gather_phase(report, dev))
-    with tempfile.TemporaryDirectory() as workspace:
-        head_ckpt, torso_bwd = torso_phases(report, out_dir, head_trainer, ds, workspace)
-        checkpoint_phase(report, head_trainer, head_ckpt, (net, rc, state, b), auds[0])
-    next(k for k in kernels if k["name"] == "grid_encode_backward")["calls"]["torso"] = torso_bwd
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_dataset(root, (net, rc, state, b))
+        write_s = time.perf_counter() - t0
+        train_kernels, head_trainer, ds = train_phases(
+            report, out_dir, Options(path=root, exp_eye=True, preload=2))
+        kernels += train_kernels
+        kernels.append(gather_phase(report, dev))
+        with tempfile.TemporaryDirectory() as workspace:
+            head_ckpt, torso_bwd = torso_phases(report, out_dir, head_trainer, root, workspace)
+            checkpoint_phase(report, head_trainer, head_ckpt, (net, rc, state, b), auds[0])
+        next(k for k in kernels
+             if k["name"] == "grid_encode_backward")["calls"]["torso"] = torso_bwd
+        dataset_phase(report, head_trainer, ds, root, write_s)
+        del head_trainer, ds
+        torch.cuda.empty_cache()
+        entry_trainer = entry_phase(report, root)
+        entry_timing_phase(report, out_dir, entry_trainer, root)
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -712,12 +712,12 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
-def train_phases(report, out_dir, scene, opt):
-    """Phases 7, 8 and 10 (training) on the scene's device: ``scene`` is
-    (net, render config, state, batch) of the frame, which renders the
-    targets; ``opt`` the trainer's options. Returns (the kernels-line
-    entries of A' and C', the trainer, the dataset)."""
-    from radnerf_tpu_torch.data import get_audio_features
+def train_phases(report, out_dir, opt):
+    """Phases 7, 8 and 10 (training) on the card: ``opt`` the trainer's
+    options, whose ``path`` is the directory ``write_dataset`` wrote and
+    whose ``preload`` says where its frames are kept. Returns (the
+    kernels-line entries of A' and C', the trainer, the dataset)."""
+    from radnerf_tpu_torch.data import TalkingHeadDataset
     from radnerf_tpu_torch.models import (
         RendererState, field_on_lattice, mark_untrained_grid, update_density_grid,
     )
@@ -729,10 +729,11 @@ def train_phases(report, out_dir, scene, opt):
     )
     from radnerf_tpu_torch.train import Trainer
 
-    dev = scene[3]["rays_o"].device
     t0 = time.perf_counter()
-    ds = FrameDataset(*scene, TRAIN_FRAMES, TRAIN_SIZE, TRAIN_SIZE, opt.num_rays)
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
+    dev = ds.device
     tr = Trainer(opt, device=dev)
     rc, net = tr.render_cfg, tr.net
 
@@ -742,7 +743,7 @@ def train_phases(report, out_dir, scene, opt):
     fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(123),
                               device=dev)
     with torch.no_grad():
-        aud0 = torch.from_numpy(get_audio_features(ds.auds, opt.att, 0)).to(dev)
+        aud0 = ds.audio_window(0)
         probe = update_density_grid(
             net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev), ds.poses,
                                          ds.intrinsics),
@@ -769,7 +770,8 @@ def train_phases(report, out_dir, scene, opt):
           "mean_density_after_upkeeps": tr.stats["mean_density"],
           "telemetry_last_step": telemetry,
           "model": "NetworkConfig(torso=False, exp_eye=True), float32, Options defaults, "
-                   "seeded init (torch.Generator seed 0)"}
+                   "seeded init (torch.Generator seed 0)",
+          "data": f"write_dataset's {len(ds)} frames, --preload {opt.preload}"}
     report["train"] = {**tp, "step_losses": losses}
     emit({"phase": "train", **tp})
     for name in TRAIN_KERNELS:
@@ -1004,13 +1006,14 @@ def train_phases(report, out_dir, scene, opt):
     return kernels, tr, ds
 
 
-def torso_phases(report, out_dir, head, ds, workspace):
+def torso_phases(report, out_dir, head, root, workspace):
     """Phases 11 and 12 and the torso timing on the head trainer's device:
-    ``head`` is phase 7's trainer, ``ds`` its dataset, ``workspace`` a
-    temporary directory for the head checkpoint. Returns (the checkpoint's
-    path, A''s reading at the torso step's call)."""
+    ``head`` is phase 7's trainer, ``root`` the dataset's directory,
+    ``workspace`` a temporary directory for the head checkpoint. Returns (the
+    checkpoint's path, A''s reading at the torso step's call)."""
     import radnerf_tpu_torch.models.network as network_mod
     from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
     from radnerf_tpu_torch.models import update_torso_grid
     from radnerf_tpu_torch.ops import (
         _kernels, grid_encode, grid_encode_backward, grid_encode_backward_plain,
@@ -1024,14 +1027,14 @@ def torso_phases(report, out_dir, head, ds, workspace):
     head.save_checkpoint(full=True)
     head_ckpt = head.stats["checkpoints"][-1]
     saved = {k: v.detach().clone() for k, v in head.net.named_parameters()}
-    opt = Options(torso=True, exp_eye=True)
+    opt = Options(path=root, torso=True, exp_eye=True, preload=head.opt.preload,
+                  num_rays=head.opt.num_rays)
     tr = Trainer(opt, device=dev)
     tr.freeze_loaded_head(head_ckpt)
     rc, net = tr.render_cfg, tr.net
     torso_names = [n for n, _ in net.named_parameters() if n not in saved]
     before = {k: v.detach().clone() for k, v in net.named_parameters()}
-    ds_t = copy.copy(ds)
-    ds_t.torso = True
+    ds_t = TalkingHeadDataset(opt, split="train", device=dev)
 
     # the fixed batch, and the model at step 0 on a torso grid upkept once
     fixed = tr.next_batch(ds_t, 0)
@@ -1065,7 +1068,8 @@ def torso_phases(report, out_dir, head, ds, workspace):
           "torso_parameters_moved": torso_moved,
           "model": "NetworkConfig(torso=True, exp_eye=True), float32, Options(torso=True) "
                    "defaults, torso seeded init (torch.Generator seed 0), head from phase 7's "
-                   "checkpoint"}
+                   "checkpoint",
+          "data": f"write_dataset's {len(ds_t)} frames, --torso --preload {opt.preload}"}
     report["torso_train"] = {**tp, "step_losses": losses}
     emit({"phase": "torso_train", **tp})
     want = {"march_rays": TORSO_STEPS, "composite_rays": TORSO_STEPS,
@@ -1226,6 +1230,376 @@ def checkpoint_phase(report, head, head_ckpt, scene, aud):
         raise RuntimeError(f"the loaded checkpoint differs from its writer: {cp}")
     if fresh.global_step != head.global_step:
         raise RuntimeError(f"step count {fresh.global_step}, writer {head.global_step}")
+
+
+def _u8(x):
+    return np.clip(np.round(np.asarray(x) * 255.0), 0, 255).astype(np.uint8)
+
+
+def write_dataset(root, scene):
+    """A processed-video directory in the reference's layout at ``root``:
+    DATASET_FRAMES frames of the bench camera rendered by the frame path
+    (``render_targets``, audio from numpy seed 2) as ``gt_imgs/<i>.jpg``,
+    their torso layer and alpha as the RGBA plates ``torso_imgs/<i>.png``,
+    68 landmarks each in the frame's middle (``ori_imgs/<i>.lms``), the
+    background as ``bc.jpg``, the audio table ``aud_eo.npy`` [T, 16, 44], and
+    ``transforms_train.json`` (every frame) / ``transforms_val.json`` (the
+    first VAL_FRAMES). Every image is PNG content under the format's own
+    names: lossless (so the frames on the card can equal the files, and the
+    eval PSNR means something), and decoded by content as cv2 would."""
+    from radnerf_tpu_torch.utils.image import write_png
+
+    H = W = TRAIN_SIZE
+    rng = np.random.default_rng(2)
+    auds, images, plates, alphas = render_targets(scene, rng, DATASET_FRAMES)
+    for sub in ("gt_imgs", "torso_imgs", "ori_imgs"):
+        os.makedirs(os.path.join(root, sub))
+    # the transform_matrix whose NGP pose (scale 4) is the bench camera's:
+    # identity rotation at (0, 0, -3.3)
+    pose = np.zeros((4, 4), np.float32)
+    pose[0, :3], pose[1, :3], pose[2, :3], pose[3, 3] = [0, 0, -1], [1, 0, 0], [0, -1, 0], 1.0
+    pose[0, 3] = -3.3 / 4.0
+    frames = []
+    for i in range(DATASET_FRAMES):
+        write_png(os.path.join(root, "gt_imgs", f"{i}.jpg"), _u8(images[i]).reshape(H, W, 3))
+        write_png(os.path.join(root, "torso_imgs", f"{i}.png"),
+                  _u8(np.concatenate([plates[i], alphas[i]], -1)).reshape(H, W, 4))
+        np.savetxt(os.path.join(root, "ori_imgs", f"{i}.lms"),
+                   rng.uniform(0.3 * H, 0.7 * H, (68, 2)))
+        frames.append({"img_id": i, "aud_id": i, "transform_matrix": pose.tolist()})
+    write_png(os.path.join(root, "bc.jpg"), _u8(scene[3]["bg_color"].cpu()).reshape(H, W, 3))
+    np.save(os.path.join(root, "aud_eo.npy"), auds.transpose(0, 2, 1))
+    camera = {"focal_len": 1200.0 * H / 450.0, "cx": W / 2, "cy": H / 2}
+    for name, fr in (("train", frames), ("val", frames[:VAL_FRAMES])):
+        with open(os.path.join(root, f"transforms_{name}.json"), "w") as f:
+            json.dump({**camera, "frames": fr}, f)
+
+
+def fenced_ms(fn, reps):
+    """ms of each of ``reps`` calls of fn(i), each fenced by synchronize()."""
+    out = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def host_batch(ds, index, rng, image, torso):
+    """The training batch of frame ``index`` built on the host in numpy, as
+    the JAX collate builds it (its ``get_rays`` draws the pixels from
+    ``rng``, the torso plate is composited over the whole frame, the pixels
+    gathered after), from the frame and its plate decoded (float32 [H, W,
+    C])."""
+    from radnerf_tpu_torch.data import convert_poses, get_audio_features, get_bg_coords, \
+        get_rays
+
+    rays = get_rays(ds.poses[index], ds.intrinsics, ds.H, ds.W, ds.num_rays, rng=rng)
+    inds = rays["inds"]
+    bg_torso = (torso[..., :3] * torso[..., 3:] + ds.bg_img * (1 - torso[..., 3:])).reshape(-1, 3)
+    xmin, xmax, ymin, ymax = ds.face_rect[index]
+    return {"index": index, "H": ds.H, "W": ds.W,
+            "images": image.reshape(-1, 3)[inds], "bg_color": bg_torso[inds],
+            "bg_coords": get_bg_coords(ds.H, ds.W)[inds],
+            "face_mask": ((rays["j"] >= xmin) & (rays["j"] < xmax)
+                          & (rays["i"] >= ymin) & (rays["i"] < ymax)),
+            "auds": get_audio_features(ds.auds, ds.opt.att, index),
+            "eye": ds.eye_area[index].reshape(1, 1), "rays_o": rays["rays_o"],
+            "rays_d": rays["rays_d"], "poses": convert_poses(ds.poses[index][None])}
+
+
+def dataset_phase(report, head, ds, root, write_s):
+    """Phase 14: ``write_dataset``'s directory as phase 7 loaded it
+    (``ds``, with ``--preload 2``): the frames on the card equal the decoded
+    files; one training batch equals the host's numpy gather of the same
+    pixels (``host_batch``, the JAX collate's formulas) bit for bit, its rays
+    within one float32 ulp; ``next_batch`` on the card timed against the
+    numpy batch moved by the same trainer; one torso plate decoded by
+    ``imread_u8`` as this machine decodes it and by the port's own PNG
+    reader, on the plate as written here (rows unfiltered) and as cv2 writes
+    it (filtered rows: the real plates' case), where cv2 is installed."""
+    from radnerf_tpu_torch.utils import image as image_mod
+    from radnerf_tpu_torch.utils.image import U8_TO_UNIT, imread_u8
+
+    paths = [(os.path.join(root, "gt_imgs", f"{i}.jpg"),
+              os.path.join(root, "torso_imgs", f"{i}.png")) for i in range(len(ds))]
+    decoded = [tuple(imread_u8(p) for p in pair) for pair in paths]
+    files_equal = all(torch.equal(ds.images[i].cpu(), torch.from_numpy(decoded[i][0]))
+                      and torch.equal(ds.torso_imgs[i].cpu(), torch.from_numpy(decoded[i][1]))
+                      for i in range(len(ds)))
+    unit = [tuple(U8_TO_UNIT[a] for a in pair) for pair in decoded]
+
+    # one batch against the host's numpy gather of the same pixels
+    index = 3
+    rng = copy.deepcopy(ds.rng)
+    batch = ds.collate(index)
+    host = host_batch(ds, index, rng, *unit[index])
+    differing = [k for k in ("images", "bg_color", "bg_coords", "face_mask", "auds", "eye",
+                             "rays_o", "poses")
+                 if not np.array_equal(batch[k].cpu().numpy(), host[k])]
+    got_d = batch["rays_d"].cpu().numpy()
+    ulps = int(np.abs(got_d.view(np.int32).astype(np.int64)
+                      - host["rays_d"].view(np.int32).astype(np.int64)).max())
+
+    order = ds.epoch_indices()
+    disk_ms = fenced_ms(lambda i: head.next_batch(ds, order[i % len(order)]), 8)
+    numpy_ms = fenced_ms(lambda i: head.to_device(host_batch(
+        ds, int(order[i % len(order)]), ds.rng, *unit[order[i % len(order)]])), 8)
+
+    # decoding a plate: --preload 0 decodes a frame and a plate each step,
+    # --preload 1/2 each once at load
+    def decode_ms(fn):
+        return float(np.median(fenced_ms(lambda i: fn(), 3)))
+
+    plate = paths[0][1]
+    with open(plate, "rb") as f:
+        data = f.read()
+    decode = {"imread_u8_ms": decode_ms(lambda: imread_u8(plate)),
+              "own_reader_unfiltered_ms": decode_ms(lambda: image_mod._read_png(data, plate))}
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        filtered = os.path.join(root, "plate_cv2.png")
+        cv2.imwrite(filtered, cv2.cvtColor(decoded[0][1], cv2.COLOR_RGBA2BGRA))
+        with open(filtered, "rb") as f:
+            data = f.read()
+        decode.update(
+            imread_u8_cv2_written_ms=decode_ms(lambda: imread_u8(filtered)),
+            own_reader_cv2_written_ms=decode_ms(lambda: image_mod._read_png(data, filtered)),
+            own_reader_cv2_written_equal=bool(np.array_equal(
+                image_mod._read_png(data, filtered), decoded[0][1])))
+    dp = {"frames": len(ds), "size": [ds.H, ds.W], "preload": ds.preload,
+          "rays": ds.num_rays, "write_seconds": write_s,
+          "load_seconds": report["train"]["dataset_seconds"],
+          "frames_equal_files": files_equal, "batch_fields_differing": differing,
+          "rays_d_max_ulp": ulps, "face_mask_pixels": int(batch["face_mask"].sum()),
+          "next_batch_ms_median": float(np.median(disk_ms)), "next_batch_ms": disk_ms,
+          "numpy_next_batch_ms_median": float(np.median(numpy_ms)),
+          "numpy_next_batch_ms": numpy_ms, "plate_decode": decode}
+    report["dataset"] = dp
+    emit({"phase": "dataset", **dp})
+    if not files_equal or differing or ulps > 1:
+        raise RuntimeError(f"the dataset on the card differs from its files or the host "
+                           f"gather: {dp}")
+    if not 0 < dp["face_mask_pixels"] < ds.num_rays:
+        raise RuntimeError(f"the face mask is empty or full: {dp}")
+    if not decode.get("own_reader_cv2_written_equal", True):
+        raise RuntimeError(f"the own PNG reader differs from cv2 on a cv2-written plate: {dp}")
+
+
+def entry_phase(report, root):
+    """Phase 15: the port's CLI in this process at full width, as a user
+    runs it (``python -m radnerf_tpu_torch.main <dir> --exp_eye --preload 2``,
+    65,536 rays, 2 epochs of the 8 frames, evaluation, the test split
+    evaluated and rendered) with every launch count set to 0 just before and
+    read just after; then ``infer`` from its ``ngp.npz`` on a pose json and
+    an audio table, one frame per audio row. Returns the trainer."""
+    from radnerf_tpu_torch import infer
+    from radnerf_tpu_torch.convert import _state_dict_from_jax
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import NeRFNetwork
+    from radnerf_tpu_torch.ops import _kernels
+    from radnerf_tpu_torch.train import checkpoint as ckpt_lib
+
+    ws = os.path.join(root, "workspace")
+    # the EMA moves every step (the CLI's default interval, 1000 steps,
+    # would leave the evaluated parameters at their initial draw)
+    argv = [root, "--workspace", ws, "--exp_eye", "--preload", "2", "--ckpt", "scratch",
+            "--iters", str(ENTRY_EPOCHS * DATASET_FRAMES), "--ema_update_interval", "1"]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = port_main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    losses = tr.stats["step_loss"]
+    ckpts = sorted(os.listdir(tr.ckpt_path))
+    # the best checkpoint holds the EMA, which training moved off the
+    # initial draw wherever it moved the live parameters
+    best = _state_dict_from_jax(ckpt_lib.load_checkpoint(tr.best_path)[0])
+    init = dict(NeRFNetwork(tr.net_cfg, device=tr.device, generator=torch.Generator()
+                            .manual_seed(tr.opt.seed)).named_parameters())
+    live = dict(tr.net.named_parameters())
+    ema = {"parameters": len(tr.ema_params),
+           "best_equals_ema": all(k in best and np.array_equal(best[k], v.cpu().numpy())
+                                  for k, v in tr.ema_params.items()),
+           "live_moved": sum(not torch.equal(live[k], init[k]) for k in live),
+           "ema_moved": sum(not torch.equal(v, init[k]) for k, v in tr.ema_params.items()),
+           "moved_live_still_ema": [k for k in live if not torch.equal(live[k], init[k])
+                                    and torch.equal(tr.ema_params[k], init[k])]}
+    del init
+    validation = sorted(os.listdir(os.path.join(ws, "validation")))
+    results = sorted(os.listdir(os.path.join(ws, "results")))
+
+    pose_path, aud_path = os.path.join(root, "pose.json"), os.path.join(root, "novel.npy")
+    with open(os.path.join(root, "transforms_val.json")) as f:
+        camera = json.load(f)
+    with open(pose_path, "w") as f:
+        json.dump({k: camera[k] for k in ("focal_len", "cx", "cy", "frames")}, f)
+    np.save(aud_path, np.random.default_rng(3).normal(size=(INFER_FRAMES, 16, 44))
+            .astype(np.float32))
+    out = os.path.join(root, "infer")
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    fps = infer.main(["--pose", pose_path, "--aud", aud_path, "--workspace", out, "--exp_eye",
+                      "--ckpt", tr.best_path])
+    torch.cuda.synchronize()
+    infer_launches = _kernels.launches()
+    infer_files = sorted(os.listdir(os.path.join(out, "results")))
+    ep = {"argv": argv, "seconds": run_s, "steps": tr.global_step, "epochs": tr.epoch,
+          "eval_interval": tr.eval_interval, "launches": launches,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "eval_psnr": tr.stats["results"], "eval_loss": tr.stats["valid_loss"],
+          "metrics": [type(m).__name__ for m in tr.metrics], "checkpoints": ckpts, "ema": ema,
+          "validation_files": len(validation), "result_files": results,
+          "infer": {"launches": infer_launches, "fps": fps, "files": len(infer_files)},
+          "model": "NetworkConfig(torso=False, exp_eye=True) full width, float32, the CLI's "
+                   "defaults (65,536 rays, grid 128), seeded init"}
+    report["entry"] = {**ep, "step_losses": losses}
+    emit({"phase": "entry", **ep})
+    missing = [k for k in TRAIN_KERNELS if launches[k] <= 0]
+    if missing or any(infer_launches[k] <= 0 for k in FRAME_KERNELS):
+        raise RuntimeError(f"kernels not launched through the entry points: {ep}")
+    if tr.global_step != ENTRY_EPOCHS * DATASET_FRAMES or \
+            not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"entry training: {tr.global_step} steps, losses {losses}")
+    if ckpts != ["ngp.npz", f"ngp_ep{ENTRY_EPOCHS - 1:04d}.npz", f"ngp_ep{ENTRY_EPOCHS:04d}.npz"]:
+        raise RuntimeError(f"checkpoints written: {ckpts}")
+    if not ema["best_equals_ema"] or not ema["live_moved"] or ema["moved_live_still_ema"]:
+        raise RuntimeError(f"ngp.npz is not the trained EMA: {ema}")
+    if not tr.stats["results"] or not all(math.isfinite(v) for v in tr.stats["results"]):
+        raise RuntimeError(f"eval PSNR: {tr.stats['results']}")
+    if len(validation) != 2 * VAL_FRAMES or not (
+            "ngp_ep0002.mp4" in results or len(results) == VAL_FRAMES):
+        raise RuntimeError(f"validation files {validation}, results {results}")
+    if len(infer_files) not in (1, INFER_FRAMES) or not fps > 0:
+        raise RuntimeError(f"infer wrote {infer_files} at {fps} FPS")
+    return tr
+
+
+def entry_timing_phase(report, out_dir, tr, root):
+    """Phase 16: the entry trainer on its own datasets: ``Trainer.step``
+    with the card's batches fenced call by call (beside phase 10's), a 3-step profile and its busy share, the batch preparation
+    alone, kernels A, B and C against their plain versions on the eval
+    frame's own inputs (``eval_kernel_checks``), the eval frame
+    (``eval_step``) fenced and profiled, and ``test``'s FPS over the test
+    split."""
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+
+    ds = TalkingHeadDataset(tr.opt, split="train", device=tr.device)
+    val = TalkingHeadDataset(tr.opt, split="val", device=tr.device)
+    interval = tr.opt.update_extra_interval
+    order = ds.epoch_indices()
+    step_ms, upkeep_step_ms = [], []
+    for n in range(2 * interval - PROFILED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        (upkeep_step_ms if upkeep else step_ms).extend(
+            fenced_ms(lambda i: tr.step(ds, order[n % len(order)]), 1))
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS)):
+        raise RuntimeError("a profiled entry step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds, order[i % len(order)]), PROFILED_STEPS)
+    with open(os.path.join(out_dir, "chip_smoke_entry_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    prep_ms = fenced_ms(lambda i: tr.next_batch(ds, order[i % len(order)]), 8)
+    med = float(np.median(step_ms))
+
+    batch = tr.next_batch(val, 0)
+    checks = eval_kernel_checks(tr, batch)
+    eval_ms = fenced_ms(lambda i: tr.eval_step(batch), 8)
+    _, eval_events = device_profile(lambda i: tr.eval_step(batch), 3)
+    eval_busy = sum(e.self_device_time_total for e in eval_events) / 3 / 1e3
+    fps = [tr.test(val, save_path=os.path.join(root, "timing"), name=f"t{i}") for i in range(2)]
+    et = {"train_step_ms_median": med, "train_step_ms": step_ms,
+          "phase10_train_step_ms_median": report["train_timing"]["train_step_ms_median"],
+          "upkeep_step_ms": upkeep_step_ms, "batch_prep_ms_median": float(np.median(prep_ms)),
+          "batch_prep_ms": prep_ms,
+          "phase10_batch_prep_ms_median": report["train_timing"]["batch_prep_ms_median"],
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS)},
+          "eval_frame_ms_median": float(np.median(eval_ms)), "eval_frame_ms": eval_ms,
+          "eval_frame_device_ms": eval_busy,
+          "eval_frame_device_ms_by_class": ms_by_class(eval_events, 3),
+          "test_fps": fps, "test_frames": len(val), "eval_kernel_checks": checks}
+    report["entry_timing"] = et
+    emit({"phase": "entry_timing", **{k: v for k, v in et.items()
+                                      if k not in ("train_step_ms", "batch_prep_ms")}})
+    for name, calls in checks.items():
+        for c in calls:
+            if not (c["max_abs_err"] <= c["tol"] and c.get("rays_differing", 0) == 0
+                    and c.get("nonzero_unused_slot_values", 0) == 0):
+                raise RuntimeError(f"{name} differs from its twin in the eval frame: {c}")
+
+
+def eval_kernel_checks(tr, batch):
+    """Kernels A, B and C against their plain versions on the inputs one
+    eval frame (``tr.eval_step(batch)``) gives them, at phase 4's
+    tolerances: the calls are recorded by wrappers around the model modules'
+    bindings, their tensors cloned as passed (the EMA is in the network only
+    while the frame renders)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    import radnerf_tpu_torch.models.renderer as renderer_mod
+    from radnerf_tpu_torch.ops import (
+        composite_rays, composite_rays_plain, grid_encode, grid_encode_plain, march_rays,
+        march_rays_plain,
+    )
+
+    def clone(v):
+        if torch.is_tensor(v):
+            return v.detach().clone()
+        return tuple(clone(x) for x in v) if isinstance(v, tuple) else v
+
+    calls = []
+    bound = [(network_mod, "grid_encode"), (renderer_mod, "march_rays"),
+             (renderer_mod, "composite_rays")]
+    originals = [getattr(mod, name) for mod, name in bound]
+    for (mod, name), fn in zip(bound, originals):
+        def recording(*args, _name=name, _fn=fn, **kw):
+            calls.append((_name, clone(args), {k: clone(v) for k, v in kw.items()}))
+            return _fn(*args, **kw)
+        setattr(mod, name, recording)
+    try:
+        tr.eval_step(batch)
+    finally:
+        for (mod, name), fn in zip(bound, originals):
+            setattr(mod, name, fn)
+
+    out = {"grid_encode": [], "march_rays": [], "composite_rays": []}
+    for name, args, kw in calls:
+        if name == "grid_encode":
+            gk, gp = grid_encode(*args, **kw), grid_encode_plain(*args, **kw)
+            out[name].append({"n_points": int(args[0].shape[0]), "D": int(args[0].shape[1]),
+                              "max_abs_err": float((gk - gp).abs().max()), "tol": TOL_GRID,
+                              "bit_for_bit": bool(torch.equal(gk, gp))})
+        elif name == "march_rays":
+            mk, mp = march_rays(*args, **kw), march_rays_plain(*args, **kw)
+            both = mk["valid"] & mp["valid"]
+            out[name].append({
+                "n_rays": int(args[0].shape[0]), "n_samples": int(mk["valid"].sum()),
+                "max_abs_err": max(float((mk[k] - mp[k]).abs()[both].max())
+                                   for k in ("t", "dt", "xyz")), "tol": TOL_MARCH,
+                "rays_differing": int(((mk["valid"] != mp["valid"]).any(dim=1)
+                                       | (mk["count"] != mp["count"])).sum()),
+                "nonzero_unused_slot_values": sum(
+                    int((m[k] != 0).reshape(*m["valid"].shape, -1)[~m["valid"]].sum())
+                    for m in (mk, mp) for k in ("t", "dt", "xyz"))})
+        else:
+            ck, cp = composite_rays(*args, **kw), composite_rays_plain(*args, **kw)
+            valid = args[4]
+            out[name].append({"shape": list(valid.shape), "n_valid": int(valid.sum()),
+                              "max_abs_err": max(float((ck[k] - cp[k]).abs().max()) for k in ck),
+                              "tol": TOL_COMPOSITE})
+    torch.cuda.synchronize()
+    if [len(v) for v in out.values()] != [2, 1, 1]:
+        raise RuntimeError(f"the eval frame made other calls than A x 2, B, C: "
+                           f"{ {k: len(v) for k, v in out.items()} }")
+    return out
 
 
 def gather_phase(report, dev):

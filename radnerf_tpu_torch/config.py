@@ -1,17 +1,23 @@
-"""Training options of the port (a copy of the ``radnerf_tpu/config.py``
-``Options`` fields the port reads, with the same names and defaults;
-reference main.py:12-108)."""
+"""Options of the port (a copy of the ``radnerf_tpu/config.py`` ``Options``
+fields the port reads, with the same names and defaults; reference
+main.py:12-108). The TPU capacity knobs (``sample_capacity_mult``,
+``ray_capacity_frac``, ``data_parallel``, ``auto_capacity``,
+``cap_overrides``) are left out: the port never drops work, so it has
+nothing for them to size."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
 class Options:
-    seed: int = 0
+    # data
+    path: str = ""
     workspace: str = "workspace"
+    seed: int = 0
+    data_range: Tuple[int, int] = (0, -1)
     # the head stage's checkpoint the torso stage starts from
     head_ckpt: str = ""
 
@@ -19,22 +25,34 @@ class Options:
     iters: int = 200_000
     lr: float = 5e-3
     lr_net: float = 5e-4
+    ckpt: str = "latest"
     num_rays: int = 4096 * 16
     max_steps: int = 16
     update_extra_interval: int = 16
     ema_update_interval: int = 1000
+    # accepted for the reference CLI only: its staged renderer, which chunks
+    # by it, is unreachable from its own main.py (cuda_ray forced on)
+    max_ray_batch: int = 4096
 
     # precision / losses
     fp16: bool = False
     lambda_amb: float = 0.1
 
     # appearance / conditioning
+    bg_img: str = ""
     exp_eye: bool = False
+    fix_eye: float = -1.0
+    smooth_eye: bool = False
     torso_shrink: float = 0.8
 
     # scene
     color_space: str = "srgb"
+    # where the dataset keeps its frames: 0 decoded from disk at each
+    # batch, 1 on the host, 2 on the device
+    preload: int = 0
     bound: float = 1.0
+    scale: float = 4.0
+    offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     dt_gamma: float = 1.0 / 256
     cull_T: float = 1e-6
     min_near: float = 0.05
@@ -43,17 +61,31 @@ class Options:
     patch_size: int = 1
     finetune_lips: bool = False
     smooth_lips: bool = False
+    # LPIPS-alex calibration weights (npz or torch file); empty: the
+    # metric's uncalibrated seeded filters
+    lpips_weights: str = ""
     torso: bool = False
 
     # audio and codes
     att: int = 2
+    aud: str = ""
     emb: bool = False
     ind_dim: int = 4
     ind_num: int = 10_000
     ind_dim_torso: int = 8
     amb_dim: int = 2
+    part: bool = False
+    part2: bool = False
     train_camera: bool = False
+    smooth_path: bool = False
+    smooth_path_window: int = 7
+    asr: bool = False
     asr_model: str = "cpierse/wav2vec2-large-xlsr-53-esperanto"
+
+    # test mode
+    test: bool = False
+    test_train: bool = False
+    pose: str = ""  # inference only: the pose json
 
     # grid shape and march length
     grid_levels: int = 16
@@ -63,6 +95,20 @@ class Options:
     amb_grid_ch: Optional[int] = None
     amb_grid_base: Optional[int] = None
     march_iters: Optional[int] = None
+
+    def apply_O(self) -> "Options":
+        """-O bundle: fp16 + exp_eye (main.py:111-113)."""
+        self.fp16 = True
+        self.exp_eye = True
+        return self
+
+    def apply_test_mode(self) -> "Options":
+        """Test-mode smoothing defaults (main.py:115-118)."""
+        self.test = True
+        self.smooth_path = True
+        self.smooth_eye = True
+        self.smooth_lips = True
+        return self
 
     @property
     def audio_in_dim(self) -> int:

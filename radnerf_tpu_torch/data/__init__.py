@@ -1,5 +1,21 @@
-"""Host-side data helpers of the port (numpy only)."""
+"""Data layer of the port: the processed-video datasets (batches built on
+the device) and the ray, pose and audio helpers."""
 
-from .rays import convert_poses, get_audio_features, get_bg_coords, get_rays
+from .provider import PoseAudioDataset, TalkingHeadDataset, load_audio_features
+from .rays import (
+    convert_poses,
+    draw_pixels,
+    euler_xyz_to_matrix,
+    get_audio_features,
+    get_bg_coords,
+    get_rays,
+    nerf_matrix_to_ngp,
+    polygon_area,
+    rays_from_pixels,
+    smooth_camera_path,
+)
 
-__all__ = ["convert_poses", "get_audio_features", "get_bg_coords", "get_rays"]
+__all__ = ["PoseAudioDataset", "TalkingHeadDataset", "load_audio_features",
+           "convert_poses", "draw_pixels", "euler_xyz_to_matrix", "get_audio_features",
+           "get_bg_coords", "get_rays", "nerf_matrix_to_ngp", "polygon_area",
+           "rays_from_pixels", "smooth_camera_path"]

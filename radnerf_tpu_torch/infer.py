@@ -1,0 +1,40 @@
+"""Inference entry point of the port (the JAX package's ``infer.py``;
+reference test.py): drive a trained avatar from a pose json and audio
+features, on the card unless told otherwise:
+
+    python -m radnerf_tpu_torch.infer --pose data/obama.json --aud data/intro_eo.npy \\
+        --workspace trial_obama/ --exp_eye --torso --ckpt trial_obama/checkpoints/ngp.npz
+
+In a program: ``main([...], device="cpu")``, which returns the FPS the
+render measured. The test-mode smoothing (path, eye, lips) is on; ``--asr``
+and ``--gui`` are not ported (ROADMAP queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+from .main import build_parser, float32_matmuls, options_from_args, refuse_unported
+
+
+def main(argv=None, device="cuda") -> float:
+    from .data import PoseAudioDataset
+    from .train import Trainer
+
+    # the pose json is required; the training data is not
+    parser = build_parser(require_path=False, prog="python -m radnerf_tpu_torch.infer")
+    parser.add_argument("--pose", type=str, required=True, help="pose source json")
+    args = parser.parse_args(argv)
+    if not args.asr and not args.aud:
+        parser.error("--aud is required unless --asr streaming is enabled")
+    refuse_unported(args)
+    opt = options_from_args(args)
+    opt.pose = args.pose
+    opt.apply_test_mode()  # test.py:113-119 smooths at test
+    float32_matmuls()
+
+    trainer = Trainer(opt, device=device, name="ngp", workspace=opt.workspace,
+                      use_checkpoint=opt.ckpt)
+    return trainer.test(PoseAudioDataset(opt, device=device))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,224 @@
+"""Train / self-driven-test entry point of the port (the JAX package's
+``main.py``; reference main.py), on the card unless told otherwise:
+
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ --exp_eye --iters 200000
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ --exp_eye \\
+        --torso --head_ckpt trial_obama/checkpoints/ngp.npz --iters 200000
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ --exp_eye --test
+
+In a program: ``main([...], device="cpu")``, which returns the trainer.
+Training runs train -> evaluate every ``eval_interval`` epochs (writing the
+best checkpoint ``ngp.npz``) -> evaluate the test split -> render it to a
+video; ``--test`` evaluates the test split when it has ground truth, then
+renders it. The flags are ``main.py``'s but for the TPU capacity knobs
+(``--sample_capacity_mult``, ``--ray_capacity_frac``): the port never drops
+work. Not ported yet, and refused: ``--gui`` and ``--asr`` (ROADMAP queue 1
+item 7); ``-O``/``--fp16`` reaches ``NetworkConfig``'s refusal of bf16
+(queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+
+import torch
+
+from .config import Options
+
+
+def build_parser(require_path: bool = True,
+                 prog: str = "python -m radnerf_tpu_torch.main") -> argparse.ArgumentParser:
+    """main.py's flags; ``require_path=False`` makes the dataset directory
+    optional (infer drives from a pose json instead)."""
+    p = argparse.ArgumentParser(prog=prog)
+    if require_path:
+        p.add_argument("path", type=str)
+    else:
+        p.add_argument("path", type=str, nargs="?", default="")
+    p.add_argument("-O", action="store_true", help="equals --fp16 --exp_eye")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--test_train", action="store_true")
+    p.add_argument("--data_range", type=int, nargs="*", default=[0, -1])
+    p.add_argument("--workspace", type=str, default="workspace")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--iters", type=int, default=200000)
+    # the reference updates the EMA every 1000 steps (nerf/utils.py:578);
+    # short runs need a shorter interval
+    p.add_argument("--ema_update_interval", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=5e-3)
+    p.add_argument("--lr_net", type=float, default=5e-4)
+    p.add_argument("--ckpt", type=str, default="latest")
+    p.add_argument("--num_rays", type=int, default=4096 * 16)
+    p.add_argument("--max_steps", type=int, default=16)
+    p.add_argument("--update_extra_interval", type=int, default=16)
+    p.add_argument("--max_ray_batch", type=int, default=4096)
+    p.add_argument("--fp16", action="store_true")
+    p.add_argument("--lambda_amb", type=float, default=0.1)
+    p.add_argument("--bg_img", type=str, default="")
+    p.add_argument("--exp_eye", action="store_true")
+    p.add_argument("--fix_eye", type=float, default=-1)
+    p.add_argument("--smooth_eye", action="store_true")
+    p.add_argument("--torso_shrink", type=float, default=0.8)
+    p.add_argument("--color_space", type=str, default="srgb")
+    p.add_argument("--preload", type=int, default=0,
+                   help="0: decode the frames at each batch, 1: keep them on the host, "
+                        "2: on the device")
+    p.add_argument("--bound", type=float, default=1.0)
+    p.add_argument("--scale", type=float, default=4.0)
+    p.add_argument("--offset", type=float, nargs="*", default=[0, 0, 0])
+    p.add_argument("--dt_gamma", type=float, default=1 / 256)
+    p.add_argument("--cull_T", type=float, default=1e-6)
+    p.add_argument("--min_near", type=float, default=0.05)
+    p.add_argument("--density_thresh", type=float, default=10)
+    p.add_argument("--density_thresh_torso", type=float, default=0.01)
+    p.add_argument("--patch_size", type=int, default=1)
+    p.add_argument("--finetune_lips", action="store_true")
+    p.add_argument("--smooth_lips", action="store_true")
+    p.add_argument("--lpips_weights", type=str, default="",
+                   help="LPIPS-alex calibration file (npz or torch) for the eval metric")
+    p.add_argument("--torso", action="store_true")
+    p.add_argument("--head_ckpt", type=str, default="")
+    p.add_argument("--gui", action="store_true")
+    p.add_argument("--W", type=int, default=450)
+    p.add_argument("--H", type=int, default=450)
+    p.add_argument("--radius", type=float, default=3.35)
+    p.add_argument("--fovy", type=float, default=21.24)
+    p.add_argument("--max_spp", type=int, default=1)
+    p.add_argument("--att", type=int, default=2)
+    p.add_argument("--aud", type=str, default="")
+    p.add_argument("--emb", action="store_true")
+    p.add_argument("--ind_dim", type=int, default=4)
+    p.add_argument("--ind_num", type=int, default=10000)
+    p.add_argument("--ind_dim_torso", type=int, default=8)
+    p.add_argument("--amb_dim", type=int, default=2)
+    p.add_argument("--part", action="store_true")
+    p.add_argument("--part2", action="store_true")
+    p.add_argument("--train_camera", action="store_true")
+    p.add_argument("--smooth_path", action="store_true")
+    p.add_argument("--smooth_path_window", type=int, default=7)
+    p.add_argument("--asr", action="store_true")
+    p.add_argument("--asr_wav", type=str, default="")
+    p.add_argument("--asr_play", action="store_true")
+    p.add_argument("--asr_model", type=str, default="cpierse/wav2vec2-large-xlsr-53-esperanto")
+    p.add_argument("--asr_save_feats", action="store_true")
+    p.add_argument("--fps", type=int, default=50)
+    p.add_argument("-l", type=int, default=10)
+    p.add_argument("-m", type=int, default=50)
+    p.add_argument("-r", type=int, default=10)
+    p.add_argument("--grid_levels", type=int, default=16,
+                   help="multiresolution grid levels (reference: 16)")
+    p.add_argument("--grid_ch", type=int, default=2,
+                   help="feature channels per grid level (reference: 2)")
+    p.add_argument("--grid_base", type=int, default=16,
+                   help="coarsest grid resolution (reference: 16)")
+    p.add_argument("--amb_grid_levels", type=int, default=None,
+                   help="2-D (ambient and torso) grid levels; default --grid_levels")
+    p.add_argument("--amb_grid_ch", type=int, default=None,
+                   help="2-D grid channels per level (default --grid_ch)")
+    p.add_argument("--amb_grid_base", type=int, default=None,
+                   help="2-D grid coarsest resolution (default --grid_base)")
+    p.add_argument("--march_iters", type=int, default=None,
+                   help="march orbit length K (default: the safe bound)")
+    return p
+
+
+def options_from_args(args) -> Options:
+    """``Options`` from the parsed flags (main.py:150-177): -O and --test
+    apply their bundles; lips finetune stops the grid upkeep."""
+    fields = {f.name for f in dataclasses.fields(Options)}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    kw["data_range"] = tuple(args.data_range)
+    kw["offset"] = tuple(args.offset)
+    opt = Options(**kw)
+    if args.O:
+        opt.apply_O()
+    if args.test:
+        opt.apply_test_mode()
+    if opt.patch_size > 1 and opt.num_rays % (opt.patch_size**2) != 0:
+        raise ValueError("patch_size ** 2 should divide num_rays")
+    if opt.finetune_lips:
+        # no density-grid upkeep during the lips finetune stage
+        opt.update_extra_interval = 10**9
+    return opt
+
+
+def refuse_unported(args):
+    """--gui and --asr are not ported (ROADMAP queue 1 item 7)."""
+    for flag in ("gui", "asr"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported to radnerf_tpu_torch yet "
+                                      "(ROADMAP queue 1 item 7)")
+
+
+def float32_matmuls():
+    """The port renders in float32: TF32 off for cuDNN (the audio convs,
+    LPIPS) and for matmuls, which ``render_rays`` refuses."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def eval_metrics(opt: Options, device, test: bool) -> list:
+    """PSNR and LPIPS; in test mode also LMD where face_alignment is
+    installed (main.py:189-199)."""
+    from .train.metrics import LMDMeter, LPIPSMeter, PSNRMeter
+
+    metrics = [PSNRMeter(), LPIPSMeter(weights_path=opt.lpips_weights, device=device)]
+    if test:
+        try:
+            metrics.append(LMDMeter(backend="fan"))
+        except ImportError as e:
+            print(f"[WARN] LMD metric unavailable: {e}", flush=True)
+    return metrics
+
+
+def main(argv=None, device="cuda"):
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``) on ``device``;
+    returns the trainer."""
+    from .data import TalkingHeadDataset
+    from .train import Trainer
+
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    opt = options_from_args(args)
+    float32_matmuls()
+
+    if opt.test:
+        trainer = Trainer(opt, device=device, name="ngp", workspace=opt.workspace,
+                          use_checkpoint=opt.ckpt, metrics=eval_metrics(opt, device, True))
+        test_set = TalkingHeadDataset(opt, split="train" if opt.test_train else "test",
+                                      device=device)
+        test_set.training = False
+        test_set.num_rays = -1
+        if test_set.has_gt:
+            trainer.evaluate(test_set)
+        trainer.test(test_set)
+        return trainer
+
+    train_ds = TalkingHeadDataset(opt, split="train", device=device)
+    if len(train_ds) >= opt.ind_num:
+        raise ValueError(f"dataset has {len(train_ds)} frames, increase --ind_num")
+    # the last epoch always evaluates, so the best checkpoint (ngp.npz) exists
+    max_epoch = math.ceil(opt.iters / len(train_ds))
+    eval_interval = max(1, min(int(5000 / len(train_ds)), max_epoch))
+    trainer = Trainer(opt, device=device, name="ngp", workspace=opt.workspace,
+                      use_checkpoint=opt.ckpt, ema_decay=0.95,
+                      metrics=eval_metrics(opt, device, False), eval_interval=eval_interval)
+    if opt.torso and opt.head_ckpt:
+        trainer.freeze_loaded_head(opt.head_ckpt)
+    valid_ds = TalkingHeadDataset(opt, split="val", device=device)
+    trainer.log(f"[INFO] max_epoch = {max_epoch}")
+    trainer.train(train_ds, valid_ds, max_epoch)
+
+    test_ds = TalkingHeadDataset(opt, split="test", device=device)
+    test_ds.training = False
+    test_ds.num_rays = -1
+    if test_ds.has_gt:
+        trainer.evaluate(test_ds)
+    trainer.test(test_ds)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -8,9 +8,9 @@ entries numbered, linear weights [in, out]), ``state/<name>`` the renderer's
 grids and acceleration arrays, ``ema/<path>`` the EMA, ``__meta__`` a JSON
 string. So a checkpoint moves between the two packages both ways. The port's
 own Adam state goes under ``opt_torch/``, which the JAX loader ignores; a
-JAX checkpoint's optax state (``opt/``) is skipped here with a warning.
-``import_torch_checkpoint`` reads the reference's ``.pth`` into the same
-pytree.
+JAX checkpoint's optax state (``opt/``) is read into the same per-parameter
+layout (``restore_opt_state``). ``import_torch_checkpoint`` reads the
+reference's ``.pth`` into the same pytree.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ from __future__ import annotations
 import glob
 import json
 import os
-import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -65,16 +64,18 @@ def _unflatten(flat: dict):
 
 def save_checkpoint(path: str, params: dict, renderer_state=None,
                     opt_torch: Optional[dict] = None, ema_params: Optional[dict] = None,
-                    meta: Optional[dict] = None):
+                    meta: Optional[dict] = None, include_grid: bool = True):
     """Write a flat-npz checkpoint. ``params`` and ``ema_params`` are JAX
     pytrees of numpy arrays ('_'-prefixed top-level keys are skipped, as the
     JAX writer skips its derived caches); ``renderer_state`` a
-    ``RendererState``; ``opt_torch`` a flat dict of numpy arrays;
-    ``meta`` is stored as a JSON string."""
+    ``RendererState``, without its density grid unless ``include_grid`` (the
+    best checkpoint leaves it out, utils.py:1353-1355); ``opt_torch`` a flat
+    dict of numpy arrays; ``meta`` is stored as a JSON string."""
     flat = {}
     _flatten({k: v for k, v in params.items() if not k.startswith("_")}, "model/", flat)
     if renderer_state is not None:
-        _flatten({k: getattr(renderer_state, k).detach().cpu().numpy() for k in STATE_KEYS},
+        keys = STATE_KEYS if include_grid else [k for k in STATE_KEYS if k != "density_grid"]
+        _flatten({k: getattr(renderer_state, k).detach().cpu().numpy() for k in keys},
                  "state/", flat)
     if opt_torch is not None:
         _flatten(opt_torch, "opt_torch/", flat)
@@ -87,8 +88,10 @@ def save_checkpoint(path: str, params: dict, renderer_state=None,
 
 def load_checkpoint(path: str):
     """Read back (params, state_arrays, ema_params, opt_torch_flat, meta);
-    a group the file lacks is None."""
-    groups: dict = {"model": {}, "state": {}, "ema": {}, "opt_torch": {}}
+    a group the file lacks is None. The optimizer state is the port's
+    ``opt_torch/`` group, else the JAX package's ``opt/`` group in the same
+    layout (``restore_opt_state``)."""
+    groups: dict = {"model": {}, "state": {}, "ema": {}, "opt_torch": {}, "opt": {}}
     meta = {}
     with np.load(path, allow_pickle=False) as z:
         for key in z.files:
@@ -100,12 +103,52 @@ def load_checkpoint(path: str):
                 # derived caches of older JAX checkpoints (TPU packed tables)
                 continue
             groups.setdefault(head, {})[rest] = z[key]
-    if groups.pop("opt", None):
-        warnings.warn(f"{path}: the optax optimizer state (opt/) is not restored into "
-                      "torch Adam; Adam starts afresh")
     params = _unflatten(groups["model"]) if groups["model"] else None
     ema = _unflatten(groups["ema"]) if groups["ema"] else None
-    return params, groups["state"] or None, ema, groups["opt_torch"] or None, meta
+    opt = groups["opt_torch"] or (restore_opt_state(groups["opt"]) if groups["opt"] else None)
+    return params, groups["state"] or None, ema, opt, meta
+
+
+def restore_opt_state(opt_flat: dict) -> dict:
+    """A JAX checkpoint's optax state (the ``opt/`` group, without its
+    prefix) in the port's per-parameter Adam layout (the ``opt_torch/``
+    group): ``<name>/exp_avg``, ``<name>/exp_avg_sq``, ``<name>/step`` per
+    ``NeRFNetwork`` parameter and ``scheduler_step`` (JAX
+    ``restore_opt_state``, checkpoint.py:232).
+
+    The JAX optimizer is optax's ``multi_transform`` of one
+    ``chain(scale_by_adam, scale_by_schedule, scale)`` per learning-rate
+    group (``set_to_zero`` for "frozen", which has no state); flattened, a
+    group's Adam is ``0/<group>/0/0/{0: count, 1: mu, 2: nu}`` and its
+    schedule ``0/<group>/0/1/0``. ``mu`` and ``nu`` are parameter pytrees:
+    they take the parameters' names, linear weights transposed to [out, in]
+    as ``convert`` transposes the weights. The trainer keeps a parameter's
+    fresh state where this lacks it or holds another shape."""
+    from ..convert import _state_dict_from_jax
+
+    groups, sched = {}, []
+    for key, value in opt_flat.items():
+        parts = key.split("/")
+        if len(parts) < 5 or parts[0] != "0" or parts[2] != "0":
+            continue
+        g = groups.setdefault(parts[1], {"count": 0, "1": {}, "2": {}})
+        if parts[3:5] == ["0", "0"]:
+            g["count"] = int(value)
+        elif parts[3] == "0" and parts[4] in ("1", "2"):
+            g[parts[4]]["/".join(parts[5:])] = value
+        elif parts[3:5] == ["1", "0"]:
+            sched.append(int(value))
+    flat = {"scheduler_step": np.asarray(max(sched, default=0))}
+    for g in groups.values():
+        if not g["1"]:
+            continue
+        mu, nu = (_state_dict_from_jax(_unflatten(g[i])) for i in ("1", "2"))
+        for name, v in mu.items():
+            flat[f"{name}/exp_avg"] = np.ascontiguousarray(v, np.float32)
+            flat[f"{name}/exp_avg_sq"] = np.ascontiguousarray(nu[name], np.float32)
+            # Adam keeps its step as a float32 host scalar
+            flat[f"{name}/step"] = np.asarray(g["count"], np.float32)
+    return flat
 
 
 def latest_checkpoint(ckpt_dir: str, name: str = "ngp") -> Optional[str]:

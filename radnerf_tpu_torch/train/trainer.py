@@ -19,25 +19,36 @@ with a random pose and its torso code); ``train`` first marks the cells no
 training camera sees (``mark_untrained_grid``). An optional EMA of the
 parameters follows the JAX trainer.
 
+Every ``eval_interval`` epochs ``train`` evaluates a validation dataset
+(``evaluate_one_epoch``: each frame rendered with the EMA in the network, the
+loss and the ``metrics``, the rgb and depth PNGs) and writes the best
+checkpoint. ``test`` renders a dataset's frames into a video and returns the
+FPS it measured.
+
 Checkpoints are the JAX package's flat ``.npz`` (``checkpoint.py``): with a
 workspace, ``train`` writes a full one after every epoch into
-``<workspace>/checkpoints`` (a rolling window of ``max_keep_ckpt``), and the
+``<workspace>/checkpoints`` (a rolling window of ``max_keep_ckpt``) and, after
+each evaluation, the best one (``<name>.npz``: the EMA, no density grid); the
 constructor restores one as ``use_checkpoint`` selects. A checkpoint of
-either package, or a reference ``.pth``, loads with ``load_checkpoint``.
+either package, or a reference ``.pth``, loads with ``load_checkpoint``, a
+JAX one with its Adam moments.
 
-The dataset is any object with ``collate(i)``, ``epoch_indices()``,
-``poses`` [B, 4, 4], ``intrinsics`` (fx, fy, cx, cy), ``auds`` (per-frame
-features or None) and ``eye_area`` ([B, 1] or None), all numpy, as the JAX
-``TalkingHeadDataset`` gives them; in the torso stage its batches carry
-``bg_torso_color``. LPIPS, lips finetune, patch training and the eval/test
-loops are not ported and raise or are absent. There is no capacity
-adaptation: the port never drops work, so it has no static capacity to size.
+The dataset is the port's ``TalkingHeadDataset`` (batches on the device), or
+any object with ``collate(i)``, ``epoch_indices()``, ``poses`` [B, 4, 4],
+``intrinsics`` (fx, fy, cx, cy), ``auds`` (per-frame features or None) and
+``eye_area`` ([B, 1] or None), all numpy, whose batches are numpy or tensors;
+in the torso stage its batches carry ``bg_torso_color``. The LPIPS training
+term (lips finetune, patch training) is not ported and raises. There is no
+capacity adaptation: the port never drops work, so it has no static capacity
+to size.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 import warnings
 from typing import Optional
 
@@ -62,7 +73,8 @@ from ..models import (
     update_torso_grid,
 )
 from ..ops import build_sigma_bytes, packbits, unpackbits
-from ..utils.color import srgb_to_linear
+from ..utils.color import linear_to_srgb, srgb_to_linear
+from ..utils.image import write_png, write_video
 from . import checkpoint as ckpt_lib
 from .losses import head_loss, torso_loss
 
@@ -128,13 +140,16 @@ class Trainer:
         "scratch" nothing, "latest" the newest epoch checkpoint, "latest_model"
         its model only, "best" the best checkpoint (else the latest), or a
         path (utils.py:682-700).
+      metrics: meters (``metrics.py``) the evaluation updates; the first
+        one's measure is the epoch's result.
+      eval_interval: ``train`` evaluates every this many epochs.
     """
 
     def __init__(self, opt: Options, net_cfg: Optional[NetworkConfig] = None,
                  render_cfg: Optional[RenderConfig] = None, device="cuda",
                  ema_decay: Optional[float] = None, name: str = "ngp",
                  workspace: Optional[str] = None, max_keep_ckpt: int = 2,
-                 use_checkpoint: str = "latest"):
+                 use_checkpoint: str = "latest", metrics=(), eval_interval: int = 1):
         if opt.finetune_lips or opt.patch_size > 1:
             raise NotImplementedError("the LPIPS term (lips finetune, patch training) "
                                       "is not ported")
@@ -142,6 +157,8 @@ class Trainer:
         self.name = name
         self.workspace = workspace
         self.max_keep_ckpt = max_keep_ckpt
+        self.metrics = list(metrics)
+        self.eval_interval = eval_interval
         self.device = resolve_device(device)
         self.net_cfg = net_cfg or NetworkConfig.from_options(opt)
         self.render_cfg = render_cfg or RenderConfig.from_options(opt)
@@ -158,25 +175,34 @@ class Trainer:
         self.epoch = 0
         self.global_step = 0
         # per-epoch mean losses, every step's loss, the grids' means after
-        # each upkeep, the checkpoints of the rolling window
+        # each upkeep, the checkpoints of the rolling window, each
+        # evaluation's mean loss and result
         self.stats = {"loss": [], "step_loss": [], "mean_density": [],
-                      "mean_density_torso": [], "checkpoints": []}
+                      "mean_density_torso": [], "checkpoints": [], "valid_loss": [],
+                      "results": []}
         self.telemetry = {}
         self._cap_restored = False
         if workspace:
             self._restore(use_checkpoint)
 
+    @staticmethod
+    def log(*args):
+        print(*args, flush=True)
+
     # ----------------------------------------------------------- batches
     def to_device(self, batch: dict) -> dict:
-        """numpy batch -> tensors on the trainer's device (floating arrays
-        float32, integer arrays int64, bool arrays bool); ``index`` becomes
-        an int, None stays None."""
+        """A batch on the trainer's device: tensors as they are (moved if on
+        another device), numpy arrays as tensors (floating arrays float32,
+        integer arrays int64, bool arrays bool); ``index`` becomes an int,
+        None stays None."""
         out = {}
         for k, v in batch.items():
             if k in ("H", "W", "rect") or v is None:
                 out[k] = v
             elif k == "index":
                 out[k] = int(v)
+            elif torch.is_tensor(v):
+                out[k] = v.to(self.device)
             else:
                 out[k] = _to_tensor(v, self.device)
         return out
@@ -265,10 +291,12 @@ class Trainer:
         self.stats["mean_density"].append(float(self.state.mean_density))
 
     # ------------------------------------------------------------ loops
-    def train(self, train_ds, max_epochs: int):
+    def train(self, train_ds, valid_ds=None, max_epochs: int = 1):
         """Mark the untrained cells from the dataset's cameras, then run
-        epochs up to ``max_epochs``, each followed by a full checkpoint when
-        the trainer has a workspace (the eval loop is not ported)."""
+        epochs up to ``max_epochs`` (utils.py:899-921): each followed by a
+        full checkpoint when the trainer has a workspace, and every
+        ``eval_interval`` epochs by an evaluation of ``valid_ds`` (when given)
+        and the best checkpoint."""
         self.state = mark_untrained_grid(self.render_cfg, self.state, train_ds.poses,
                                          tuple(train_ds.intrinsics))
         for epoch in range(self.epoch + 1, max_epochs + 1):
@@ -276,6 +304,10 @@ class Trainer:
             self.train_one_epoch(train_ds)
             if self.workspace:
                 self.save_checkpoint(full=True)
+            if valid_ds is not None and self.epoch % self.eval_interval == 0:
+                self.evaluate_one_epoch(valid_ds)
+                if self.workspace:
+                    self.save_checkpoint(best=True)
 
     def next_batch(self, dataset, idx) -> dict:
         """The dataset's batch ``idx`` on the trainer's device."""
@@ -293,11 +325,151 @@ class Trainer:
     def train_one_epoch(self, dataset) -> list:
         """One pass over ``dataset.epoch_indices()``; returns the step
         losses as floats."""
+        t0 = time.perf_counter()
         losses = [self.step(dataset, idx) for idx in dataset.epoch_indices()]
         losses = torch.stack(losses).tolist() if losses else []
         self.stats["loss"].append(float(np.mean(losses)) if losses else 0.0)
         self.stats["step_loss"].extend(losses)
+        self.log(f"==> Finished Epoch {self.epoch}: loss={self.stats['loss'][-1]:.6f}, "
+                 f"{len(losses) / max(time.perf_counter() - t0, 1e-9):.2f} steps/s")
         return losses
+
+    # ------------------------------------------------------- eval and test
+    @contextlib.contextmanager
+    def _eval_params(self):
+        """The EMA in the network while the block runs, the live parameters
+        back afterwards, bit for bit (JAX ``_eval_params``: evaluation
+        renders with the EMA); the live parameters without an EMA."""
+        if self.ema_params is None:
+            yield
+            return
+        params = dict(self.net.named_parameters())
+        with torch.no_grad():
+            live = {k: p.detach().clone() for k, p in params.items()}
+            for k, p in params.items():
+                p.copy_(self.ema_params[k])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(live[k])
+
+    def _render_frame(self, batch: dict, noises: Optional[torch.Tensor] = None):
+        """``render_rays(training=False)`` of a whole-frame device batch with
+        the evaluation parameters: ((pred [H, W, 3], depth [H, W]) as numpy,
+        the state the render leaves)."""
+        H, W = batch["H"], batch["W"]
+        with self._eval_params():
+            results, state = render_rays(
+                self.net, self.render_cfg, self.state, batch["rays_o"], batch["rays_d"],
+                batch.get("auds"), batch["bg_coords"], batch["poses"], batch.get("eye"),
+                batch["index"], batch["bg_color"], noises=noises)
+        pred = results["image"].reshape(H, W, 3).cpu().numpy()
+        depth = results["depth"].reshape(H, W).cpu().numpy()
+        return (pred, depth), state
+
+    @staticmethod
+    def _normalize_depth(depth: np.ndarray) -> np.ndarray:
+        """Depth to the frame's own range, for the PNGs (world-unit depth
+        would saturate a plain clip)."""
+        d = np.asarray(depth, np.float32)
+        lo, hi = float(d.min()), float(d.max())
+        return (d - lo) / max(hi - lo, 1e-6)
+
+    def eval_step(self, batch: dict):
+        """One evaluation frame (utils.py:812-838): (pred, depth) numpy."""
+        return self._render_frame(batch)[0]
+
+    def evaluate(self, dataset, name: Optional[str] = None):
+        self.evaluate_one_epoch(dataset, name)
+
+    def evaluate_one_epoch(self, dataset, name: Optional[str] = None):
+        """Render the dataset's first ``eval_count`` (default all) frames:
+        their mean squared error against the ground truth, the metrics, and
+        with a workspace ``validation/<name>_<i>_{rgb,depth}.png``
+        (utils.py:1237-1300)."""
+        self.log(f"++> Evaluate at epoch {self.epoch} ...")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        for metric in self.metrics:
+            metric.clear()
+        save_path = os.path.join(self.workspace, "validation") if self.workspace else None
+        if save_path:
+            os.makedirs(save_path, exist_ok=True)
+        total, count = 0.0, 0
+        for i in range(min(len(dataset), getattr(dataset, "eval_count", len(dataset)))):
+            batch = self.next_batch(dataset, i)
+            pred, depth = self.eval_step(batch)
+            gt = batch["images"].reshape(pred.shape[0], pred.shape[1], -1)[..., :3]
+            pred_save = pred
+            if self.opt.color_space == "linear":
+                # loss and metrics in linear space; the PNG in sRGB
+                gt = srgb_to_linear(gt)
+                pred_save = linear_to_srgb(torch.from_numpy(np.clip(pred, 0, 1))).numpy()
+            gt = gt.cpu().numpy()
+            total += float(np.mean((pred - gt) ** 2))
+            count += 1
+            for metric in self.metrics:
+                metric.update(pred, gt)
+            if save_path:
+                write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"),
+                          (np.clip(pred_save, 0, 1) * 255).astype(np.uint8))
+                write_png(os.path.join(save_path, f"{name}_{i:04d}_depth.png"),
+                          (np.clip(self._normalize_depth(depth), 0, 1) * 255).astype(np.uint8))
+        avg = total / max(count, 1)
+        self.stats["valid_loss"].append(avg)
+        self.stats["results"].append(self.metrics[0].measure() if self.metrics else avg)
+        for metric in self.metrics:
+            self.log(metric.report())
+            metric.clear()
+        self.log(f"++> Evaluate epoch {self.epoch} Finished, loss={avg:.6f}")
+
+    def test_step(self, batch: dict, bg_color=None, perturb=False):
+        """Render one frame (utils.py:841-868) and keep the state it leaves
+        (``smooth_lips`` advances the audio code from frame to frame).
+        ``fix_eye`` >= 0 replaces the eye value; ``bg_color`` the background;
+        ``perturb``, falsy or an int seed, jitters the march."""
+        if self.opt.exp_eye and self.opt.fix_eye >= 0:
+            batch["eye"] = torch.full((1, 1), self.opt.fix_eye, device=self.device)
+        if bg_color is not None:
+            batch["bg_color"] = torch.as_tensor(bg_color, dtype=torch.float32,
+                                                device=self.device)
+        noises = None
+        if perturb:
+            noises = torch.rand(batch["rays_o"].shape[0], device=self.device,
+                                generator=torch.Generator(self.device).manual_seed(int(perturb)))
+        frame, self.state = self._render_frame(batch, noises)
+        return frame
+
+    def test(self, dataset, save_path: Optional[str] = None, name: Optional[str] = None,
+             write_image: bool = False) -> float:
+        """Render every frame of the dataset into ``<save_path>/<name>.mp4``
+        (default ``<workspace>/results``; per-frame PNGs without an mp4
+        writer) at 25 fps (utils.py:923-973); returns the frames rendered per
+        second, batches and host copies included."""
+        if save_path is None:
+            if not self.workspace:
+                raise ValueError("test needs a save_path or a trainer workspace")
+            save_path = os.path.join(self.workspace, "results")
+        name = name or f"{self.name}_ep{self.epoch:04d}"
+        os.makedirs(save_path, exist_ok=True)
+        self.log(f"==> Start Test, save results to {save_path}")
+        frames = []
+        t0 = time.perf_counter()
+        for i in range(len(dataset)):
+            pred, depth = self.test_step(self.next_batch(dataset, i))
+            if self.opt.color_space == "linear":
+                pred = linear_to_srgb(torch.from_numpy(np.clip(pred, 0, 1))).numpy()
+            img = (np.clip(pred, 0, 1) * 255).astype(np.uint8)
+            if write_image:
+                write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"), img)
+                write_png(os.path.join(save_path, f"{name}_{i:04d}_depth.png"),
+                          (np.clip(self._normalize_depth(depth), 0, 1) * 255).astype(np.uint8))
+            frames.append(img)
+        fps = len(frames) / max(time.perf_counter() - t0, 1e-9)
+        self.log(f"==> Rendered {len(frames)} frames at {fps:.2f} FPS")
+        write_video(os.path.join(save_path, f"{name}.mp4"), np.stack(frames, 0))
+        return fps
 
     # ------------------------------------------------------- checkpoints
     @property
@@ -363,14 +535,16 @@ class Trainer:
                         best: bool = False):
         """Write ``<workspace>/checkpoints/<name>.npz`` (default
         ``<name>_epNNNN``) in the rolling window, with Adam and the EMA when
-        ``full`` (utils.py:1302-1360). ``best`` needs an eval result, and
-        the eval loop is not ported: it warns and writes nothing, as the JAX
-        trainer does before its first evaluation."""
-        if best:
-            warnings.warn("no evaluated results found; the best checkpoint is not saved")
-            return
+        ``full`` (utils.py:1302-1360). ``best`` writes the best checkpoint
+        ``<workspace>/checkpoints/<self.name>.npz`` instead: the evaluation
+        parameters (the EMA, else the live ones) and the renderer state
+        without its density grid; before any evaluation it warns and writes
+        nothing, as the JAX trainer does."""
         if not self.workspace:
             raise ValueError("the trainer has no workspace to save a checkpoint in")
+        if best and not self.stats["results"]:
+            warnings.warn("no evaluated results found; the best checkpoint is not saved")
+            return
         name = name or f"{self.name}_ep{self.epoch:04d}"
         rc = self.render_cfg
         meta = {
@@ -383,6 +557,12 @@ class Trainer:
             "render_cfg": {"march_iters": rc.march_iters, "sample_slots": rc.sample_slots},
             "grid_shape": self._grid_shape_id(),
         }
+        if best:
+            params = (jax_from_state_dict({k: v.cpu().numpy() for k, v in self.ema_params.items()})
+                      if self.ema_params is not None else network_to_jax(self.net))
+            ckpt_lib.save_checkpoint(self.best_path, params, self.state, meta=meta,
+                                     include_grid=False)
+            return
         path = os.path.join(self.ckpt_path, f"{name}.npz")
         self.stats["checkpoints"].append(path)
         if len(self.stats["checkpoints"]) > self.max_keep_ckpt:
@@ -429,7 +609,8 @@ class Trainer:
         leaves the torso's as they are), the EMA merged, the renderer state
         rebuilt, ``march_iters`` and ``sample_slots`` restored, and unless
         ``model_only`` the epoch and step counts. Adam starts afresh, then
-        takes the checkpoint's moments and schedule on a full load."""
+        takes the checkpoint's moments and schedule on a full load (the
+        port's own, or a JAX checkpoint's optax state)."""
         if path.endswith(".pth"):
             params, arrays, meta = ckpt_lib.import_torch_checkpoint(path)
             self._load_params(params)

@@ -103,8 +103,9 @@ def _port_trainer(workspace=None, use_checkpoint="latest", **net):
 def test_jax_checkpoint_loads_into_port(torso_params, scene, tmp_path):
     """A full head+torso checkpoint written by the JAX trainer (optax state,
     EMA, TPU capacities in its meta) loads into a port Trainer: parameters
-    and EMA exactly equal, the step counts restored, and the 48x48 frame
-    within 60 dB of JAX's with identical telemetry."""
+    and EMA exactly equal, the step counts restored, its optax state (no
+    update yet) as Adam's, and the 48x48 frame within 60 dB of JAX's with
+    identical telemetry."""
     frame, grid, torso_grid = scene
     params_j = jax.tree_util.tree_map(jnp.asarray, torso_params)
     jt = _jax_trainer(str(tmp_path / "j"), params=params_j)
@@ -115,9 +116,11 @@ def test_jax_checkpoint_loads_into_port(torso_params, scene, tmp_path):
     jt.save_checkpoint(full=True)
 
     tr = _port_trainer()
-    with pytest.warns(UserWarning, match="opt/"):
-        tr.load_checkpoint(jt.stats["checkpoints"][-1])
+    tr.load_checkpoint(jt.stats["checkpoints"][-1])
     assert (tr.epoch, tr.global_step) == (3, 12)
+    for p in (p for p in tr.net.parameters() if p.requires_grad):
+        st = tr.optimizer.state[p]
+        assert float(st["step"]) == 0.0 and not st["exp_avg"].any() and not st["exp_avg_sq"].any()
     want = _state_dict_from_jax(torso_params)
     for name, p in tr.net.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), want[name], err_msg=name)

@@ -164,8 +164,10 @@ def test_port_imports_no_jax():
     assert "BAD []" in out.stdout, out.stdout
     assert {"radnerf_tpu_torch.config", "radnerf_tpu_torch.ops.rowgather",
             "radnerf_tpu_torch.train.losses", "radnerf_tpu_torch.train.trainer",
-            "radnerf_tpu_torch.utils.color"} <= set(mods)
-    assert len(mods) >= 24
+            "radnerf_tpu_torch.utils.color", "radnerf_tpu_torch.data.provider",
+            "radnerf_tpu_torch.utils.image", "radnerf_tpu_torch.train.metrics",
+            "radnerf_tpu_torch.main", "radnerf_tpu_torch.infer"} <= set(mods)
+    assert len(mods) >= 29
 
     pat = re.compile(r"^\s*(import jax|from jax)|radnerf_tpu\.|from radnerf_tpu ", re.M)
     for path in _port_sources():
