@@ -118,7 +118,9 @@ chiprun_out/chip_smoke_profile.txt and chiprun_out/chip_smoke_train_profile.txt.
 The torso and entry steps' tables go beside them.
 """
 
+import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -168,7 +170,13 @@ REPLACES = {
     "composite_rays": "radnerf_tpu/ops/marching.py:731",
     "composite_rays_backward": "radnerf_tpu/ops/marching.py:731",
     "row_gather": "scripts/bench_gather.py:79",
+    # the bf16 policy: build_packed_table(dtype=bfloat16) + the bf16 lerp
+    "grid_encode_bf16": "radnerf_tpu/ops/grid_encode.py:308",
+    "grid_encode_backward_bf16": "radnerf_tpu/ops/grid_encode.py:308",
 }
+BF16_KERNELS = ("grid_encode_bf16", "grid_encode_backward_bf16")
+# the README's -O recipe: head steps, lips finetune steps, torso steps
+RECIPE_HEAD_STEPS, RECIPE_LIPS_STEPS, RECIPE_TORSO_STEPS = 8, 8, 8
 TRAIN_STEPS = 48
 TORSO_STEPS = 32
 TRAIN_SIZE = 512  # the targets' height and width
@@ -293,34 +301,36 @@ def row_counts(x, spec, bound):
     return counts, int(inb.sum())
 
 
-def grid_work(x, spec, bound):
+def grid_work(x, spec, bound, elem=4):
     """Bytes and flops one grid encode needs for these points: the points,
-    the output, and each table row the in-bounds points touch, read once;
+    the output, and each table row the in-bounds points touch, read once
+    (table values and output of ``elem`` bytes: 2 for the bf16 policy);
     per in-bounds (point, level) 3D flops for the position, 2D per corner
     weight and 2C per corner accumulation."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     counts, n_in = row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
-    n_bytes = x.numel() * 4 + x.shape[0] * L * C * 4 + n_rows * C * 4
+    n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * elem
     n_flops = n_in * L * (3 * D + (1 << D) * (2 * D + 2 * C))
     return n_bytes, n_flops
 
 
-def grid_backward_work(x, spec, bound, need_x):
+def grid_backward_work(x, spec, bound, need_x, elem=4):
     """Bytes and flops the grid-encode backward needs: the points and
-    grad_out read once, each touched row of the table gradient written once
-    (and, for the x gradient, each touched table row read once and grad_x
-    written); per in-bounds (point, level) 3D flops for the position, per
-    corner 2D for the weight and C for the weighted gradient, and with the x
-    gradient 2C for the dot with the row, 2D for its weight derivatives and
-    2D to scale the position gradient."""
+    grad_out read once, each touched row of the (float32) table gradient
+    written once (and, for the x gradient, each touched table row read once
+    and grad_x written); grad_out and table values of ``elem`` bytes (2 for
+    the bf16 policy); per in-bounds (point, level) 3D flops for the
+    position, per corner 2D for the weight and C for the weighted gradient,
+    and with the x gradient 2C for the dot with the row, 2D for its weight
+    derivatives and 2D to scale the position gradient."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     counts, n_in = row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
-    n_bytes = x.numel() * 4 + x.shape[0] * L * C * 4 + n_rows * C * 4
+    n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * 4
     per_corner = 2 * D + C
     if need_x:
-        n_bytes += n_rows * C * 4 + x.numel() * 4
+        n_bytes += n_rows * C * elem + x.numel() * 4
         per_corner += 2 * C + 2 * D
     n_flops = n_in * L * (3 * D + (1 << D) * per_corner + (2 * D if need_x else 0))
     return n_bytes, n_flops
@@ -452,6 +462,8 @@ def main():
     smi = nvidia_smi_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the bf16 policy's GEMMs sum in float32, as JAX's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     report["device"] = {"nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda,
@@ -700,6 +712,17 @@ def main():
         torch.cuda.empty_cache()
         entry_trainer = entry_phase(report, root)
         entry_timing_phase(report, out_dir, entry_trainer, root)
+        del entry_trainer
+        torch.cuda.empty_cache()
+        frame_calls = bf16_frame_phase(report, out_dir, (net, rc, state, b), auds)
+        step_calls = bf16_train_phase(report, out_dir, root)
+        bf16_entries = bf16_kernel_checks(report, frame_calls, step_calls)
+        del frame_calls, step_calls
+        torch.cuda.empty_cache()
+        recipe_launches = recipe_phase(report, root)
+        for k in bf16_entries:
+            k["launches"] = recipe_launches[k["name"]]
+        kernels += bf16_entries
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1550,25 +1573,9 @@ def eval_kernel_checks(tr, batch):
         march_rays_plain,
     )
 
-    def clone(v):
-        if torch.is_tensor(v):
-            return v.detach().clone()
-        return tuple(clone(x) for x in v) if isinstance(v, tuple) else v
-
-    calls = []
-    bound = [(network_mod, "grid_encode"), (renderer_mod, "march_rays"),
-             (renderer_mod, "composite_rays")]
-    originals = [getattr(mod, name) for mod, name in bound]
-    for (mod, name), fn in zip(bound, originals):
-        def recording(*args, _name=name, _fn=fn, **kw):
-            calls.append((_name, clone(args), {k: clone(v) for k, v in kw.items()}))
-            return _fn(*args, **kw)
-        setattr(mod, name, recording)
-    try:
+    with recorded_calls([(network_mod, "grid_encode"), (renderer_mod, "march_rays"),
+                         (renderer_mod, "composite_rays")]) as calls:
         tr.eval_step(batch)
-    finally:
-        for (mod, name), fn in zip(bound, originals):
-            setattr(mod, name, fn)
 
     out = {"grid_encode": [], "march_rays": [], "composite_rays": []}
     for name, args, kw in calls:
@@ -1600,6 +1607,433 @@ def eval_kernel_checks(tr, batch):
         raise RuntimeError(f"the eval frame made other calls than A x 2, B, C: "
                            f"{ {k: len(v) for k, v in out.items()} }")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bf16 policy (-O)
+
+@contextlib.contextmanager
+def recorded_calls(bindings):
+    """While the block runs, each (module, name) of ``bindings`` records its
+    calls into the yielded list as (name, args, kwargs), tensors cloned as
+    passed (a module's own binding: the model modules bind the wrappers at
+    import)."""
+    def clone(v):
+        if torch.is_tensor(v):
+            return v.detach().clone()
+        return tuple(clone(x) for x in v) if isinstance(v, tuple) else v
+
+    calls = []
+    originals = [getattr(mod, name) for mod, name in bindings]
+    for (mod, name), fn in zip(bindings, originals):
+        def recording(*args, _name=name, _fn=fn, **kw):
+            calls.append((_name, clone(args), {k: clone(v) for k, v in kw.items()}))
+            return _fn(*args, **kw)
+        setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(bindings, originals):
+            setattr(mod, name, fn)
+
+
+def bf16_ulp_err(got, want):
+    """(largest |got - want| in bf16 ulps of the larger magnitude, the count
+    of elements that differ)."""
+    a, b = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs())
+                                            .clamp_min(2.0**-126))) - 7)
+    return float(((a - b).abs() / ulp).max()), int((a != b).sum())
+
+
+def in_turns(fns, reps=20):
+    """``device_ms`` of each fn in the order a, b, b, a: {name: mean}."""
+    names = list(fns)
+    got = {n: [] for n in names}
+    for n in names + names[::-1]:
+        got[n].append(device_ms(fns[n], reps))
+    return {n: float(np.mean(v)) for n, v in got.items()}
+
+
+def kernel_class_ms(events, reps, needle):
+    """Device ms per rep of the profiled kernels whose name holds ``needle``."""
+    return sum(e.self_device_time_total for e in events if needle in e.key) / reps / 1e3
+
+
+def bf16_frame_phase(report, out_dir, scene, auds):
+    """bf16_frame: phase 3's 512x512 head+torso frame under -O (the same
+    weights in a ``compute_dtype="bfloat16"`` network) with launch counts
+    from 0: A-bf16 three times, the float32 A never; its PSNR against the
+    float32 frame; both frames fenced (15 each, in turns) and profiled (3
+    each): device ms, by class (GEMMs, `cat`, kernel A). Returns the bf16
+    frame's recorded grid-encode calls."""
+    import radnerf_tpu_torch.models.network as network_mod
+    from radnerf_tpu_torch.models import NeRFNetwork, render_rays
+    from radnerf_tpu_torch.ops import _kernels
+
+    net, rc, state, b = scene
+    net16 = NeRFNetwork(dataclasses.replace(net.cfg, compute_dtype="bfloat16"),
+                        device=b["rays_o"].device)
+    net16.load_state_dict(net.state_dict())
+
+    def frame(n, aud):
+        return render_rays(n, rc, state, b["rays_o"], b["rays_d"], aud, b["bg_coords"],
+                           b["poses"], b["eye"], b["index"], b["bg_color"])[0]
+
+    ref = frame(net, auds[0])
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    with recorded_calls([(network_mod, "grid_encode")]) as calls:
+        res = frame(net16, auds[0])
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    fenced = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        n = net if name == "float32" else net16
+        fenced[name] += fenced_ms(lambda i: frame(n, auds[i % auds.shape[0]]), 15)
+    prof = {}
+    for name, n in (("float32", net), ("bfloat16", net16)):
+        p, events = device_profile(lambda i: frame(n, auds[i]), 3)
+        prof[name] = {"device_ms": sum(e.self_device_time_total for e in events) / 3e3,
+                      "ms_by_class": ms_by_class(events, 3),
+                      "grid_encode_ms": kernel_class_ms(events, 3, "grid_encode_kernel")}
+        if name == "bfloat16":
+            with open(os.path.join(out_dir, "chip_smoke_bf16_profile.txt"), "w") as f:
+                f.write(p.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    bf = {"launches": launches, "psnr_vs_fp32_frame_db": psnr(res["image"], ref["image"]),
+          "max_abs_err_vs_fp32": float((res["image"] - ref["image"]).abs().max()),
+          "weights_sum_max": float(res["weights_sum"].max()),
+          "telemetry": {k: int(v) for k, v in res.items() if k.startswith("n_")},
+          "telemetry_fp32": {k: int(v) for k, v in ref.items() if k.startswith("n_")},
+          "frame_ms_median": {k: float(np.median(v)) for k, v in fenced.items()},
+          "frame_ms": fenced, "profile": prof}
+    report["bf16_frame"] = bf
+    emit({"phase": "bf16_frame", **{k: v for k, v in bf.items() if k != "frame_ms"}})
+    if launches["grid_encode_bf16"] != 3 or launches["grid_encode"] != 0 or \
+            launches["march_rays"] != 1 or launches["composite_rays"] != 1:
+        raise RuntimeError(f"the -O frame's launches: {launches}")
+    # the PSNR against float32 is the policy's own error on this scene, not a
+    # check: its U(-4, 4) tables make the density exp() of large values, where
+    # bf16 roundings move whole samples (the CPU tests hold -O to JAX's)
+    if not bool(torch.isfinite(res["image"]).all()) or bf["telemetry"] != bf["telemetry_fp32"] \
+            or not bf["weights_sum_max"] > 0.05:
+        raise RuntimeError(f"the -O frame: {bf}")
+    return calls
+
+
+def bf16_train_phase(report, out_dir, root):
+    """bf16_train: the head stage under -O (``Options(...).apply_O()``, full
+    width, 65,536 rays) on the written directory, the untrained cells
+    marked, launch counts from 0: ``Trainer.step`` fenced call by call over
+    29 steps (upkeep steps apart), a 3-step profile and its busy share; A-
+    and A'-bf16 launched, the float32 A and A' never; every loss finite.
+    Returns one more step's recorded A-bf16 and A'-bf16 calls."""
+    import radnerf_tpu_torch.models.network as network_mod
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.models import mark_untrained_grid
+    from radnerf_tpu_torch.ops import _kernels
+    from radnerf_tpu_torch.train import Trainer
+
+    opt = Options(path=root, preload=2).apply_O()
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    tr = Trainer(opt, device=ds.device)
+    tr.state = mark_untrained_grid(tr.render_cfg, tr.state, ds.poses, tuple(ds.intrinsics))
+    interval, order = opt.update_extra_interval, ds.epoch_indices()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    step_ms, upkeep_step_ms, losses = [], [], []
+    for n in range(2 * interval - PROFILED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.step(ds, order[n % len(order)]))
+        torch.cuda.synchronize()
+        (upkeep_step_ms if upkeep else step_ms).append((time.perf_counter() - t0) * 1e3)
+    launches = _kernels.launches()
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS)):
+        raise RuntimeError("a profiled -O step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds, order[i % len(order)]), PROFILED_STEPS)
+    with open(os.path.join(out_dir, "chip_smoke_bf16_train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    if tr.global_step % interval == 0:  # the recorded step runs no upkeep
+        tr.step(ds, order[1])
+    # the module itself (the package's name grid_encode is the function)
+    grid_mod = sys.modules["radnerf_tpu_torch.ops.grid_encode"]
+    with recorded_calls([(network_mod, "grid_encode"),
+                         (grid_mod, "grid_encode_backward")]) as calls:
+        tr.step(ds, order[0])
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).tolist()
+    med = float(np.median(step_ms))
+    bt = {"steps": len(losses), "launches": launches, "loss_first": losses[0],
+          "loss_last": losses[-1], "train_step_ms_median": med, "train_step_ms": step_ms,
+          "upkeep_step_ms": upkeep_step_ms,
+          "phase10_train_step_ms_median": report["train_timing"]["train_step_ms_median"],
+          "telemetry_last_step": {k: int(v) for k, v in tr.telemetry.items()},
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS),
+                      "grid_encode_ms": kernel_class_ms(events, PROFILED_STEPS,
+                                                        "grid_encode_kernel"),
+                      "grid_encode_backward_ms": kernel_class_ms(events, PROFILED_STEPS,
+                                                                 "grid_encode_bwd_kernel"),
+                      "phase10_device_busy_ms_per_step":
+                          report["train_timing"]["profile"]["device_busy_ms_per_step"],
+                      "phase10_ms_per_step_by_class":
+                          report["train_timing"]["profile"]["ms_per_step_by_class"]},
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report["bf16_train"] = bt
+    emit({"phase": "bf16_train", **{k: v for k, v in bt.items() if k != "train_step_ms"}})
+    if launches["grid_encode"] or launches["grid_encode_backward"] or \
+            not all(launches[k] > 0 for k in BF16_KERNELS + ("march_rays", "composite_rays",
+                                                             "composite_rays_backward")):
+        raise RuntimeError(f"the -O steps' launches: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"-O losses: {losses}")
+    del tr, ds
+    return calls
+
+
+def bf16_kernel_checks(report, frame_calls, step_calls):
+    """bf16_kernel_checks: A-bf16 on the -O frame's D = 3 and D = 2 inputs
+    and on the -O step's (~1.05M samples), A'-bf16 on the step's bf16
+    upstream gradients, against their plain versions on the card: A's
+    largest error in bf16 ulps (at most 1) and its count of differing
+    elements; A''s table gradient within 2 (n - 1) 2^-24 of each row's sum
+    of |terms| (n the row's terms: two orders of a float32 sum), its x
+    gradient within 1e-5 of the largest; each beside the float32
+    variant on the same points (its table and grad_out widened) in turns,
+    its bound with bf16 bytes, its plain version's ms. Returns the kernels
+    line's A-bf16 (the frame's three calls) and A'-bf16 (the step's two)
+    entries, launches left to the caller."""
+    from radnerf_tpu_torch.ops import (
+        grid_encode, grid_encode_backward, grid_encode_backward_plain, grid_encode_plain,
+    )
+
+    bf16 = torch.bfloat16
+    fwd, bwd = [], []
+    for where, calls in (("frame", frame_calls), ("step", step_calls)):
+        for name, args, kw in calls:
+            if name == "grid_encode":
+                x, table, spec, bound = args
+                fwd.append((where, x, table.to(bf16), spec, bound))
+            else:
+                x, table, grad_out, spec, bound = args
+                bwd.append((where, x, table, grad_out, spec, bound, kw["need_table"],
+                            kw["need_x"]))
+    a_rows = []
+    for where, x, tb, spec, bound in fwd:
+        got, want = grid_encode(x, tb, spec, bound), grid_encode_plain(x, tb, spec, bound)
+        torch.cuda.synchronize()
+        ulps, n_diff = bf16_ulp_err(got, want)
+        t32 = tb.float()
+        turns = in_turns({"bf16": lambda: grid_encode(x, tb, spec, bound),
+                          "fp32": lambda: grid_encode(x, t32, spec, bound)})
+        nb, nf = grid_work(x, spec, bound, elem=2)
+        bms, by = bound_ms(nb, nf)
+        a_rows.append({"where": where, "D": spec.input_dim, "n_points": int(x.shape[0]),
+                       "max_err_ulps": ulps, "elements_differing": n_diff,
+                       "max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "ms": cuda_ms(lambda: grid_encode(x, tb, spec, bound), 20),
+                       "device_ms": turns["bf16"], "fp32_device_ms": turns["fp32"],
+                       "plain_ms": cuda_ms(lambda: grid_encode_plain(x, tb, spec, bound), 3),
+                       "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf})
+    b_rows = []
+    for where, x, tb, go, spec, bound, need_table, need_x in bwd:
+        gk = grid_encode_backward(x, tb, go, spec, bound, need_x=need_x)
+        gp = grid_encode_backward_plain(x, tb, go, spec, bound, need_x=need_x)
+        # each order of a row's float32 sum of n terms is within (n - 1)
+        # 2^-24 of the sum of the terms' magnitudes of the exact sum
+        # (recursive summation's bound), so two orders are within twice
+        # that: per row, since the step's real gradients cancel within a
+        # row, and linear in n, since the collapsed ambient points add
+        # nearly equal terms to one row and the roundings do not cancel
+        # (a sqrt(n) bound failed by 3.2x there on an NVIDIA H100 80GB
+        # HBM3, 700.00 W)
+        counts = row_counts(x, spec, bound)[0]
+        abs_rows = grid_encode_backward_plain(x, tb, go.abs(), spec, bound, need_x=False)[0]
+        row_bound = 2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 \
+            * abs_rows.double()
+        over = float(((gk[0] - gp[0]).abs().double() / row_bound.clamp_min(1e-300)).max())
+        torch.cuda.synchronize()
+        n_busy = int(counts.max())
+        t32, g32 = tb.float(), go.float()
+        turns = in_turns({
+            "bf16": lambda: grid_encode_backward(x, tb, go, spec, bound, need_x=need_x),
+            "fp32": lambda: grid_encode_backward(x, t32, g32, spec, bound, need_x=need_x)})
+        nb, nf = grid_backward_work(x, spec, bound, need_x, elem=2)
+        bms, by = bound_ms(nb, nf)
+        row = {"where": where, "D": spec.input_dim, "n_points": int(x.shape[0]),
+               "x_grad": need_x, "busiest_row_contributions": n_busy,
+               "table_err_over_row_bound": over, "table_rel_err": rel_err(gk[0], gp[0]),
+               "max_abs_err": float((gk[0] - gp[0]).abs().max()),
+               "ms": cuda_ms(lambda: grid_encode_backward(x, tb, go, spec, bound,
+                                                          need_x=need_x), 20),
+               "device_ms": turns["bf16"], "fp32_device_ms": turns["fp32"],
+               "plain_ms": cuda_ms(lambda: grid_encode_backward_plain(
+                   x, tb, go, spec, bound, need_x=need_x), 3),
+               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
+        if need_x:
+            row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
+                       max_abs_err=max(row["max_abs_err"],
+                                       float((gk[1] - gp[1]).abs().max())))
+        b_rows.append(row)
+    checks = {"grid_encode_bf16": a_rows, "grid_encode_backward_bf16": b_rows}
+    report["bf16_kernel_checks"] = checks
+    emit({"phase": "bf16_kernel_checks", **checks})
+    for r in a_rows:
+        if not r["max_err_ulps"] <= 1.0:
+            raise RuntimeError(f"A-bf16 differs from its plain version by more than 1 ulp: {r}")
+    for r in b_rows:
+        if not (r["table_err_over_row_bound"] <= 1.0
+                and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL):
+            raise RuntimeError(f"A'-bf16 differs from its plain version: {r}")
+    if sorted(r["where"] for r in a_rows).count("frame") != 3 or \
+            len([r for r in b_rows if r["where"] == "step"]) != 2:
+        raise RuntimeError("the -O frame and step made other grid calls than A x 3, A' x 2")
+
+    entries = []
+    for name, rows, where in (("grid_encode_bf16", a_rows, "frame"),
+                              ("grid_encode_backward_bf16", b_rows, "step")):
+        rows = [r for r in rows if r["where"] == where]
+        bms, by = bound_ms(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "radnerf_tpu_torch/csrc/" + name.replace("_bf16", "") + ".cu",
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
+            "fp32_device_ms": sum(r["fp32_device_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "calls": rows})
+    return entries
+
+
+def recipe_phase(report, root):
+    """recipe: the README's -O workflow through the port's entry points on
+    the written directory, each command with launch counts from 0: the head
+    (RECIPE_HEAD_STEPS steps, the evaluation, ngp.npz), the lips finetune
+    from its latest checkpoint (RECIPE_LIPS_STEPS more: rect and full
+    batches alternating, a finite non-zero LPIPS term on the rect steps,
+    every group's rate base * 0.05 ** (step / iters)), the torso from the
+    head's ngp.npz (RECIPE_TORSO_STEPS), --torso --test, and infer -O
+    --torso. Returns the summed launches of the bf16 kernels."""
+    from radnerf_tpu_torch import infer
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.ops import _kernels
+
+    # the lips rects of the written landmarks: alex-LPIPS needs 32 px a side
+    rects = TalkingHeadDataset(Options(path=root, finetune_lips=True), split="train",
+                               device="cuda").lips_rect
+    sides = sorted({min(x1 - x0, y1 - y0) for x0, x1, y0, y1 in rects})
+    if sides[0] < 32:
+        raise RuntimeError(f"the written landmarks give lips rects of {sides} px")
+    ws, ws_t = os.path.join(root, "recipe_head"), os.path.join(root, "recipe_torso")
+    common = ["-O", "--preload", "2", "--ema_update_interval", "1"]
+    n = DATASET_FRAMES
+    runs = {}
+
+    def run(name, fn, argv):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        runs[name] = {"argv": argv, "seconds": time.perf_counter() - t0,
+                      "launches": _kernels.launches()}
+        return out
+
+    head = run("head", port_main, [root, "--workspace", ws, *common, "--ckpt", "scratch",
+                                   "--iters", str(RECIPE_HEAD_STEPS)])
+    runs["head"].update(steps=head.global_step, step_losses=head.stats["step_loss"],
+                        eval_psnr=head.stats["results"], eval_loss=head.stats["valid_loss"],
+                        checkpoints=sorted(os.listdir(head.ckpt_path)))
+    del head
+    lips = run("lips", port_main, [root, "--workspace", ws, *common, "--finetune_lips",
+                                   "--iters", str(RECIPE_HEAD_STEPS + RECIPE_LIPS_STEPS)])
+    opt = lips.opt
+    base = {"grid": opt.lr, "net": opt.lr_net, "att": 5 * opt.lr_net}
+    rates = {g["name"]: g["lr"] for g in lips.optimizer.param_groups}
+    runs["lips"].update(
+        steps=lips.global_step, loss_mode=lips.stats["loss_mode"],
+        lpips_term=lips.stats["lpips_term"], step_losses=lips.stats["step_loss"],
+        eval_psnr=lips.stats["results"], decay_base=lips.decay_base,
+        rates=rates, rates_want={g: base[g] * 0.05 ** (lips.global_step / opt.iters)
+                                 for g in rates})
+    del lips
+    head_ckpt = os.path.join(ws, "checkpoints", "ngp.npz")
+    torso = run("torso", port_main, [root, "--workspace", ws_t, *common, "--torso",
+                                     "--head_ckpt", head_ckpt, "--ckpt", "scratch",
+                                     "--iters", str(RECIPE_TORSO_STEPS)])
+    runs["torso"].update(steps=torso.global_step, step_losses=torso.stats["step_loss"],
+                         eval_psnr=torso.stats["results"],
+                         checkpoints=sorted(os.listdir(torso.ckpt_path)))
+    del torso
+    test = run("test", port_main, [root, "--workspace", ws_t, "-O", "--torso", "--test",
+                                   "--preload", "2"])
+    runs["test"].update(eval_psnr=test.stats["results"],
+                        results=sorted(os.listdir(os.path.join(ws_t, "results"))))
+    del test
+    pose_path, aud_path = os.path.join(root, "pose.json"), os.path.join(root, "novel.npy")
+    out = os.path.join(root, "recipe_infer")
+    fps = run("infer", infer.main, ["--pose", pose_path, "--aud", aud_path, "--workspace", out,
+                                    "-O", "--torso", "--ckpt",
+                                    os.path.join(ws_t, "checkpoints", "ngp.npz")])
+    runs["infer"].update(fps=fps, files=len(os.listdir(os.path.join(out, "results"))))
+    report["recipe"] = {"lips_rect_sides": sides, **runs}
+    emit({"phase": "recipe", "lips_rect_sides": sides,
+          **{k: {kk: vv for kk, vv in v.items() if kk != "step_losses"}
+             for k, v in runs.items()}})
+
+    lips = runs["lips"]
+    modes = lips["loss_mode"]
+    problems = []
+    if modes != ["rect", "none"] * (RECIPE_LIPS_STEPS // 2):
+        problems.append(f"lips batch kinds {modes}")
+    if len(lips["lpips_term"]) != RECIPE_LIPS_STEPS // 2 or not all(
+            math.isfinite(v) and v > 0 for _, v in lips["lpips_term"]):
+        problems.append(f"lips LPIPS terms {lips['lpips_term']}")
+    if lips["decay_base"] != 0.05 or not all(
+            abs(lips["rates"][g] - w) <= 1e-9 * w for g, w in lips["rates_want"].items()):
+        problems.append(f"lips rates {lips['rates']} vs {lips['rates_want']}")
+    for name in ("head", "lips", "torso"):
+        r = runs[name]
+        if not all(math.isfinite(v) for v in r["step_losses"]) or not r["eval_psnr"] or \
+                not all(math.isfinite(v) for v in r["eval_psnr"]):
+            problems.append(f"{name}: losses {r['step_losses']}, eval {r['eval_psnr']}")
+    want_steps = {"head": RECIPE_HEAD_STEPS, "lips": RECIPE_HEAD_STEPS + RECIPE_LIPS_STEPS,
+                  "torso": RECIPE_TORSO_STEPS}
+    problems += [f"{k}: {runs[k]['steps']} steps" for k, v in want_steps.items()
+                 if runs[k]["steps"] != v]
+    for name, need in (("head", ("grid_encode_bf16", "grid_encode_backward_bf16", "march_rays",
+                                 "composite_rays", "composite_rays_backward")),
+                       ("lips", ("grid_encode_bf16", "grid_encode_backward_bf16",
+                                 "composite_rays_backward")),
+                       ("torso", ("grid_encode_bf16", "grid_encode_backward_bf16",
+                                  "march_rays", "composite_rays")),
+                       ("test", ("grid_encode_bf16", "march_rays", "composite_rays")),
+                       ("infer", ("grid_encode_bf16", "march_rays", "composite_rays"))):
+        la = runs[name]["launches"]
+        if any(la[k] <= 0 for k in need) or la["grid_encode"] or la["grid_encode_backward"]:
+            problems.append(f"{name} launches {la}")
+    if runs["torso"]["launches"]["composite_rays_backward"]:
+        problems.append("the torso stage launched C'")
+    for name, files in (("head", runs["head"]["checkpoints"]),
+                        ("torso", runs["torso"]["checkpoints"])):
+        if "ngp.npz" not in files:
+            problems.append(f"{name} wrote {files}")
+    if not os.path.exists(os.path.join(ws, "checkpoints", "ngp_ep0002.npz")):
+        problems.append("the lips finetune wrote no epoch checkpoint")
+    if not runs["test"]["results"] or runs["infer"]["files"] not in (1, INFER_FRAMES) or \
+            not runs["infer"]["fps"] > 0:
+        problems.append(f"test results {runs['test']['results']}, infer {runs['infer']}")
+    if problems:
+        raise RuntimeError(f"the -O recipe: {problems}")
+    return {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_KERNELS}
 
 
 def gather_phase(report, dev):

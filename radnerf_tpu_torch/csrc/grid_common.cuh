@@ -13,13 +13,76 @@
 // consecutive points at one level, so the level and its constants are
 // warp-uniform and, at the coarse levels, neighbouring samples of a ray
 // read (and add into) the same table rows.
+//
+// Both kernels are templates on the table's element type (Table<T> below):
+// float, the float32 policy, or __nv_bfloat16, the bf16 policy of -O
+// (radnerf_tpu/ops/grid_encode.py build_packed_table(dtype=bfloat16) +
+// grid_encode01_packed :395-400). Under bf16 a row is one 32-bit word and
+// a row pair 8 bytes; values are widened to float exactly (a bf16 is the
+// high half of a float32); each corner weight, computed in float32 as
+// before, is rounded to bf16, each weight x value product is rounded to
+// bf16, the products are summed in float32 and the sum rounded to bf16
+// once: where XLA rounds when JAX runs the lerp op by op (ops/grid_encode.py
+// _grid_encode_plain_bf16 is the twin). For float the rounding hooks are
+// the identity, so the float32 variants compile to what they were.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace grid {
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+struct Table;
+
+// float32 tables: a row is a float2, the output and grad_out elements of a
+// (point, level) a float2
+template <>
+struct Table<float> {
+  using Row = float2;
+  using Out = float2;
+  __device__ static float2 load(const Row* __restrict__ p) { return __ldg(p); }
+  __device__ static void load2(const Row* __restrict__ p, float2& e0, float2& e1) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    e0 = make_float2(v.x, v.y);
+    e1 = make_float2(v.z, v.w);
+  }
+  __device__ static float2 load_out(const Out* __restrict__ p) { return __ldg(p); }
+  __device__ static Out store(float2 v) { return v; }
+  __device__ static float weight(float w) { return w; }
+  __device__ static float term(float v) { return v; }
+};
+
+// bf16 tables: a row is two bf16s in one 32-bit word (channel 0 in the low
+// half, as they lie in memory), and so are the output and grad_out
+// elements of a (point, level)
+template <>
+struct Table<__nv_bfloat16> {
+  using Row = uint32_t;
+  using Out = uint32_t;
+  __device__ static float2 widen(uint32_t v) {
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+  }
+  __device__ static float2 load(const Row* __restrict__ p) { return widen(__ldg(p)); }
+  __device__ static void load2(const Row* __restrict__ p, float2& e0, float2& e1) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    e0 = widen(v.x);
+    e1 = widen(v.y);
+  }
+  __device__ static float2 load_out(const Out* __restrict__ p) { return widen(__ldg(p)); }
+  __device__ static Out store(float2 v) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v.x)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16);
+  }
+  __device__ static float weight(float w) { return round_bf16(w); }
+  __device__ static float term(float v) { return round_bf16(v); }
+};
 
 constexpr int kMaxLevels = 32;  // blockDim.y = L; 32 * L threads at most 1024
 
@@ -105,15 +168,14 @@ __device__ __forceinline__ bool pair_aligned(uint32_t r0, uint32_t r1) {
   return r1 == r0 + 1 && (r0 & 1u) == 0;
 }
 
-__device__ __forceinline__ void load_pair(const float2* __restrict__ emb, uint32_t r0,
-                                          uint32_t r1, float2& e0, float2& e1) {
+template <typename T>
+__device__ __forceinline__ void load_pair(const typename Table<T>::Row* __restrict__ emb,
+                                          uint32_t r0, uint32_t r1, float2& e0, float2& e1) {
   if (pair_aligned(r0, r1)) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(emb + r0));
-    e0 = make_float2(v.x, v.y);
-    e1 = make_float2(v.z, v.w);
+    Table<T>::load2(emb + r0, e0, e1);
   } else {
-    e0 = __ldg(emb + r0);
-    e1 = __ldg(emb + r1);
+    e0 = Table<T>::load(emb + r0);
+    e1 = Table<T>::load(emb + r1);
   }
 }
 

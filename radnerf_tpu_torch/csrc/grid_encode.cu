@@ -26,6 +26,15 @@
 // in the same order (grid_common.cuh): corners 0..2^D-1, the weight's
 // product in dim order, the library built with -fmad=false; the result is
 // bit for bit the twin's.
+//
+// The bf16 variant (grid_encode_fwd_bf16, the -O policy; replaces the same
+// functions with build_packed_table(dtype=bfloat16) and the bf16 lerp at
+// :395-400) is the same template on a bf16 table [n_emb, 2] with a bf16
+// output [N, 2L]: a corner row is 4 bytes, a row pair 8, the output half
+// the bytes, and the rounding hooks of grid_common.cuh's Table<bf16> put
+// bf16 roundings where JAX's op-by-op lerp has them. Its bytes per (point,
+// level) are half the float32 variant's; the design is unchanged (a first,
+// simple port).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,14 +43,16 @@
 
 namespace {
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(1024) grid_encode_kernel(
-    const float* __restrict__ x, const float2* __restrict__ emb,
+    const float* __restrict__ x, const typename grid::Table<T>::Row* __restrict__ emb,
     const float* __restrict__ scales, const int* __restrict__ level_params,
-    float2* __restrict__ out, int N, int L, float bound, float two_bound) {
-  __shared__ float2 tile[32 * (grid::kMaxLevels + 1)];
+    typename grid::Table<T>::Out* __restrict__ out, int N, int L, float bound,
+    float two_bound) {
+  using Tab = grid::Table<T>;
+  __shared__ typename Tab::Out tile[32 * (grid::kMaxLevels + 1)];
   const int lane = threadIdx.x, l = threadIdx.y;
-  const int row_f2 = L + 1;  // tile row stride in float2
+  const int row_f2 = L + 1;  // tile row stride in output elements
   const int n0 = blockIdx.x * 32;
   const int n = n0 + lane;
 
@@ -55,23 +66,45 @@ __global__ void __launch_bounds__(1024) grid_encode_kernel(
 #pragma unroll
     for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
       float2 e0, e1;
-      grid::load_pair(emb, grid::corner_row<D>(lv, pg, c0), grid::corner_row<D>(lv, pg, c0 + 1),
-                      e0, e1);
-      const float w0 = grid::corner_weight<D>(frac, c0);
-      const float w1 = grid::corner_weight<D>(frac, c0 + 1);
-      const float2 a = make_float2(w0 * e0.x, w0 * e0.y);
+      grid::load_pair<T>(emb, grid::corner_row<D>(lv, pg, c0),
+                         grid::corner_row<D>(lv, pg, c0 + 1), e0, e1);
+      const float w0 = Tab::weight(grid::corner_weight<D>(frac, c0));
+      const float w1 = Tab::weight(grid::corner_weight<D>(frac, c0 + 1));
+      const float2 a = make_float2(Tab::term(w0 * e0.x), Tab::term(w0 * e0.y));
       acc = c0 == 0 ? a : make_float2(acc.x + a.x, acc.y + a.y);
-      acc = make_float2(acc.x + w1 * e1.x, acc.y + w1 * e1.y);
+      acc = make_float2(acc.x + Tab::term(w1 * e1.x), acc.y + Tab::term(w1 * e1.y));
     }
   }
-  tile[lane * row_f2 + l] = acc;
+  tile[lane * row_f2 + l] = Tab::store(acc);
   __syncthreads();
 
   // the block's rows [n0, n0 + 32) are one run of out: thread t writes its
-  // t-th float2 (32 * L float2s, one per thread)
+  // t-th element (32 * L of them, one per thread)
   const int t = l * 32 + lane;
   const int q = t / L;
   if (n0 + q < N) out[(size_t)n0 * L + t] = tile[q * row_f2 + (t - q * L)];
+}
+
+template <typename T>
+int launch(const void* x, const void* emb, const void* scales, const void* level_params,
+           void* out, long long N, int D, int L, float bound, float two_bound, void* stream) {
+  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 0 || N > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  using Tab = grid::Table<T>;
+  const dim3 block(32, L);
+  const unsigned blocks = (unsigned)((N + 31) / 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 3) {
+    grid_encode_kernel<3, T><<<blocks, block, 0, s>>>(
+        (const float*)x, (const typename Tab::Row*)emb, (const float*)scales,
+        (const int*)level_params, (typename Tab::Out*)out, (int)N, L, bound, two_bound);
+  } else {
+    grid_encode_kernel<2, T><<<blocks, block, 0, s>>>(
+        (const float*)x, (const typename Tab::Row*)emb, (const float*)scales,
+        (const int*)level_params, (typename Tab::Out*)out, (int)N, L, bound, two_bound);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -79,20 +112,13 @@ __global__ void __launch_bounds__(1024) grid_encode_kernel(
 extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scales,
                                const void* level_params, void* out, long long N, int D,
                                int L, float bound, float two_bound, void* stream) {
-  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 0 || N > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 block(32, L);
-  const unsigned blocks = (unsigned)((N + 31) / 32);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D == 3) {
-    grid_encode_kernel<3><<<blocks, block, 0, s>>>(
-        (const float*)x, (const float2*)emb, (const float*)scales, (const int*)level_params,
-        (float2*)out, (int)N, L, bound, two_bound);
-  } else {
-    grid_encode_kernel<2><<<blocks, block, 0, s>>>(
-        (const float*)x, (const float2*)emb, (const float*)scales, (const int*)level_params,
-        (float2*)out, (int)N, L, bound, two_bound);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(x, emb, scales, level_params, out, N, D, L, bound, two_bound, stream);
+}
+
+// bf16 table [n_emb, 2] and bf16 out [N, 2L]; the rest as grid_encode_fwd
+extern "C" int grid_encode_fwd_bf16(const void* x, const void* emb, const void* scales,
+                                    const void* level_params, void* out, long long N, int D,
+                                    int L, float bound, float two_bound, void* stream) {
+  return launch<__nv_bfloat16>(x, emb, scales, level_params, out, N, D, L, bound, two_bound,
+                               stream);
 }

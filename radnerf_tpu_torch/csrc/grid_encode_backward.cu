@@ -32,6 +32,16 @@
 // memory, and the point's level-0 thread sums them in level order and
 // stores grad_x (exact 0 outside the box), so the wrapper need not zero it.
 //
+// The bf16 variant (grid_encode_bwd_bf16, the gradient of the -O policy's
+// bf16 encode) is the same template on a bf16 table and a bf16 grad_out
+// [N, 2L] (4 bytes a (point, level) instead of 8); it writes float32
+// gradients, the table's through the same float32 atomics. Its corner
+// weights are rounded to bf16 as in the forward, so each added term
+// bf16(w) * g is exact in float32; the x gradient treats that rounding as
+// the identity, as autodiff treats a cast. JAX instead rounds each term to
+// bf16 and scatter-adds into a bf16 table: the port's sum is the more
+// exact one, a deliberate difference (ops/grid_encode.py).
+//
 // The atomic order varies from run to run, so the table gradient is not
 // bit-exact between runs or with the plain version; it agrees to the
 // rounding of a float32 sum taken in another order. The wrapper zeroes
@@ -84,12 +94,14 @@ __device__ __forceinline__ void add_pair(float2* __restrict__ table, uint32_t r0
   }
 }
 
-template <int D, bool kNeedX>
+template <int D, bool kNeedX, typename T>
 __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
-    const float* __restrict__ x, const float2* __restrict__ emb,
-    const float2* __restrict__ grad_out, const float* __restrict__ scales,
-    const int* __restrict__ level_params, float2* __restrict__ grad_table,
-    float* __restrict__ grad_x, int N, int L, float bound, float two_bound) {
+    const float* __restrict__ x, const typename grid::Table<T>::Row* __restrict__ emb,
+    const typename grid::Table<T>::Out* __restrict__ grad_out,
+    const float* __restrict__ scales, const int* __restrict__ level_params,
+    float2* __restrict__ grad_table, float* __restrict__ grad_x, int N, int L, float bound,
+    float two_bound) {
+  using Tab = grid::Table<T>;
   __shared__ float xg[kNeedX ? 1024 * D : 1];  // [L][P][D], P * L <= 1024
   const int P = blockDim.x, l = threadIdx.y;
   const unsigned lane = threadIdx.x & 31u;
@@ -103,7 +115,7 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
   float2 g = make_float2(0.0f, 0.0f);
   if (live) {
     grid::cell<D>(p, lv.scale, pg, frac);
-    g = __ldg(grad_out + (size_t)n * L + l);
+    g = Tab::load_out(grad_out + (size_t)n * L + l);
   }
   float gpos[D];
 #pragma unroll
@@ -116,12 +128,12 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
     if (live) {
       r0 = grid::corner_row<D>(lv, pg, c0);
       r1 = grid::corner_row<D>(lv, pg, c0 + 1);
-      const float w0 = grid::corner_weight<D>(frac, c0);
-      const float w1 = grid::corner_weight<D>(frac, c0 + 1);
+      const float w0 = Tab::weight(grid::corner_weight<D>(frac, c0));
+      const float w1 = Tab::weight(grid::corner_weight<D>(frac, c0 + 1));
       v = make_float4(w0 * g.x, w0 * g.y, w1 * g.x, w1 * g.y);
       if (kNeedX) {
         float2 e0, e1;
-        grid::load_pair(emb, r0, r1, e0, e1);
+        grid::load_pair<T>(emb, r0, r1, e0, e1);
         const float dot0 = g.x * e0.x + g.y * e0.y;
         const float dot1 = g.x * e1.x + g.y * e1.y;
 #pragma unroll
@@ -151,15 +163,40 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
   }
 }
 
-template <int D, bool kNeedX>
+template <int D, bool kNeedX, typename T>
 int launch(const void* x, const void* emb, const void* grad_out, const void* scales,
            const void* level_params, void* grad_table, void* grad_x, int N, int L,
            float bound, float two_bound, cudaStream_t s) {
+  using Tab = grid::Table<T>;
   const int P = L <= 16 ? 64 : 32;  // a block of at most 1024 threads
-  grid_encode_bwd_kernel<D, kNeedX><<<(N + P - 1) / P, dim3(P, L), 0, s>>>(
-      (const float*)x, (const float2*)emb, (const float2*)grad_out, (const float*)scales,
-      (const int*)level_params, (float2*)grad_table, (float*)grad_x, N, L, bound, two_bound);
+  grid_encode_bwd_kernel<D, kNeedX, T><<<(N + P - 1) / P, dim3(P, L), 0, s>>>(
+      (const float*)x, (const typename Tab::Row*)emb, (const typename Tab::Out*)grad_out,
+      (const float*)scales, (const int*)level_params, (float2*)grad_table, (float*)grad_x, N,
+      L, bound, two_bound);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(const void* x, const void* emb, const void* grad_out, const void* scales,
+             const void* level_params, void* grad_table, void* grad_x, long long N, int D,
+             int L, float bound, float two_bound, void* stream) {
+  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 1 || N > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)N;
+  if (D == 3) {
+    return grad_x != nullptr
+               ? launch<3, true, T>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
+                                    n, L, bound, two_bound, s)
+               : launch<3, false, T>(x, emb, grad_out, scales, level_params, grad_table,
+                                     grad_x, n, L, bound, two_bound, s);
+  }
+  return grad_x != nullptr
+             ? launch<2, true, T>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n,
+                                  L, bound, two_bound, s)
+             : launch<2, false, T>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
+                                   n, L, bound, two_bound, s);
 }
 
 }  // namespace
@@ -168,21 +205,15 @@ extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_
                                const void* scales, const void* level_params, void* grad_table,
                                void* grad_x, long long N, int D, int L, float bound,
                                float two_bound, void* stream) {
-  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 1 || N > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n = (int)N;
-  if (D == 3) {
-    return grad_x != nullptr
-               ? launch<3, true>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n,
-                                 L, bound, two_bound, s)
-               : launch<3, false>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
-                                  n, L, bound, two_bound, s);
-  }
-  return grad_x != nullptr
-             ? launch<2, true>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n, L,
-                               bound, two_bound, s)
-             : launch<2, false>(x, emb, grad_out, scales, level_params, grad_table, grad_x, n,
-                                L, bound, two_bound, s);
+  return backward<float>(x, emb, grad_out, scales, level_params, grad_table, grad_x, N, D, L,
+                         bound, two_bound, stream);
+}
+
+// bf16 table [n_emb, 2] and bf16 grad_out [N, 2L]; float32 gradients
+extern "C" int grid_encode_bwd_bf16(const void* x, const void* emb, const void* grad_out,
+                                    const void* scales, const void* level_params,
+                                    void* grad_table, void* grad_x, long long N, int D, int L,
+                                    float bound, float two_bound, void* stream) {
+  return backward<__nv_bfloat16>(x, emb, grad_out, scales, level_params, grad_table, grad_x, N,
+                                 D, L, bound, two_bound, stream);
 }

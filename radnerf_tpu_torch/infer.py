@@ -3,11 +3,13 @@ reference test.py): drive a trained avatar from a pose json and audio
 features, on the card unless told otherwise:
 
     python -m radnerf_tpu_torch.infer --pose data/obama.json --aud data/intro_eo.npy \\
-        --workspace trial_obama/ --exp_eye --torso --ckpt trial_obama/checkpoints/ngp.npz
+        --workspace trial_obama_torso/ -O --torso \\
+        --ckpt trial_obama_torso/checkpoints/ngp.npz
 
 In a program: ``main([...], device="cpu")``, which returns the FPS the
-render measured. The test-mode smoothing (path, eye, lips) is on; ``--asr``
-and ``--gui`` are not ported (ROADMAP queue 1 item 7).
+render measured. The test-mode smoothing (path, eye, lips) is on; ``-O``
+renders under the bf16 policy; ``--asr`` and ``--gui`` are not ported
+(ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations

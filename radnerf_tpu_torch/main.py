@@ -1,10 +1,12 @@
 """Train / self-driven-test entry point of the port (the JAX package's
 ``main.py``; reference main.py), on the card unless told otherwise:
 
-    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ --exp_eye --iters 200000
-    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ --exp_eye \\
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ -O --iters 200000
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ -O --finetune_lips \\
+        --iters 250000
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ -O \\
         --torso --head_ckpt trial_obama/checkpoints/ngp.npz --iters 200000
-    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama/ --exp_eye --test
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ -O --torso --test
 
 In a program: ``main([...], device="cpu")``, which returns the trainer.
 Training runs train -> evaluate every ``eval_interval`` epochs (writing the
@@ -12,9 +14,12 @@ best checkpoint ``ngp.npz``) -> evaluate the test split -> render it to a
 video; ``--test`` evaluates the test split when it has ground truth, then
 renders it. The flags are ``main.py``'s but for the TPU capacity knobs
 (``--sample_capacity_mult``, ``--ray_capacity_frac``): the port never drops
-work. Not ported yet, and refused: ``--gui`` and ``--asr`` (ROADMAP queue 1
-item 7); ``-O``/``--fp16`` reaches ``NetworkConfig``'s refusal of bf16
-(queue 1 item 6).
+work. ``-O`` (``--fp16 --exp_eye``) runs the bf16 policy (bf16 MLPs, grid
+encodes on bf16 tables); ``--finetune_lips`` and ``--patch_size`` (>= 32)
+train with the LPIPS term (its seeded, uncalibrated filters unless
+``--lpips_weights`` names a file). Not ported yet, and refused:
+``--train_camera`` (ROADMAP queue 1 item 4), ``--gui`` and ``--asr`` (queue
+1 item 7).
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ def build_parser(require_path: bool = True,
     p.add_argument("--finetune_lips", action="store_true")
     p.add_argument("--smooth_lips", action="store_true")
     p.add_argument("--lpips_weights", type=str, default="",
-                   help="LPIPS-alex calibration file (npz or torch) for the eval metric")
+                   help="LPIPS-alex calibration file (npz or torch) for the eval metric "
+                        "and the lips/patch training term")
     p.add_argument("--torso", action="store_true")
     p.add_argument("--head_ckpt", type=str, default="")
     p.add_argument("--gui", action="store_true")
@@ -145,18 +151,22 @@ def options_from_args(args) -> Options:
 
 
 def refuse_unported(args):
-    """--gui and --asr are not ported (ROADMAP queue 1 item 7)."""
-    for flag in ("gui", "asr"):
+    """--train_camera (ROADMAP queue 1 item 4), --gui and --asr (item 7) are
+    not ported."""
+    for flag, item in (("train_camera", 4), ("gui", 7), ("asr", 7)):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported to radnerf_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 7)")
+                                      f"(ROADMAP queue 1 item {item})")
 
 
 def float32_matmuls():
-    """The port renders in float32: TF32 off for cuDNN (the audio convs,
-    LPIPS) and for matmuls, which ``render_rays`` refuses."""
+    """The port's GEMMs as JAX computes them: TF32 off for cuDNN (the audio
+    convs, LPIPS) and for matmuls, and no bf16 reduction of split-K partials
+    in cuBLAS (the bf16 policy's MLPs sum in float32); ``render_rays``
+    refuses either."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def eval_metrics(opt: Options, device, test: bool) -> list:

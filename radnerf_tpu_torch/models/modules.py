@@ -52,7 +52,10 @@ def leaky_relu(x, negative_slope: float = 0.02):
 
 
 class MLP(nn.Module):
-    """Bias-free Linear stack with ReLU between (reference network.py:69-88)."""
+    """Bias-free Linear stack with ReLU between (reference network.py:69-88);
+    ``forward(x, dtype)`` computes every layer in ``dtype`` (JAX
+    ``mlp_apply``'s ``compute_dtype``: input and float32 weight cast to it,
+    the product in it)."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_hidden: int, num_layers: int,
                  generator=None):
@@ -63,9 +66,9 @@ class MLP(nn.Module):
                    bias=False, generator=generator)
             for l in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
         for l, layer in enumerate(self.layers):
-            x = layer(x)
+            x = layer(x) if dtype is None else F.linear(x.to(dtype), layer.weight.to(dtype))
             if l != len(self.layers) - 1:
                 x = F.relu(x)
         return x

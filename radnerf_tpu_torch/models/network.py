@@ -11,8 +11,17 @@ gradients through kernel A'; the MLPs, encoders and activations around them
 are plain PyTorch. ``param_groups`` names each parameter's learning-rate
 group.
 
-Compute is float32. The bf16 table/lerp policy of the JAX package is not
-ported yet: ``compute_dtype="bfloat16"`` raises.
+Compute is float32, or under the bf16 policy (``-O``,
+``compute_dtype="bfloat16"``) what the JAX package computes in bf16: every
+MLP in bf16 (input and weight cast, the float32 master weights kept), the
+grid encodes on bf16 tables with a bf16 lerp (kernels A-bf16 and A'-bf16),
+the ``cat``s of bf16 parts; the ambient MLP's output, the density
+(``trunc_exp``), the colour's sigmoid and the torso's outputs back in
+float32 where JAX casts them back. Where no gradient reaches a grid table
+(evaluation, the upkeep, the frozen head of the torso stage) its bf16 copy
+is made once per parameter value (``table_copy``), as JAX's
+``precompute_packed_tables``; a train step casts the master table inside
+its encode. The copies are never parameters, and no checkpoint holds them.
 """
 
 from __future__ import annotations
@@ -63,10 +72,20 @@ class NetworkConfig:
     amb_grid_base: Optional[int] = None
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port computes in float32 "
-                "only; the bf16 table/lerp policy is not ported yet")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={self.compute_dtype!r}: float32 or bfloat16")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The MLPs' compute type."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @property
+    def table_dtype(self):
+        """The grid tables' type in the encodes: bf16 under the bf16 policy
+        (the reference's AMP runs its grid encoders in half precision too,
+        main.py:111-113), else None (the float32 tables as they are)."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
 
     @property
     def amb_levels(self) -> int:
@@ -203,7 +222,32 @@ class NeRFNetwork(nn.Module):
         if cfg.train_camera:
             self.camera_dR = nn.Parameter(torch.zeros(cfg.ind_num, 3))
             self.camera_dT = nn.Parameter(torch.zeros(cfg.ind_num, 3))
+        self._table_copies = {}  # name -> ((storage, version), bf16 copy)
         self.to(device)
+
+    def table_copy(self, name: str) -> torch.Tensor:
+        """The bf16 copy of grid table ``name``, made again only when the
+        parameter's storage or version (bumped by every in-place update:
+        optimizer steps, loads, the EMA swap) has changed."""
+        p = getattr(self, name)
+        key = (p.data_ptr(), p._version)
+        hit = self._table_copies.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, p.detach().to(torch.bfloat16))
+            self._table_copies[name] = hit
+        return hit[1]
+
+    def _encode(self, x, name: str, spec, bound: float):
+        """Grid encode of x through table ``name`` under the policy: float32
+        as it is; bf16 through the master table (cast in the encode) when a
+        gradient reaches the table, else through its cached copy."""
+        table = getattr(self, name)
+        if self.cfg.table_dtype is None:
+            return grid_encode(x, table, spec, bound)
+        if torch.is_grad_enabled() and table.requires_grad:
+            return grid_encode(x, table, spec, bound, table_dtype=torch.bfloat16)
+        return grid_encode(x, self.table_copy(name), spec, bound)
 
     def encode_audio(self, a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """[seq, audio_in_dim, 16] -> [1, audio_dim] (or [seq, audio_dim]
@@ -220,22 +264,24 @@ class NeRFNetwork(nn.Module):
 
     def spatial_and_ambient(self, x, enc_a):
         """Shared trunk: (enc_x, enc_w, ambient) for positions x [..., 3]."""
-        cfg = self.cfg
-        enc_x = grid_encode(x, self.encoder, cfg.grid_spec, cfg.bound)
+        cfg, dt = self.cfg, self.cfg.dtype
+        enc_x = self._encode(x, "encoder", cfg.grid_spec, cfg.bound)
         if enc_a is None:
             ambient = x.new_zeros((*x.shape[:-1], cfg.ambient_dim))
         else:
             a = enc_a.expand(*x.shape[:-1], enc_a.shape[-1])
-            ambient = torch.tanh(self.ambient_net(torch.cat([enc_x, a], dim=-1)))
-        enc_w = grid_encode(ambient, self.encoder_ambient, cfg.ambient_spec, 1.0)
+            h = torch.cat([enc_x.to(dt), a.to(dt)], dim=-1)
+            ambient = torch.tanh(self.ambient_net(h, dt).float())
+        enc_w = self._encode(ambient, "encoder_ambient", cfg.ambient_spec, 1.0)
         return enc_x, enc_w, ambient
 
     def _sigma_head(self, enc_x, enc_w, e, batch):
         """(sigma [...], geo_feat [..., geo_feat_dim]) from the encodes."""
-        parts = [enc_x, enc_w]
+        dt = self.cfg.dtype
+        parts = [enc_x.to(dt), enc_w.to(dt)]
         if e is not None:
-            parts.append(e.reshape(-1)[-1].expand(*batch, 1))
-        h = self.sigma_net(torch.cat(parts, dim=-1))
+            parts.append(e.reshape(-1)[-1].expand(*batch, 1).to(dt))
+        h = self.sigma_net(torch.cat(parts, dim=-1), dt)
         return trunc_exp(h[..., 0]), h[..., 1:]
 
     def field_forward(self, x, d, enc_a, c=None, e=None):
@@ -248,13 +294,13 @@ class NeRFNetwork(nn.Module):
 
         Returns (sigma [...], color [..., 3], ambient [..., amb_dim]).
         """
-        batch = x.shape[:-1]
+        batch, dt = x.shape[:-1], self.cfg.dtype
         enc_x, enc_w, ambient = self.spatial_and_ambient(x, enc_a)
         sigma, geo_feat = self._sigma_head(enc_x, enc_w, e, batch)
-        parts = [sh_encode(d, degree=4), geo_feat]
+        parts = [sh_encode(d, degree=4).to(dt), geo_feat]
         if c is not None:
-            parts.append(c.expand(*batch, c.shape[-1]))
-        color = torch.sigmoid(self.color_net(torch.cat(parts, dim=-1)))
+            parts.append(c.expand(*batch, c.shape[-1]).to(dt))
+        color = torch.sigmoid(self.color_net(torch.cat(parts, dim=-1), dt).float())
         return sigma, color, ambient
 
     def field_density(self, x, enc_a, e=None):
@@ -273,7 +319,7 @@ class NeRFNetwork(nn.Module):
 
         Returns (alpha [..., 1], color [..., 3], dx [..., 2]).
         """
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.cfg.dtype
         batch = x.shape[:-1]
         x = x * cfg.torso_shrink
         enc_pose = freq_encode(pose6, 4)  # [1, 54]
@@ -281,8 +327,8 @@ class NeRFNetwork(nn.Module):
         if c is not None:
             parts.append(c.expand(*batch, c.shape[-1]))
         h = torch.cat(parts, dim=-1)
-        dx = self.torso_deform_net(h)
+        dx = self.torso_deform_net(h.to(dt), dt).float()
         xp = torch.clamp(x + dx, -1.0, 1.0)
-        enc_t = grid_encode(xp, self.torso_encoder, cfg.torso_spec, 1.0)
-        h2 = self.torso_net(torch.cat([enc_t, h], dim=-1))
+        enc_t = self._encode(xp, "torso_encoder", cfg.torso_spec, 1.0)
+        h2 = self.torso_net(torch.cat([enc_t.to(dt), h.to(dt)], dim=-1), dt).float()
         return torch.sigmoid(h2[..., :1]), torch.sigmoid(h2[..., 1:]), dx

@@ -11,8 +11,12 @@ so the static capacities of the JAX config (``sample_capacity_mult``,
 result equals the JAX one at exhaustive capacities. ``march_iters`` (K) and
 ``sample_slots`` (S) truncate the march and are honoured.
 
-The march (kernel B), the three grid encodes (kernel A) and the compositor
-(kernel C) run as hand-written CUDA kernels on the card. With
+The march (kernel B), the three grid encodes (kernel A, or its bf16 variant
+under the bf16 policy) and the compositor (kernel C) run as hand-written
+CUDA kernels on the card. Under the bf16 policy the field's outputs come
+back to the [N, S] lattice through bf16, as the JAX compacted return trip
+carries them (``renderer.py:370-371``), and the density-grid upkeep queries
+the bf16 field. With
 ``training=True`` the march takes the perturbation ``noises`` and autograd
 runs through the grid encodes and the compositor into kernels A' and C'
 (the head stage), or through the torso's grid encode alone into A' (the
@@ -288,6 +292,8 @@ def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye
     xyz = march["xyz"].reshape(-1, 3)[idx]
     dirs = rays_d[idx // S]
     sig_c, col_c, amb_c = net.field_forward(xyz, dirs, enc_a, ind_code, eye)
+    if net.cfg.compute_dtype == "bfloat16":
+        sig_c, col_c, amb_c = (v.to(torch.bfloat16).float() for v in (sig_c, col_c, amb_c))
     sigma = sig_c.new_zeros(N * S).index_copy_(0, idx, sig_c)
     color = col_c.new_zeros(N * S, 3).index_copy_(0, idx, col_c)
     amb = amb_c.new_zeros(N * S, amb_c.shape[-1]).index_copy_(0, idx, amb_c)
@@ -322,13 +328,18 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
     """
     if rays_o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on; the float32 render needs them off")
+    if rays_o.is_cuda and net.cfg.compute_dtype == "bfloat16" and \
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        # cuBLAS would then sum split-K partials in bf16, which JAX does not
+        raise RuntimeError("bf16 reduced-precision GEMM reductions are on; the bf16 "
+                           "render needs them off")
     if not training:
         with torch.no_grad():
             return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye,
                            0, bg_color, noises, False)
     if net.cfg.train_camera:
-        raise NotImplementedError("training camera offsets needs a backward through "
-                                  "kernel B; not ported")
+        raise NotImplementedError("training camera offsets is not ported "
+                                  "(ROADMAP queue 1 item 4)")
     return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                    bg_color, noises, True)
 

@@ -11,6 +11,11 @@ elementwise ops round it, so the kernels and their plain twins land every
 sample in the same cell (an FMA moves ``floor(x*scale+0.5)`` and
 ``o + t*d`` across cell boundaries). ``--use_fast_math`` is never used.
 
+A source may hold several kernels, each with its own ``Kernel`` (its own
+C entry points and launch count) over one library: kernel A and its bf16
+variant are both in ``grid_encode.cu``, A' and A'-bf16 in
+``grid_encode_backward.cu``.
+
 Libraries go into ``build/kernels/`` at the repository root (git-ignored),
 named by a hash of the source, every header in ``csrc/`` (``*.cuh``) and
 the flags, so an edited source or header rebuilds and an unchanged one
@@ -58,9 +63,9 @@ class Kernel:
     nowhere else, so a caller can show that a code path went through it.
     """
 
-    def __init__(self, name: str, entry_points: dict):
+    def __init__(self, name: str, entry_points: dict, source: str = ""):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.entry_points = entry_points  # C function -> ctypes argtypes
         self.launches = 0
         self.build_log = ""
@@ -71,7 +76,7 @@ class Kernel:
         for path in [self.source, *sorted(self.source.parent.glob("*.cuh"))]:
             h.update(path.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start ``nvcc`` for this source unless its library exists; returns
@@ -134,6 +139,13 @@ KERNELS = {
         # L, bound, two_bound, stream
         "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
     }),
+    # the bf16 policy's variants: bf16 table (and output, and grad_out)
+    "grid_encode_bf16": Kernel("grid_encode_bf16", {
+        "grid_encode_fwd_bf16": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+    }, source="grid_encode"),
+    "grid_encode_backward_bf16": Kernel("grid_encode_backward_bf16", {
+        "grid_encode_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+    }, source="grid_encode_backward"),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,
         # t, dt, valid, xyz, count, N, K, S, H, bound, mip_bound, dt_step,
@@ -161,15 +173,18 @@ KERNELS = {
 
 
 def build_all() -> dict:
-    """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together; load them all. Returns name -> nvcc log."""
-    running = {name: k.start_build() for name, k in KERNELS.items()}
-    for name, proc in running.items():
+    """Compile every library that is missing, one ``nvcc`` per source, all
+    started together; load every kernel. Returns source name -> nvcc log."""
+    by_source = {}
+    for k in KERNELS.values():
+        by_source.setdefault(k.source.stem, k)
+    running = {stem: k.start_build() for stem, k in by_source.items()}
+    for stem, proc in running.items():
         if proc is not None:
-            KERNELS[name].finish_build(proc)
+            by_source[stem].finish_build(proc)
     for k in KERNELS.values():
         k._load()
-    return {name: k.build_log for name, k in KERNELS.items()}
+    return {stem: k.build_log for stem, k in by_source.items()}
 
 
 def reset_launches():

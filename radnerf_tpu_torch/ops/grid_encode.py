@@ -9,6 +9,24 @@ arithmetic in the same order. Its gradient on the card is kernel A'
 (``csrc/grid_encode_backward.cu``, ``grid_encode_backward``); on the CPU
 autograd runs through the twin's plain ops.
 
+Under the bf16 policy (``-O``, ``table_dtype=torch.bfloat16``) the encode
+follows ``build_packed_table(dtype=bfloat16)`` + ``grid_encode01_packed``:
+the table's values are rounded to bf16, each corner weight comes from the
+float32 position and is rounded to bf16, each weight x corner product is
+rounded to bf16, the products are summed in float32 in corner order and
+the sum is rounded to bf16 once; a point outside the box encodes to 0. That
+is where XLA:CPU rounds when JAX runs the function op by op (``jnp.sum``
+upcasts bf16 to float32); under ``jit`` XLA keeps the products in float32,
+which moves a third of the outputs by one bf16 ulp. Kernel A's bf16 variant
+(``grid_encode_fwd_bf16``, its own launch count ``grid_encode_bf16``) and
+the plain twin ``grid_encode_plain(..., table_dtype=torch.bfloat16)`` round
+at the same places. The gradient (kernel A'-bf16, ``grid_encode_bwd_bf16``;
+twin ``grid_encode_backward_plain``) takes the bf16 upstream gradient and
+returns float32 gradients: the table's summed with float32 atomics (JAX
+scatter-adds bf16 products into a bf16 table, which the port deliberately
+does not: its sum is the more exact one), x's through the bf16 weights as
+if their rounding were the identity (autodiff's view of a cast).
+
 Only tiled grids with linear interpolation and ``align_corners=False`` --
 the shapes every RAD-NeRF encoder uses -- are supported; anything else
 raises.
@@ -131,38 +149,78 @@ def _corner_index(spec: GridSpec, level: int, corner_grid: torch.Tensor) -> torc
     return index % size
 
 
+def _is_bf16(embeddings: torch.Tensor, table_dtype) -> bool:
+    if table_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"table_dtype {table_dtype}: float32 or bfloat16 tables only")
+    return table_dtype == torch.bfloat16 or embeddings.dtype == torch.bfloat16
+
+
+def _bf16_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bf16 (ties to even), as float32."""
+    return v.to(torch.bfloat16).float()
+
+
+def _level_corners(x01: torch.Tensor, spec: GridSpec, level: int):
+    """Per corner of each point's cell at ``level``: (table row, float32
+    weight w_0 * ... * w_{D-1} in dim order), and the fractions."""
+    D = spec.input_dim
+    pos = x01 * spec.level_scale(level) + 0.5
+    pos_grid = torch.floor(pos)
+    frac = pos - pos_grid
+    pg = pos_grid.to(torch.int64)
+    corners = []
+    for corner in range(1 << D):
+        bits = [(corner >> d) & 1 for d in range(D)]
+        w = None
+        for d, bit in enumerate(bits):
+            f = frac[..., d] if bit else (1.0 - frac[..., d])
+            w = f if w is None else w * f
+        cg = pg + torch.tensor(bits, dtype=torch.int64, device=x01.device)
+        corners.append((_corner_index(spec, level, cg) + spec.offsets[level], w))
+    return corners, frac
+
+
+def _grid_encode_plain_bf16(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
+                            bound: float) -> torch.Tensor:
+    """The bf16 policy's encode (module docstring): bf16 [..., L*C]."""
+    x01 = (x.float() + bound) / (2.0 * bound)
+    oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
+    table = embeddings.to(torch.bfloat16).float()
+    outs = []
+    for level in range(spec.num_levels):
+        out = None
+        for rows, w in _level_corners(x01, spec, level)[0]:
+            term = _bf16_round(_bf16_round(w)[..., None] * table[rows])
+            out = term if out is None else out + term
+        outs.append(out)
+    out = torch.where(oob, 0.0, torch.cat(outs, dim=-1))
+    return out.to(torch.bfloat16)
+
+
 def grid_encode_plain(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                      bound: float = 1.0) -> torch.Tensor:
+                      bound: float = 1.0, table_dtype=None) -> torch.Tensor:
     """Plain PyTorch grid encoder: points in [-bound, bound] [..., D] ->
     features [..., L*C], level-major; points outside the box encode to 0.
 
     The arithmetic follows ``radnerf_tpu`` ``grid_encode01`` step for step:
-    ``pos = x01*scale + 0.5``, corner weight ``inb * w_0 * ... * w_{D-1}``,
-    corners summed in order 0..2^D-1.
+    ``pos = x01*scale + 0.5``, corner weight ``inb * (w_0 * ... * w_{D-1})``
+    (inb is 0 or 1, so the grouping rounds nothing), corners summed in order
+    0..2^D-1. With ``table_dtype=torch.bfloat16`` (or a bf16 table) it is
+    the bf16 policy's encode of the module docstring, with a bf16 result.
     """
     spec.check_supported()
-    D = spec.input_dim
-    if x.shape[-1] != D:
-        raise ValueError(f"expected last dim {D}, got {tuple(x.shape)}")
+    if x.shape[-1] != spec.input_dim:
+        raise ValueError(f"expected last dim {spec.input_dim}, got {tuple(x.shape)}")
+    if _is_bf16(embeddings, table_dtype):
+        return _grid_encode_plain_bf16(x, embeddings, spec, bound)
     x01 = (x.float() + bound) / (2.0 * bound)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
     inb = 1.0 - oob.float()
-    offs = spec.offsets
     outs = []
     for level in range(spec.num_levels):
-        pos = x01 * spec.level_scale(level) + 0.5
-        pos_grid = torch.floor(pos)
-        frac = pos - pos_grid
-        pg = pos_grid.to(torch.int64)
         out = None
-        for corner in range(1 << D):
-            w = inb
-            bits = [(corner >> d) & 1 for d in range(D)]
-            for d, bit in enumerate(bits):
-                w = w * (frac[..., d] if bit else (1.0 - frac[..., d]))
-            cg = pg + torch.tensor(bits, dtype=torch.int64, device=x.device)
-            rows = _corner_index(spec, level, cg) + offs[level]
-            contrib = w[..., None] * embeddings[rows]
+        for rows, w in _level_corners(x01, spec, level)[0]:
+            contrib = (inb * w)[..., None] * embeddings[rows]
             out = contrib if out is None else out + contrib
         outs.append(out)
     return torch.cat(outs, dim=-1)
@@ -186,41 +244,97 @@ def _level_tables(spec: GridSpec, device: torch.device):
     return _LEVEL_TABLES[key]
 
 
-def _check_kernel_args(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec):
+def _check_kernel_args(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
+    """Raise unless kernels A / A' take these points and this table: D in
+    (2, 3), 2 channels, at most 32 levels, float32 points, a float32 table
+    (aligned to 16 bytes) or a bf16 one (aligned to 8)."""
     spec.check_supported()
     D, C = spec.input_dim, spec.level_dim
     if x.shape[-1] != D or D not in (2, 3):
         raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)}")
     if C != 2 or spec.num_levels > 32:
         raise ValueError(f"kernels A and A' take 2 channels and at most 32 levels, got {spec}")
-    if embeddings.shape != (spec.n_embeddings, C):
-        raise ValueError(f"embeddings {tuple(embeddings.shape)} do not fit {spec}")
-    if x.dtype != torch.float32 or embeddings.dtype != torch.float32:
-        raise ValueError("kernel A takes float32 points and tables")
-    if embeddings.data_ptr() % 16:  # the kernels read and add row pairs as 16 B
-        raise ValueError("kernels A and A' take a table aligned to 16 bytes")
+    if table.shape != (spec.n_embeddings, C):
+        raise ValueError(f"embeddings {tuple(table.shape)} do not fit {spec}")
+    if x.dtype != torch.float32 or table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("kernel A takes float32 points and a float32 or bf16 table")
+    # the kernels read (and A' adds) two adjacent rows at once: 16 B of
+    # float32, 8 B of bf16
+    if table.data_ptr() % (2 * C * table.element_size()):
+        raise ValueError("kernels A and A' take a table aligned to a row pair")
 
 
-def _grid_encode_kernel(x, embeddings, spec: GridSpec, bound: float) -> torch.Tensor:
-    """Kernel A: the forward encode of contiguous CUDA float32 points."""
+def _grid_encode_kernel(x, table, spec: GridSpec, bound: float) -> torch.Tensor:
+    """Kernel A: the forward encode of contiguous CUDA float32 points; on a
+    bf16 table its bf16 variant, with a bf16 result."""
+    _check_kernel_args(x, table, spec)
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    require_cuda_tensors(x, embeddings)
+    require_cuda_tensors(x, table)
     N = x.numel() // D
-    out = torch.empty((*x.shape[:-1], L * C), dtype=torch.float32, device=x.device)
+    out = torch.empty((*x.shape[:-1], L * C), dtype=table.dtype, device=x.device)
     if N == 0:
         return out
     scales, params = _level_tables(spec, x.device)
-    KERNELS["grid_encode"].launch(
-        "grid_encode_fwd", x.device, x.data_ptr(), embeddings.data_ptr(),
-        scales.data_ptr(), params.data_ptr(), out.data_ptr(), N, D, L,
-        float(bound), float(np.float32(2.0 * bound)))
+    name, fn = (("grid_encode_bf16", "grid_encode_fwd_bf16") if table.dtype == torch.bfloat16
+                else ("grid_encode", "grid_encode_fwd"))
+    KERNELS[name].launch(
+        fn, x.device, x.data_ptr(), table.data_ptr(), scales.data_ptr(), params.data_ptr(),
+        out.data_ptr(), N, D, L, float(bound), float(np.float32(2.0 * bound)))
     return out
 
 
+def _grid_encode_backward_plain_bf16(x, table, grad_out, spec: GridSpec, bound: float,
+                                     need_x: bool):
+    """Kernel A'-bf16's arithmetic in kernel order: per (point, level) and
+    corner the table gradient ``bf16(w) * g`` (exact in float32) added into
+    the corner's row, and for x the dot of g with the bf16 row times the
+    weight's derivative (float32 fractions), summed over the corners, scaled
+    by ``scale / (2 * bound)``, summed over the levels in order."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    x01 = (x.float() + bound) / (2.0 * bound)
+    live = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
+    tb = table.to(torch.bfloat16).float()
+    g = grad_out.float().reshape(*x.shape[:-1], L, C)
+    g_table = torch.zeros((spec.n_embeddings, C), dtype=torch.float32, device=x.device)
+    two_bound = float(np.float32(2.0 * bound))
+    g_x = None
+    for level in range(L):
+        corners, frac = _level_corners(x01, spec, level)
+        gl = g[..., level, :]
+        gpos = [torch.zeros_like(frac[..., 0]) for _ in range(D)]
+        for corner, (rows, w) in enumerate(corners):
+            g_table.index_add_(0, rows[live], (_bf16_round(w)[..., None] * gl)[live])
+            if not need_x:
+                continue
+            e = tb[rows]
+            dot = gl[..., 0] * e[..., 0]
+            for ch in range(1, C):
+                dot = dot + gl[..., ch] * e[..., ch]
+            for d in range(D):
+                dw = None
+                for e_ in range(D):
+                    if e_ == d:
+                        continue
+                    f = frac[..., e_] if (corner >> e_) & 1 else (1.0 - frac[..., e_])
+                    dw = f if dw is None else dw * f
+                if not (corner >> d) & 1:
+                    dw = -dw
+                gpos[d] = gpos[d] + dot * dw
+        if need_x:
+            xg = torch.stack(gpos, dim=-1) * spec.level_scale(level) / two_bound
+            xg = torch.where(live[..., None], xg, 0.0)
+            g_x = xg if g_x is None else g_x + xg
+    return g_table, g_x
+
+
 def grid_encode_backward_plain(x, embeddings, grad_out, spec: GridSpec, bound: float = 1.0,
-                               need_x: bool = True):
+                               need_x: bool = True, table_dtype=None):
     """Plain version of ``grid_encode_backward``: autograd through
-    ``grid_encode_plain``. Returns (grad_table, grad_x or None)."""
+    ``grid_encode_plain``; under the bf16 policy (a bf16 table, or
+    ``table_dtype=torch.bfloat16``) kernel A'-bf16's arithmetic. Returns
+    (grad_table float32, grad_x or None)."""
+    if _is_bf16(embeddings, table_dtype):
+        return _grid_encode_backward_plain_bf16(x, embeddings, grad_out, spec, bound, need_x)
     x = x.detach().requires_grad_(need_x)
     emb = embeddings.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -230,35 +344,44 @@ def grid_encode_backward_plain(x, embeddings, grad_out, spec: GridSpec, bound: f
 
 
 def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float = 1.0,
-                         need_table: bool = True, need_x: bool = True):
+                         need_table: bool = True, need_x: bool = True, table_dtype=None):
     """Gradients of ``grid_encode`` (the semantics of JAX's autodiff of
     ``grid_encode01``): the table gradient is the scatter-add of
     ``w_corner * grad_out`` into each corner row; the gradient for x flows
     through ``frac`` only, ``d pos / d x = scale_l / (2 * bound)``; points
     outside the box get zero for both. Kernel A' on CUDA tensors, the plain
-    version on CPU tensors.
+    version on CPU tensors. Under the bf16 policy (a bf16 table, or
+    ``table_dtype=torch.bfloat16`` with the float32 master) grad_out is the
+    bf16 upstream gradient, the weights are rounded to bf16 as in the
+    forward, and kernel A'-bf16 runs.
 
-    Returns (grad_table [n_embeddings, C] or None, grad_x [..., D] or None).
+    Returns (grad_table [n_embeddings, C] float32 or None, grad_x [..., D]
+    float32 or None).
     """
+    bf16 = _is_bf16(embeddings, table_dtype)
     if x.device.type == "cpu":
         g_table, g_x = grid_encode_backward_plain(x, embeddings, grad_out, spec, bound,
-                                                  need_x)
+                                                  need_x, table_dtype)
         return (g_table if need_table else None), g_x
-    _check_kernel_args(x, embeddings, spec)
+    table = embeddings.to(torch.bfloat16) if bf16 else embeddings
+    _check_kernel_args(x, table, spec)
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    if grad_out.shape != (*x.shape[:-1], L * C) or grad_out.dtype != torch.float32:
-        raise ValueError(f"grad_out {tuple(grad_out.shape)} does not fit points "
-                         f"{tuple(x.shape)} and {spec}")
+    if grad_out.shape != (*x.shape[:-1], L * C) or grad_out.dtype != table.dtype:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} does not fit "
+                         f"points {tuple(x.shape)}, a {table.dtype} table and {spec}")
     x, grad_out = x.contiguous(), grad_out.contiguous()
-    require_cuda_tensors(x, embeddings, grad_out)
+    require_cuda_tensors(x, table, grad_out)
     # the kernel stores every element of grad_x; grad_table takes atomic adds
-    g_table = torch.zeros_like(embeddings) if need_table else None
+    g_table = (torch.zeros((spec.n_embeddings, C), dtype=torch.float32, device=x.device)
+               if need_table else None)
     g_x = torch.empty_like(x) if need_x else None
     N = x.numel() // D
     if N > 0 and (need_table or need_x):
         scales, params = _level_tables(spec, x.device)
-        KERNELS["grid_encode_backward"].launch(
-            "grid_encode_bwd", x.device, x.data_ptr(), embeddings.data_ptr(),
+        name, fn = (("grid_encode_backward_bf16", "grid_encode_bwd_bf16") if bf16
+                    else ("grid_encode_backward", "grid_encode_bwd"))
+        KERNELS[name].launch(
+            fn, x.device, x.data_ptr(), table.data_ptr(),
             grad_out.data_ptr(), scales.data_ptr(), params.data_ptr(),
             g_table.data_ptr() if need_table else None,
             g_x.data_ptr() if need_x else None, N, D, L,
@@ -267,37 +390,55 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
 
 
 class _GridEncode(torch.autograd.Function):
-    """Kernel A forward, kernel A' backward."""
+    """Kernel A forward, kernel A' backward. Under the bf16 policy
+    (``bf16``) the forward casts a float32 master table to a bf16 copy (a
+    train step's encode re-casts it, as the JAX step re-packs its tables)
+    and the backward returns the master's float32 gradient; on CPU tensors
+    (the bf16 policy only: the float32 encode's CPU autograd runs through the
+    plain ops) both run their plain versions."""
 
     @staticmethod
-    def forward(ctx, x, embeddings, spec, bound):
-        ctx.save_for_backward(x, embeddings)
+    def forward(ctx, x, embeddings, spec, bound, bf16):
+        table = embeddings.to(torch.bfloat16) if bf16 else embeddings
+        ctx.save_for_backward(x, table)
         ctx.spec, ctx.bound = spec, bound
-        return _grid_encode_kernel(x, embeddings, spec, bound)
+        if x.device.type == "cpu":
+            return _grid_encode_plain_bf16(x, table, spec, bound)
+        return _grid_encode_kernel(x, table, spec, bound)
 
     @staticmethod
     def backward(ctx, grad_out):
-        x, embeddings = ctx.saved_tensors
+        x, table = ctx.saved_tensors
         g_table, g_x = grid_encode_backward(
-            x, embeddings, grad_out, ctx.spec, ctx.bound,
+            x, table, grad_out, ctx.spec, ctx.bound,
             need_table=ctx.needs_input_grad[1], need_x=ctx.needs_input_grad[0])
-        return g_x, g_table, None, None
+        return g_x, g_table, None, None, None
 
 
 def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                bound: float = 1.0) -> torch.Tensor:
+                bound: float = 1.0, table_dtype=None) -> torch.Tensor:
     """Encode points in [-bound, bound]: kernel A on CUDA tensors, the plain
     twin on CPU tensors. x [..., D] float32, embeddings [n_embeddings, C]
     float32 -> [..., L*C] float32.
 
-    On CUDA tensors, when autograd wants a gradient for x or the table, the
-    encode goes through a ``torch.autograd.Function`` whose backward is
-    kernel A' (``grid_encode_backward``); the gradient for x is computed only
+    Under the bf16 policy (``table_dtype=torch.bfloat16`` with the float32
+    master table, or a bf16 table) the result is bf16 and the kernel is
+    A's bf16 variant.
+
+    When autograd wants a gradient for x or the table, the encode goes
+    through a ``torch.autograd.Function`` whose backward is kernel A'
+    (``grid_encode_backward``) on CUDA tensors (and, under the bf16 policy,
+    its plain version on CPU tensors); the gradient for x is computed only
     when x requires it."""
+    bf16 = _is_bf16(embeddings, table_dtype)
+    wants_grad = torch.is_grad_enabled() and (x.requires_grad or embeddings.requires_grad)
     if x.device.type == "cpu":
-        return grid_encode_plain(x, embeddings, spec, bound)
-    _check_kernel_args(x, embeddings, spec)
+        if bf16 and wants_grad:
+            return _GridEncode.apply(x, embeddings, spec, bound, True)
+        return grid_encode_plain(x, embeddings, spec, bound, table_dtype)
     x = x.contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or embeddings.requires_grad):
-        return _GridEncode.apply(x, embeddings, spec, bound)
+    if wants_grad:
+        return _GridEncode.apply(x, embeddings, spec, bound, bf16)
+    if bf16:
+        embeddings = embeddings.to(torch.bfloat16)
     return _grid_encode_kernel(x, embeddings, spec, bound)

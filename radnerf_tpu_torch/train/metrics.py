@@ -117,10 +117,14 @@ class LPIPS(nn.Module):
         """[B, H, W, 3] in [0, 1] -> the 5 ReLU taps [B, c, h, w]."""
         x = ((2.0 * x - 1.0).permute(0, 3, 1, 2) - self.shift) / self.scale
         feats = []
-        for w, b, (_, _, stride, pad, pool) in zip(self.weights, self.biases, _ALEX_CFG):
+        for i, (w, b, (_, _, stride, pad, pool)) in enumerate(
+                zip(self.weights, self.biases, _ALEX_CFG)):
             x = F.relu(F.conv2d(x, w, b, stride=stride, padding=pad))
             feats.append(x)
-            if pool:
+            # the pool after the last tap feeds nothing (and on a 32-px
+            # input would have no output: PyTorch raises where JAX returns
+            # an empty window)
+            if pool and i < len(_ALEX_CFG) - 1:
                 x = F.max_pool2d(x, 3, 2)
         return feats
 

@@ -6,7 +6,8 @@ A train step renders a batch of rays with ``render_rays(training=True)``
 (the perturbation noises from a ``torch.Generator`` on the device), takes
 the stage's loss, runs autograd back and steps a per-group Adam (betas
 0.9/0.99, eps 1e-15) whose learning rates decay as ``base_lr * 0.1 **
-(step / iters)``. The head stage's loss is ``head_loss``: autograd runs
+(step / iters)`` (``0.05 **`` for a trainer started in the lips finetune).
+The head stage's loss is ``head_loss``: autograd runs
 through the compositor (kernel C'), the MLPs and the grid encodes (kernel
 A'). The torso stage (``opt.torso``) starts from a head checkpoint
 (``freeze_loaded_head``), freezes every head parameter and fits the torso
@@ -37,10 +38,18 @@ The dataset is the port's ``TalkingHeadDataset`` (batches on the device), or
 any object with ``collate(i)``, ``epoch_indices()``, ``poses`` [B, 4, 4],
 ``intrinsics`` (fx, fy, cx, cy), ``auds`` (per-frame features or None) and
 ``eye_area`` ([B, 1] or None), all numpy, whose batches are numpy or tensors;
-in the torso stage its batches carry ``bg_torso_color``. The LPIPS training
-term (lips finetune, patch training) is not ported and raises. There is no
-capacity adaptation: the port never drops work, so it has no static capacity
-to size.
+in the torso stage its batches carry ``bg_torso_color``.
+
+The lips finetune (``opt.finetune_lips``) and patch training
+(``opt.patch_size > 1``, at least 32) add an LPIPS-alex term
+(``metrics.LPIPS``, calibrated from ``opt.lpips_weights`` or on its seeded
+filters with a warning) to the head loss, per batch as JAX chooses it: a
+batch with a lips ``rect`` while ``opt.finetune_lips`` is on is one image of
+the rect at weight 0.01; else, with patches, p x p images at 0.001. The
+lips finetune flips ``opt.finetune_lips`` after every step, and the dataset
+that shares the same ``Options`` object alternates rect and full batches
+with it. There is no capacity adaptation: the port never drops work, so it
+has no static capacity to size.
 """
 
 from __future__ import annotations
@@ -79,15 +88,19 @@ from . import checkpoint as ckpt_lib
 from .losses import head_loss, torso_loss
 
 
-def build_optimizer(net: NeRFNetwork, opt: Options, step: int = 0):
-    """Per-group Adam with exponential LR decay (main.py:204, 216-219);
-    parameters of the 'frozen' group get ``requires_grad_(False)`` and no
-    place in it.
+def build_optimizer(net: NeRFNetwork, opt: Options, step: int = 0,
+                    decay_base: Optional[float] = None):
+    """Per-group Adam with exponential LR decay (main.py:204, 216-219):
+    ``base_lr * decay_base ** (step / iters)``, decay_base 0.05 in the lips
+    finetune and 0.1 otherwise unless given; parameters of the 'frozen'
+    group get ``requires_grad_(False)`` and no place in it.
 
     Returns (optimizer, scheduler), the schedule at ``step`` (a resumed
     run's count of updates). Step the scheduler after each optimizer step:
     the first update runs at the base rate, as optax's schedule (count 0 at
     the first update) does."""
+    if decay_base is None:
+        decay_base = 0.05 if opt.finetune_lips else 0.1
     group_lr = {"grid": opt.lr, "net": opt.lr_net, "att": opt.lr_net * 5, "camera": 1e-5}
     groups = param_groups(net.cfg)
     params = {}
@@ -103,7 +116,7 @@ def build_optimizer(net: NeRFNetwork, opt: Options, step: int = 0):
         betas=(0.9, 0.99), eps=1e-15)
     iters = opt.iters
     scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda s: 0.1 ** (s / iters), last_epoch=step - 1)
+        optimizer, lambda s: decay_base ** (s / iters), last_epoch=step - 1)
     return optimizer, scheduler
 
 
@@ -150,9 +163,11 @@ class Trainer:
                  ema_decay: Optional[float] = None, name: str = "ngp",
                  workspace: Optional[str] = None, max_keep_ckpt: int = 2,
                  use_checkpoint: str = "latest", metrics=(), eval_interval: int = 1):
-        if opt.finetune_lips or opt.patch_size > 1:
-            raise NotImplementedError("the LPIPS term (lips finetune, patch training) "
-                                      "is not ported")
+        if 1 < opt.patch_size < 32:
+            # alex-LPIPS needs >= 32 px: smaller inputs leave empty feature
+            # maps mid-stack
+            raise ValueError(f"patch_size={opt.patch_size}: patch-based perceptual training "
+                             "requires patch_size >= 32 (alex-LPIPS receptive field)")
         self.opt = opt
         self.name = name
         self.workspace = workspace
@@ -166,7 +181,23 @@ class Trainer:
                                generator=torch.Generator().manual_seed(opt.seed))
         self.state = RendererState.create(self.render_cfg, self.net_cfg.audio_dim,
                                           self.device)
-        self.optimizer, self.scheduler = build_optimizer(self.net, opt)
+        # the lips finetune's schedule and flip follow the options as given,
+        # whatever opt.finetune_lips reads after the flips
+        self.flip_finetune_lips = opt.finetune_lips
+        self.decay_base = 0.05 if opt.finetune_lips else 0.1
+        self.optimizer, self.scheduler = self._optimizer()
+        self.lpips = None
+        if opt.finetune_lips or opt.patch_size > 1:
+            from .metrics import LPIPS
+
+            self.lpips = LPIPS(device=self.device)
+            if opt.lpips_weights:
+                self.lpips.load_weights_file(opt.lpips_weights)
+                self.log(f"[INFO] LPIPS calibrated from {opt.lpips_weights}")
+            else:
+                self.log("[WARN] perceptual loss is active (finetune_lips/patch) but no "
+                         "--lpips_weights given: LPIPS runs on UNCALIBRATED random filters "
+                         "and is NOT the reference's pretrained alex-LPIPS term.")
         self.noise_gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         self.grid_gen = torch.Generator(device=self.device).manual_seed(opt.seed + 1)
         self.ema_decay = ema_decay
@@ -176,10 +207,12 @@ class Trainer:
         self.global_step = 0
         # per-epoch mean losses, every step's loss, the grids' means after
         # each upkeep, the checkpoints of the rolling window, each
-        # evaluation's mean loss and result
+        # evaluation's mean loss and result, and with the LPIPS term each
+        # step's loss mode and (step, term)
         self.stats = {"loss": [], "step_loss": [], "mean_density": [],
                       "mean_density_torso": [], "checkpoints": [], "valid_loss": [],
-                      "results": []}
+                      "results": [], "loss_mode": [], "lpips_term": []}
+        self._lpips_terms = []  # device scalars of the epoch running
         self.telemetry = {}
         self._cap_restored = False
         if workspace:
@@ -188,6 +221,9 @@ class Trainer:
     @staticmethod
     def log(*args):
         print(*args, flush=True)
+
+    def _optimizer(self, step: int = 0):
+        return build_optimizer(self.net, self.opt, step, self.decay_base)
 
     # ----------------------------------------------------------- batches
     def to_device(self, batch: dict) -> dict:
@@ -219,20 +255,42 @@ class Trainer:
                            batch["poses"], batch.get("eye"), batch["index"],
                            batch["bg_color"], noises=noises, training=True)
 
+    def loss_mode(self, batch: dict) -> str:
+        """The head loss's LPIPS mode for a batch (JAX trainer.py:553-563):
+        "rect" when the lips finetune is on and the batch is a lips rect,
+        else "patch" with patches, else "none"."""
+        if self.opt.torso or self.lpips is None:
+            return "none"
+        if self.opt.finetune_lips and batch.get("rect") is not None:
+            return "rect"
+        return "patch" if self.opt.patch_size > 1 else "none"
+
     def loss(self, batch: dict, noises: Optional[torch.Tensor], global_step: int,
-             state: Optional[RendererState] = None):
+             state: Optional[RendererState] = None, parts: Optional[dict] = None):
         """(loss, results, state after the render) of the stage on a device
         batch: the torso stage fits ``bg_torso_color``, the head stage
-        ``images`` (both linearised with ``color_space == "linear"``)."""
+        ``images`` (both linearised with ``color_space == "linear"``), with
+        the LPIPS term of ``loss_mode``; ``parts`` receives the mode as
+        "mode" and that term as "lpips"."""
         results, state = self.render(batch, noises, state)
         gt = batch["bg_torso_color"] if self.opt.torso else batch["images"]
         if self.opt.color_space == "linear":
             gt = srgb_to_linear(gt)
         if self.opt.torso:
-            loss = torso_loss(results, gt)
-        else:
-            loss = head_loss(results, gt, batch["face_mask"], global_step, self.opt.iters,
-                             self.opt.lambda_amb)
+            return torso_loss(results, gt), results, state
+        mode = self.loss_mode(batch)
+        if parts is not None:
+            parts["mode"] = mode
+        shape = None
+        if mode == "rect":
+            xmin, xmax, ymin, ymax = batch["rect"]
+            shape = (xmax - xmin, ymax - ymin)
+        elif mode == "patch":
+            shape = (self.opt.patch_size, self.opt.patch_size)
+        loss = head_loss(results, gt, batch["face_mask"], global_step, self.opt.iters,
+                         self.opt.lambda_amb, lpips=self.lpips if shape else None,
+                         lpips_shape=shape, lpips_weight=0.01 if mode == "rect" else 0.001,
+                         parts=parts)
         return loss, results, state
 
     def draw_noises(self, n: int) -> torch.Tensor:
@@ -243,14 +301,22 @@ class Trainer:
         """One optimisation step on a device batch at ``self.global_step``
         (already counted); returns the loss (a device scalar, no sync), keeps
         the state the render leaves and the step's telemetry (the results'
-        ``n_*`` counts) in ``self.telemetry``."""
+        ``n_*`` counts) in ``self.telemetry``. In the lips finetune it then
+        flips ``opt.finetune_lips`` (utils.py:769-770)."""
         noises = self.draw_noises(batch["rays_o"].shape[0])
-        loss, results, self.state = self.loss(batch, noises, self.global_step)
+        parts = {}
+        loss, results, self.state = self.loss(batch, noises, self.global_step, parts=parts)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         self.scheduler.step()
         self.telemetry = {k: v for k, v in results.items() if k.startswith("n_")}
+        if self.lpips is not None:
+            self.stats["loss_mode"].append(parts.get("mode", "none"))
+            if "lpips" in parts:
+                self._lpips_terms.append((self.global_step, parts["lpips"].detach()))
+        if self.flip_finetune_lips:
+            self.opt.finetune_lips = not self.opt.finetune_lips
         if self.ema_params is not None and \
                 self.global_step % self.opt.ema_update_interval == 0:
             d = self.ema_decay
@@ -328,6 +394,10 @@ class Trainer:
         t0 = time.perf_counter()
         losses = [self.step(dataset, idx) for idx in dataset.epoch_indices()]
         losses = torch.stack(losses).tolist() if losses else []
+        if self._lpips_terms:
+            steps, terms = zip(*self._lpips_terms)
+            self.stats["lpips_term"].extend(zip(steps, torch.stack(terms).tolist()))
+            self._lpips_terms = []
         self.stats["loss"].append(float(np.mean(losses)) if losses else 0.0)
         self.stats["step_loss"].extend(losses)
         self.log(f"==> Finished Epoch {self.epoch}: loss={self.stats['loss'][-1]:.6f}, "
@@ -520,7 +590,7 @@ class Trainer:
         the checkpoint lacks, or holds in another shape, starts afresh (the
         strict=False restore of utils.py:1406-1419)."""
         step = int(flat.get("scheduler_step", 0))
-        self.optimizer, self.scheduler = build_optimizer(self.net, self.opt, step)
+        self.optimizer, self.scheduler = self._optimizer(step)
         for name, p in self.net.named_parameters():
             saved = [flat.get(f"{name}/{k}") for k in ("step", "exp_avg", "exp_avg_sq")]
             if not p.requires_grad or any(v is None for v in saved) \
@@ -615,7 +685,7 @@ class Trainer:
             params, arrays, meta = ckpt_lib.import_torch_checkpoint(path)
             self._load_params(params)
             self._apply_state_arrays(arrays, meta)
-            self.optimizer, self.scheduler = build_optimizer(self.net, self.opt)
+            self.optimizer, self.scheduler = self._optimizer()
             return
         params, state, ema, opt_flat, meta = ckpt_lib.load_checkpoint(path)
         self._check_grid_shape(path, meta, params)
@@ -644,7 +714,7 @@ class Trainer:
         if opt_flat is not None and not model_only:
             self._restore_opt_state(opt_flat)
         else:
-            self.optimizer, self.scheduler = build_optimizer(self.net, self.opt)
+            self.optimizer, self.scheduler = self._optimizer()
 
     def _apply_state_arrays(self, arrays: dict, meta: dict):
         """The renderer state from a checkpoint's arrays (JAX

@@ -18,7 +18,8 @@ outputs where autograd multiplies through the transmittance chain; both
 are held to 1e-5 of the largest gradient of the tensor, a float32 sum in
 another order, and A''s table gradient, where one row may sum tens of
 thousands of terms, to max(1e-5, 4 sqrt(n_busiest) 2^-24). Kernel A is held
-bit for bit.
+bit for bit, and so is its bf16 variant A-bf16 (the same float32 products,
+rounded to bf16 at the same places); A'-bf16 is held as A'.
 """
 
 import math
@@ -256,6 +257,71 @@ def test_grid_encode_backward_kernel_matches_plain(dev, layout, input_dim):
     assert k.launches == before + 1
     assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
     assert T.grid_encode_backward(x, emb, g, spec, need_x=False)[1] is None
+
+
+@pytest.mark.parametrize("layout,input_dim", _LAYOUTS)
+def test_grid_encode_bf16_kernels_match_plain(dev, layout, input_dim):
+    """The bf16 policy's kernels: A-bf16 (the float32 master cast to a bf16
+    copy in the wrapper) bit for bit with its plain version, bf16 out, with
+    its own launch count; A'-bf16 from a bf16 grad_out to float32
+    gradients, the table's within max(1e-5, 4 sqrt(n_busiest) 2^-24) and
+    x's within 1e-5 of the plain version's largest value (float32 sums in
+    another order); autograd through the encode launches both and gives
+    the float32 master a float32 gradient."""
+    spec = T.GridSpec.create(input_dim=input_dim, desired_resolution=2048)
+    rng = np.random.default_rng(input_dim + 30)
+    emb = _t(rng.uniform(-4, 4, (spec.n_embeddings, 2)).astype(np.float32), dev)
+    x = _grid_points(layout, 50_000, input_dim, rng)
+    x[:2] = [-1.0] * input_dim, [1.0] * input_dim
+    x = _t(x, dev)
+    g = _t(rng.normal(size=(50_000, 32)).astype(np.float32), dev).to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    fwd = _kernels.KERNELS["grid_encode_bf16"]
+    bwd = _kernels.KERNELS["grid_encode_backward_bf16"]
+    before = (fwd.launches, _kernels.KERNELS["grid_encode"].launches)
+    got = T.grid_encode(x, emb, spec, table_dtype=bf16)
+    assert (fwd.launches, _kernels.KERNELS["grid_encode"].launches) == \
+        (before[0] + 1, before[1])
+    want = T.grid_encode_plain(x, emb, spec, table_dtype=bf16)
+    torch.cuda.synchronize()
+    assert got.dtype == bf16 and torch.equal(got, want)
+    assert torch.equal(T.grid_encode(x, emb.to(bf16), spec), want)
+
+    table_tol = max(1e-5, 4.0 * math.sqrt(_busiest_row(x, spec)) * 2.0**-24)
+    gt_p, gx_p = T.grid_encode_backward_plain(x, emb.to(bf16), g, spec)
+    before = bwd.launches
+    gt_k, gx_k = T.grid_encode_backward(x, emb.to(bf16), g, spec)
+    assert bwd.launches == before + 1
+    torch.cuda.synchronize()
+    assert gt_k.dtype == gx_k.dtype == torch.float32
+    assert _rel_err(gt_k, gt_p) <= table_tol and _rel_err(gx_k, gx_p) <= 1e-5
+    xr, er = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    out = T.grid_encode(xr, er, spec, table_dtype=bf16)
+    before = bwd.launches
+    (out.float() * g.float()).sum().backward()
+    assert bwd.launches == before + 1 and er.grad.dtype == torch.float32
+    assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
+
+
+def test_bf16_render_refuses_reduced_precision_gemm_sums(dev):
+    """Under the bf16 policy render_rays refuses cuBLAS's bf16 reduction of
+    split-K partials (PyTorch's default), which JAX does not do."""
+    from radnerf_tpu_torch.models import NeRFNetwork, NetworkConfig, RenderConfig, \
+        RendererState, render_rays
+
+    net = NeRFNetwork(NetworkConfig(compute_dtype="bfloat16", ind_num=4, grid_levels=2),
+                      device=dev)
+    rc = RenderConfig(grid_size=16)
+    st = RendererState.create(rc, device=dev)
+    z3, z = torch.zeros(4, 3, device=dev), torch.zeros(4, 2, device=dev)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        with pytest.raises(RuntimeError, match="reduced-precision"):
+            render_rays(net, rc, st, z3, z3, None, z, torch.zeros(1, 6, device=dev), None, 0,
+                        z3)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
 
 
 def composite_rows(layout, N, S, rng):

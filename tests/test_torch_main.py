@@ -76,15 +76,17 @@ def test_main_trains_evaluates_and_tests(small, data_dir, tmp_path):  # noqa: F8
 
 
 def test_entry_points_refuse_what_is_not_ported(small, data_dir, tmp_path):  # noqa: F811
-    """--gui and --asr name the queue item that ports them; -O reaches the
-    bf16 refusal; infer needs --pose and --aud; without ``device`` the
-    entry point asks for the card, and raises here."""
+    """--gui and --asr name the queue item that ports them, --train_camera
+    its own; infer needs --pose and --aud; without ``device`` the entry
+    point asks for the card, and raises here."""
     ws = str(tmp_path / "ws")
     for flag in ("--gui", "--asr"):
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             main(_args(data_dir, ws, flag), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        main(_args(data_dir, ws, "-O", "--iters", "4"), device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            infer.main(["--pose", "p.json", "--aud", "a.npy", flag], device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        main(_args(data_dir, ws, "-O", "--train_camera", "--iters", "4"), device="cpu")
     with pytest.raises(SystemExit):
         infer.main(["--pose", "p.json"], device="cpu")  # no --aud
     with pytest.raises(SystemExit):

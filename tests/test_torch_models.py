@@ -112,8 +112,20 @@ def test_forward_torso_matches_jax(imported):
 
 
 def test_bfloat16_policy_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        NetworkConfig(compute_dtype="bfloat16")
+    """The bf16 policy builds (a network of float32 master parameters, bf16
+    MLPs and tables); what is still not ported, training the camera
+    offsets, raises and names its ROADMAP item."""
+    from radnerf_tpu_torch.models import RendererState, render_rays
+
+    cfg = NetworkConfig(compute_dtype="bfloat16", ind_num=4, train_camera=True)
+    assert cfg.dtype == torch.bfloat16 and cfg.table_dtype == torch.bfloat16
+    net = NeRFNetwork(cfg, device="cpu")
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    rc = RenderConfig(grid_size=16)
+    z3, z = torch.zeros(4, 3), torch.zeros(4, 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        render_rays(net, rc, RendererState.create(rc, device="cpu"), z3, z3, None, z,
+                    torch.zeros(1, 6), None, 0, z3, training=True)
 
 
 def test_entry_points_default_to_cuda():

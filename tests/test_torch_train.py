@@ -312,20 +312,22 @@ def test_head_train_step_matches_jax(head_params):
 
 
 def test_render_rays_training_raises_for_unported_parts():
-    """Training camera offsets raise in render_rays, the LPIPS term (lips
-    finetune, patch training) in the Trainer; the torso stage trains."""
+    """Training camera offsets raise in render_rays, naming their ROADMAP
+    item; the lips finetune and patch training (the LPIPS term) build their
+    trainers, with the 0.05 decay in the lips finetune; the torso stage
+    trains."""
     cfg = NetworkConfig(exp_eye=True, ind_num=4, train_camera=True)
     net = NeRFNetwork(cfg, device="cpu")
     rc = RenderConfig(grid_size=16)
     st = RendererState.create(rc, device="cpu")
     z3, z = torch.zeros(4, 3), torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         render_rays(net, rc, st, z3, z3, None, z, torch.zeros(1, 6), None, 0, z3,
                     training=True)
     small = NetworkConfig(**SMALL)
-    for opt in (Options(finetune_lips=True), Options(patch_size=32)):
-        with pytest.raises(NotImplementedError, match="LPIPS"):
-            Trainer(opt, small, rc, device="cpu")
+    for opt, decay in ((Options(finetune_lips=True), 0.05), (Options(patch_size=32), 0.1)):
+        tr = Trainer(opt, small, rc, device="cpu")
+        assert tr.lpips is not None and tr.decay_base == decay
     assert Trainer(Options(torso=True), NetworkConfig(**SMALL, torso=True),
                    RenderConfig(grid_size=16, torso=True), device="cpu").opt.torso
 
