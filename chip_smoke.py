@@ -101,6 +101,31 @@ The dataset and the entry points, on the same directory:
      versions on one eval frame's own inputs (~4.2M samples, [262,144, 16]
      lattice), the eval frame fenced and profiled, ``test``'s FPS.
 
+The bf16 policy (``-O``): the frame and the head step beside their float32
+runs (bf16_frame, bf16_train), A-bf16 and A'-bf16 against their plain
+versions (bf16_kernel_checks), and the README's -O recipe through the CLIs
+(recipe: head, lips finetune, torso, --test, infer).
+
+Camera offsets, the live path, meshes (each path with the launch counts
+set to 0 just before and read just after):
+ camera: ``main -O --train_camera`` at full width, the offsets moved and
+     kept by the checkpoint; a float32 step with offsets beside the same
+     step without (fenced, profiled); the step through the kernels against
+     the plain versions (loss, the offsets' and the tables' gradients), B's
+     xyz against the positions formed again from its t, bit for bit;
+ live: what ``infer -O --torso --gui --asr`` serves, built by that entry
+     point (its ``serve`` captured) on the recipe's torso checkpoint, the
+     speech features streamed from a seeded wav through a seeded stand-in
+     acoustic model on the card: 30 playing frames fenced, the ASR's share,
+     a profile; A-bf16, B and C on a live frame against their plain
+     versions; progressive supersampling, a downscaled and a depth frame;
+     ``serve`` on a free port, two JPEG parts of its stream; the training
+     app of ``main -O --gui``: a 16-step ``train_gui`` burst;
+ mesh: ``Trainer.save_mesh`` at 256^3 on the camera run's checkpoint: A's
+     launches, the sweep, tetrahedra and PLY timed apart, A on a lattice
+     chunk and the card's tetrahedra on a 64^3 sub-field against their
+     plain and CPU results.
+
 Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
 calls as the host enqueues them (a kernel shorter than its wrapper's Python
 reads the host); ``device_ms`` times the same calls queued on the card.
@@ -185,6 +210,16 @@ TRAIN_SIZE = 512  # the targets' height and width
 DATASET_FRAMES, VAL_FRAMES, ENTRY_EPOCHS, INFER_FRAMES = 8, 4, 2, 6
 PROFILED_STEPS = 3
 GATHER_ROWS, GATHER_WIDTH, GATHER_TABLES = 2 * 1024 * 1024, 16, (4096, 65536)
+# the camera phase: -O steps through the CLI, float32 steps of each trainer
+# timed in turns; a whole step, kernels against plain versions: the loss (rel)
+# and each gradient (of its largest), the CPU step check's tolerances
+CAMERA_STEPS, CAMERA_TIMED_STEPS = 8, 10
+TOL_STEP_REL, TOL_STEP_GRAD = 1e-5, 1e-4
+# the live phase: its frames, their side, the wav's seconds
+LIVE_FRAMES, LIVE_SIZE, LIVE_SECONDS = 30, 512, 3.0
+# the mesh phase: save_mesh's defaults; the side of the sub-field the card's
+# tetrahedra are held to the CPU's on
+MESH_RESOLUTION, MESH_THRESHOLD, TETRA_CHECK = 256, 10.0, 64
 
 
 def emit(obj):
@@ -455,6 +490,7 @@ def main():
     )
     from radnerf_tpu_torch.scene import build_scene
 
+    start = time.perf_counter()
     report = {}
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
@@ -723,6 +759,17 @@ def main():
         for k in bf16_entries:
             k["launches"] = recipe_launches[k["name"]]
         kernels += bf16_entries
+        marks = [time.perf_counter()]
+        head_ckpt = camera_phase(report, out_dir, root)
+        marks.append(time.perf_counter())
+        live_phase(report, out_dir, root)
+        marks.append(time.perf_counter())
+        mesh_phase(report, out_dir, root, head_ckpt)
+        marks.append(time.perf_counter())
+        report["phase_seconds"] = {"since_start": marks[0] - start,
+                                   **{name: b - a for name, a, b in
+                                      zip(("camera", "live", "mesh"), marks, marks[1:])}}
+        emit({"phase": "phase_seconds", **report["phase_seconds"]})
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -952,8 +999,9 @@ def train_phases(report, out_dir, opt):
         call = {"ms": ms, "device_ms": dms, "bound_ms": bms, "bound_by": by, "bytes": nb,
                 "flops": nf, "n_points": n_s, "x_grad": need_x}
         if not name.endswith("_spread"):
+            # one timed call: the plain version takes seconds on these points
             call["plain_ms"] = cuda_ms(lambda: grid_encode_backward_plain(
-                x, emb, go, spec, bound, need_x=need_x), 3)
+                x, emb, go, spec, bound, need_x=need_x), 1)
             g["ms"] += ms
             g["device_ms"] += dms
             g["plain_ms"] += call["plain_ms"]
@@ -1555,17 +1603,25 @@ def entry_timing_phase(report, out_dir, tr, root):
                                       if k not in ("train_step_ms", "batch_prep_ms")}})
     for name, calls in checks.items():
         for c in calls:
-            if not (c["max_abs_err"] <= c["tol"] and c.get("rays_differing", 0) == 0
-                    and c.get("nonzero_unused_slot_values", 0) == 0):
+            if not c["ok"]:
                 raise RuntimeError(f"{name} differs from its twin in the eval frame: {c}")
 
 
 def eval_kernel_checks(tr, batch):
     """Kernels A, B and C against their plain versions on the inputs one
-    eval frame (``tr.eval_step(batch)``) gives them, at phase 4's
-    tolerances: the calls are recorded by wrappers around the model modules'
-    bindings, their tensors cloned as passed (the EMA is in the network only
-    while the frame renders)."""
+    eval frame (``tr.eval_step(batch)``) gives them (``frame_kernel_checks``)."""
+    return frame_kernel_checks(lambda: tr.eval_step(batch), {"grid_encode": 2, "march_rays": 1,
+                                                             "composite_rays": 1})
+
+
+def frame_kernel_checks(render, want_calls):
+    """The grid encodes (A, or A-bf16 under the bf16 policy), B and C
+    against their plain versions on the inputs one frame (``render()``)
+    gives them, at phase 4's tolerances (A-bf16 within 1 bf16 ulp, as in
+    bf16_kernel_checks): the calls are recorded by wrappers around the model
+    modules' bindings, their tensors cloned as passed (an EMA is in the
+    network only while the frame renders). ``want_calls``: the calls of each
+    the frame must make. Each result row carries ``ok``."""
     import radnerf_tpu_torch.models.network as network_mod
     import radnerf_tpu_torch.models.renderer as renderer_mod
     from radnerf_tpu_torch.ops import (
@@ -1575,19 +1631,26 @@ def eval_kernel_checks(tr, batch):
 
     with recorded_calls([(network_mod, "grid_encode"), (renderer_mod, "march_rays"),
                          (renderer_mod, "composite_rays")]) as calls:
-        tr.eval_step(batch)
+        render()
 
     out = {"grid_encode": [], "march_rays": [], "composite_rays": []}
     for name, args, kw in calls:
         if name == "grid_encode":
             gk, gp = grid_encode(*args, **kw), grid_encode_plain(*args, **kw)
-            out[name].append({"n_points": int(args[0].shape[0]), "D": int(args[0].shape[1]),
-                              "max_abs_err": float((gk - gp).abs().max()), "tol": TOL_GRID,
-                              "bit_for_bit": bool(torch.equal(gk, gp))})
+            row = {"n_points": int(args[0].shape[0]), "D": int(args[0].shape[1]),
+                   "dtype": str(gk.dtype).replace("torch.", ""),
+                   "max_abs_err": float((gk.float() - gp.float()).abs().max()),
+                   "bit_for_bit": bool(torch.equal(gk, gp))}
+            if gk.dtype == torch.bfloat16:
+                row["max_err_ulps"], row["elements_differing"] = bf16_ulp_err(gk, gp)
+                row["ok"] = row["max_err_ulps"] <= 1.0
+            else:
+                row["tol"] = TOL_GRID
+                row["ok"] = row["max_abs_err"] <= TOL_GRID
         elif name == "march_rays":
             mk, mp = march_rays(*args, **kw), march_rays_plain(*args, **kw)
             both = mk["valid"] & mp["valid"]
-            out[name].append({
+            row = {
                 "n_rays": int(args[0].shape[0]), "n_samples": int(mk["valid"].sum()),
                 "max_abs_err": max(float((mk[k] - mp[k]).abs()[both].max())
                                    for k in ("t", "dt", "xyz")), "tol": TOL_MARCH,
@@ -1595,16 +1658,20 @@ def eval_kernel_checks(tr, batch):
                                        | (mk["count"] != mp["count"])).sum()),
                 "nonzero_unused_slot_values": sum(
                     int((m[k] != 0).reshape(*m["valid"].shape, -1)[~m["valid"]].sum())
-                    for m in (mk, mp) for k in ("t", "dt", "xyz"))})
+                    for m in (mk, mp) for k in ("t", "dt", "xyz"))}
+            row["ok"] = (row["max_abs_err"] <= TOL_MARCH and row["rays_differing"] == 0
+                         and row["nonzero_unused_slot_values"] == 0)
         else:
             ck, cp = composite_rays(*args, **kw), composite_rays_plain(*args, **kw)
             valid = args[4]
-            out[name].append({"shape": list(valid.shape), "n_valid": int(valid.sum()),
-                              "max_abs_err": max(float((ck[k] - cp[k]).abs().max()) for k in ck),
-                              "tol": TOL_COMPOSITE})
+            row = {"shape": list(valid.shape), "n_valid": int(valid.sum()),
+                   "max_abs_err": max(float((ck[k] - cp[k]).abs().max()) for k in ck),
+                   "tol": TOL_COMPOSITE}
+            row["ok"] = row["max_abs_err"] <= TOL_COMPOSITE
+        out[name].append(row)
     torch.cuda.synchronize()
-    if [len(v) for v in out.values()] != [2, 1, 1]:
-        raise RuntimeError(f"the eval frame made other calls than A x 2, B, C: "
+    if {k: len(v) for k, v in out.items()} != want_calls:
+        raise RuntimeError(f"the frame made other kernel calls than {want_calls}: "
                            f"{ {k: len(v) for k, v in out.items()} }")
     return out
 
@@ -2034,6 +2101,526 @@ def recipe_phase(report, root):
     if problems:
         raise RuntimeError(f"the -O recipe: {problems}")
     return {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# camera offsets, the live path, mesh export
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While the block runs, the model modules' bindings of kernels B, C and
+    A are their plain PyTorch versions, on the card (autograd runs through
+    their plain ops)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    import radnerf_tpu_torch.models.renderer as renderer_mod
+    from radnerf_tpu_torch.ops import composite_rays_plain, grid_encode_plain, march_rays_plain
+
+    swaps = [(renderer_mod, "march_rays", march_rays_plain),
+             (renderer_mod, "composite_rays", composite_rays_plain),
+             (network_mod, "grid_encode", grid_encode_plain)]
+    originals = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, originals):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def captured_apps():
+    """While the block runs, ``InteractiveApp.serve`` keeps the app it is
+    called on in the yielded list and returns at once."""
+    from radnerf_tpu_torch.apps import InteractiveApp
+
+    apps, serve = [], InteractiveApp.serve
+    InteractiveApp.serve = lambda self, host="127.0.0.1", port=8965: apps.append(self)
+    try:
+        yield apps
+    finally:
+        InteractiveApp.serve = serve
+
+
+def camera_phase(report, out_dir, root):
+    """camera: the head stage with learnt camera offsets at full width, 65,536
+    rays, on the written directory. ``python -m radnerf_tpu_torch.main <dir>
+    -O --train_camera`` in this process (CAMERA_STEPS steps, the evaluation,
+    the test split), launch counts from 0: the offsets of the trained frames
+    moved off 0, equal in the epoch checkpoint and in a trainer that loads
+    it. Then float32: one train step of a ``train_camera`` trainer against
+    the same step of a trainer without offsets (the same seed and batch, in
+    turns: fenced ms, a 3-step profile each), its launches; on seeded
+    offsets of a few degrees, the step's loss and the gradients of
+    ``camera_dR``, ``camera_dT`` and the grid tables through the kernels
+    against the plain versions on the card (the same batch and noises), and
+    kernel B's xyz against the positions formed again from its t, bit for
+    bit. Returns the -O run's epoch checkpoint."""
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import mark_untrained_grid
+    from radnerf_tpu_torch.models.renderer import camera_offsets, march_window, sample_positions
+    from radnerf_tpu_torch.ops import (
+        _kernels, grid_encode_backward_plain, march_rays, near_far_from_aabb,
+    )
+    from radnerf_tpu_torch.train import Trainer
+    from radnerf_tpu_torch.train import checkpoint as ckpt_lib
+
+    ws = os.path.join(root, "camera")
+    argv = [root, "--workspace", ws, "-O", "--train_camera", "--preload", "2", "--ckpt",
+            "scratch", "--iters", str(CAMERA_STEPS), "--ema_update_interval", "1"]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = port_main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    cam = {k: getattr(tr.net, k).detach() for k in ("camera_dR", "camera_dT")}
+    moved = int(((cam["camera_dR"] != 0).any(1) | (cam["camera_dT"] != 0).any(1)).sum())
+    ckpt = os.path.join(tr.ckpt_path, f"ngp_ep{tr.epoch:04d}.npz")
+    saved = ckpt_lib.load_checkpoint(ckpt)[0]
+    back = Trainer(Options(path=root, train_camera=True).apply_O(), device="cuda",
+                   workspace=ws, use_checkpoint=ckpt)
+    kept = {"file": all(np.array_equal(saved[k], v.cpu().numpy()) for k, v in cam.items()),
+            "loaded": all(torch.equal(getattr(back.net, k), v) for k, v in cam.items())}
+    cli = {"argv": argv, "seconds": run_s, "steps": tr.global_step, "launches": launches,
+           "step_losses": tr.stats["step_loss"], "eval_psnr": tr.stats["results"],
+           "frames_moved": moved, "max_abs_dR_deg": float(cam["camera_dR"].abs().max()),
+           "max_abs_dT": float(cam["camera_dT"].abs().max()), "checkpoint_kept": kept}
+    del tr, back
+
+    # float32: a step with offsets against the same step without
+    opt = Options(path=root, exp_eye=True, preload=2)
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    dev = ds.device
+    trs = {"camera": Trainer(dataclasses.replace(opt, train_camera=True), device=dev),
+           "plain": Trainer(opt, device=dev)}
+    for t in trs.values():
+        t.state = mark_untrained_grid(t.render_cfg, t.state, ds.poses, tuple(ds.intrinsics))
+        t.update_extra_state(ds)  # the upkeep of step 0
+        t.global_step = 1
+    batch = trs["camera"].next_batch(ds, 1)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    trs["camera"].train_step(batch)
+    torch.cuda.synchronize()
+    step_launches = _kernels.launches()
+    fenced = {"camera": [], "plain": []}
+    for name in ("camera", "plain", "plain", "camera") * (CAMERA_TIMED_STEPS // 2):
+        fenced[name] += fenced_ms(lambda i: trs[name].train_step(batch), 1)
+    prof = {}
+    for name, t in trs.items():
+        p, events = device_profile(lambda i: t.train_step(batch), PROFILED_STEPS)
+        with open(os.path.join(out_dir, f"chip_smoke_camera_{name}_profile.txt"), "w") as f:
+            f.write(p.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        busy = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+        med = float(np.median(fenced[name]))
+        prof[name] = {"train_step_ms_median": med, "device_busy_ms_per_step": busy,
+                      "device_busy_share": busy / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS)}
+
+    # the step through the kernels and through the plain versions, on seeded
+    # offsets of the batch's frame
+    tr = trs["camera"]
+    idx, rc = batch["index"], tr.render_cfg
+    gen = torch.Generator(dev).manual_seed(17)
+    with torch.no_grad():
+        tr.net.camera_dR[idx] = (torch.rand(3, generator=gen, device=dev) * 2 - 1) * 3.0
+        tr.net.camera_dT[idx] = (torch.rand(3, generator=gen, device=dev) * 2 - 1) * 0.03
+    noises = torch.rand(batch["rays_o"].shape[0], generator=gen, device=dev)
+    names = ("camera_dR", "camera_dT", "encoder", "encoder_ambient")
+
+    def step_grads():
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss = tr.loss(batch, noises, tr.global_step)[0]
+        loss.backward()
+        return float(loss), {k: getattr(tr.net, k).grad.detach().clone() for k in names}
+
+    grid_mod = sys.modules["radnerf_tpu_torch.ops.grid_encode"]
+    with recorded_calls([(grid_mod, "grid_encode_backward")]) as bwd_calls:
+        loss_k, g_k = step_grads()
+    with plain_kernels():
+        loss_p, g_p = step_grads()
+    tr.optimizer.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        o, d = camera_offsets(tr.net, idx, batch["rays_o"], batch["rays_d"])
+        nears, fars = near_far_from_aabb(o, d, o.new_tensor(rc.aabb), rc.min_near)
+        m = march_rays(o, d, nears, fars, tr.state.sigma_bytes, rc.march_config(),
+                       march_window(tr.state, o, d, nears, fars), rc.cull_T, noises)
+        xyz = sample_positions(o, d, m["t"], rc.bound)
+    v = m["valid"]
+    grads = {k: {"rel_err": rel_err(g_k[k], g_p[k]), "tol_rel": TOL_STEP_GRAD,
+                 "max_abs": float(g_p[k].abs().max())} for k in names}
+    # a table row sums its n terms in another order on each path: each
+    # order is within (n - 1) 2^-24 of the sum of the terms' magnitudes of
+    # the exact sum (bf16_kernel_checks' rule), so a row may differ by twice
+    # that, or by the CPU step check's 1e-4 of the largest where more
+    for _, (x, table, go, spec, bound), _ in bwd_calls:
+        k = "encoder" if spec.input_dim == 3 else "encoder_ambient"
+        counts = row_counts(x, spec, bound)[0]
+        abs_rows = grid_encode_backward_plain(x, table, go.abs(), spec, bound,
+                                              need_x=False)[0]
+        allowed = torch.maximum(
+            2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 * abs_rows.double(),
+            torch.full_like(abs_rows, TOL_STEP_GRAD * grads[k]["max_abs"], dtype=torch.float64))
+        grads[k].update(
+            busiest_row_contributions=int(counts.max()),
+            err_over_allowed=float(((g_k[k] - g_p[k]).abs().double() / allowed).max()))
+    check = {"loss_kernels": loss_k, "loss_plain": loss_p,
+             "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "loss_tol_rel": TOL_STEP_REL,
+             "grads": grads, "backward_calls": len(bwd_calls),
+             "xyz_bit_for_bit": bool(torch.equal(xyz[v], m["xyz"][v])),
+             "n_samples": int(v.sum()),
+             "samples_on_the_bound": int((xyz[v].abs() == rc.bound).sum())}
+    cp = {"cli": cli, "step_launches": step_launches, "timing": prof,
+          "extra_ms_median": prof["camera"]["train_step_ms_median"]
+          - prof["plain"]["train_step_ms_median"],
+          "extra_device_ms": prof["camera"]["device_busy_ms_per_step"]
+          - prof["plain"]["device_busy_ms_per_step"],
+          "train_step_ms": fenced, "step_check": check,
+          "model": "NetworkConfig(torso=False, exp_eye=True, train_camera=True) full width, "
+                   "65,536 rays; -O through the CLI, float32 for the step"}
+    report["camera"] = cp
+    emit({"phase": "camera", **{k: v for k, v in cp.items() if k != "train_step_ms"},
+          "cli": {k: v for k, v in cli.items() if k != "step_losses"}})
+    problems = []
+    if cli["steps"] != CAMERA_STEPS or not all(math.isfinite(x) for x in cli["step_losses"]):
+        problems.append(f"the CLI run: {cli['steps']} steps, losses {cli['step_losses']}")
+    if not all(launches[k] > 0 for k in BF16_KERNELS + ("march_rays", "composite_rays",
+                                                        "composite_rays_backward")):
+        problems.append(f"the CLI run's launches {launches}")
+    if moved < 1 or not all(kept.values()):
+        problems.append(f"the offsets: {moved} frames moved, kept {kept}")
+    if any(step_launches[k] != n for k, n in (("grid_encode", 2), ("grid_encode_backward", 2),
+                                              ("march_rays", 1), ("composite_rays", 1),
+                                              ("composite_rays_backward", 1))):
+        problems.append(f"the float32 camera step's launches {step_launches}")
+    if not check["loss_rel_err"] <= TOL_STEP_REL or len(bwd_calls) != 2 or any(
+            not (g["err_over_allowed"] <= 1.0 if "err_over_allowed" in g
+                 else g["rel_err"] <= g["tol_rel"]) for g in grads.values()):
+        problems.append(f"the camera step, kernels against plain versions: {check}")
+    if not check["xyz_bit_for_bit"] or check["n_samples"] == 0:
+        problems.append("kernel B's xyz differs from the positions formed from its t")
+    if problems:
+        raise RuntimeError(f"camera: {problems}")
+    del trs, tr, ds
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def stand_in_logits(audio_dim, device, seed=5):
+    """The acoustic model's stand-in (no wav2vec2 weights ship with the
+    repository): a seeded linear map of each 320-sample chunk to
+    ``audio_dim`` logits, on the card."""
+    w = torch.randn(320, audio_dim, generator=torch.Generator().manual_seed(seed)).to(device)
+
+    def fn(frame):
+        n = len(frame) // 320
+        x = torch.from_numpy(np.ascontiguousarray(frame[: n * 320])).to(device)
+        return (x.view(n, 320) @ w * 0.1).cpu().numpy()
+
+    return fn
+
+
+def write_wav(path, seconds, seed=4):
+    """A seeded 16 kHz int16 wav: a 220 Hz tone under noise."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(16000 * seconds)) / 16000
+    wave = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * np.random.default_rng(seed).normal(
+        size=t.shape)
+    wavfile.write(path, 16000, (np.clip(wave, -1, 1) * 32767).astype(np.int16))
+    return path
+
+
+def read_mjpeg_parts(url, n):
+    """The first ``n`` JPEG parts of an MJPEG stream, as bytes."""
+    import urllib.request
+
+    parts = []
+    with urllib.request.urlopen(url, timeout=120) as r:
+        while len(parts) < n:
+            if r.readline() != b"--frame\r\n" or \
+                    r.readline() != b"Content-Type: image/jpeg\r\n":
+                raise RuntimeError("not an MJPEG part")
+            size = int(r.readline().split(b":")[1])
+            r.readline()
+            parts.append(r.read(size))
+            r.readline()
+    return parts
+
+
+def live_phase(report, out_dir, root):
+    """live: what ``python -m radnerf_tpu_torch.infer -O --torso --gui --asr``
+    serves, built by that entry point in this process on the recipe's torso
+    checkpoint and the written pose json (512x512), its ``serve`` captured:
+    a ``StreamingASR`` in file mode on a seeded 3 s wav with the stand-in
+    acoustic model on the card, warmed up. Then LIVE_FRAMES playing frames,
+    two ASR steps each, launch counts from 0 (fenced ms, the ASR's share, a
+    3-frame profile); A-bf16, B and C against their plain versions on one
+    live frame's inputs; 4 static frames accumulated (the buffer the mean of
+    the perturbed frames), a downscale 0.5 frame, a depth frame; ``serve``
+    on a free port from a thread, two JPEG parts of /stream read; and the
+    training app of ``main -O --gui`` (its ``serve`` captured): a 16-step
+    ``train_gui`` burst, launch counts from 0."""
+    from PIL import Image
+    import io
+    import threading
+
+    from radnerf_tpu_torch import infer, resolve_device
+    from radnerf_tpu_torch.apps import StreamingASR
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.ops import _kernels
+
+    dev = resolve_device("cuda")
+    wav = write_wav(os.path.join(root, "speech.wav"), LIVE_SECONDS)
+    logits_fn = stand_in_logits(44, dev)
+    argv = ["--pose", os.path.join(root, "pose.json"), "--workspace",
+            os.path.join(root, "live"), "-O", "--torso", "--ckpt",
+            os.path.join(root, "recipe_torso", "checkpoints", "ngp.npz"), "--gui", "--asr",
+            "--asr_wav", wav]
+    t0 = time.perf_counter()
+    with captured_apps() as apps:
+        infer.main(argv, logits_fn=logits_fn)
+    build_s = time.perf_counter() - t0
+    app = apps[0]
+    asr, tr = app.asr, app.trainer
+    fresh = StreamingASR(app.opt, logits_fn=logits_fn, device=dev)
+    t0 = time.perf_counter()
+    fresh.warm_up()
+    warm_s = time.perf_counter() - t0
+    del fresh
+
+    asr_s = [0.0]
+
+    def timed(fn):
+        def wrapper(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            asr_s[0] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    asr.run_step, asr.get_next_feat = timed(asr.run_step), timed(asr.get_next_feat)
+    app.playing = True
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    frame_ms = fenced_ms(lambda i: app.step(), LIVE_FRAMES)
+    launches = _kernels.launches()
+    asr_share = asr_s[0] * 1e3 / sum(frame_ms)
+    prof, events = device_profile(lambda i: app.step(), 3)
+    with open(os.path.join(out_dir, "chip_smoke_live_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    live_frame = app.render_buffer
+    checks = frame_kernel_checks(app.step, {"grid_encode": 3, "march_rays": 1,
+                                            "composite_rays": 1})
+
+    # a static view: fresh, then perturbed frames averaged in
+    app.playing, app.max_spp, app.need_update = False, 4, True
+    static = [app.render_frame() for _ in range(5)]
+    spp = app.spp
+    eye = app.eye_area if app.eye_area is not None else 0.25
+    refs = [tr.test_gui(app.cam.pose, app.cam.intrinsics, app.W, app.H, auds=None, eye=eye,
+                        index=app.ind_index, bg_color=app.bg_color, spp=s)["image"]
+            for s in (1, 1, 2, 3)]
+    spp_err = float(np.abs(app.render_buffer - np.mean(refs, 0)).max())
+    app.downscale = 0.5
+    t0 = time.perf_counter()
+    half = app.render_frame()
+    half_ms = (time.perf_counter() - t0) * 1e3
+    app.downscale, app.mode = 1.0, "depth"
+    depth = app.render_frame()
+    app.mode = "image"
+    # the depth frame is the frame's depth in its own range, in three channels
+    want_depth = tr._normalize_depth(tr.test_gui(
+        app.cam.pose, app.cam.intrinsics, app.W, app.H, auds=None, eye=eye,
+        index=app.ind_index, bg_color=app.bg_color)["depth"])
+    depth_ok = bool(np.array_equal(depth, np.clip(want_depth, 0, 1)[..., None].repeat(3, -1)))
+
+    thread = threading.Thread(target=app.serve, kwargs={"port": 0}, daemon=True)
+    thread.start()
+    try:
+        if not app.serving.wait(60):
+            raise RuntimeError("serve did not start")
+        parts = read_mjpeg_parts(f"http://127.0.0.1:{app.server.server_address[1]}/stream", 2)
+    finally:
+        app.stop()
+        thread.join(60)
+    jpeg_sizes = [Image.open(io.BytesIO(p)).size for p in parts]
+
+    # the training app of main --gui
+    with captured_apps() as gui_apps:
+        port_main([root, "--workspace", os.path.join(root, "live_train"), "-O", "--preload", "2",
+                   "--ckpt", "scratch", "--gui"])
+    gapp = gui_apps[0]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    burst = gapp.trainer.train_gui(gapp.dataset, step=16)
+    torch.cuda.synchronize()
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    burst_launches = _kernels.launches()
+    trained_frame = gapp.render_frame()
+
+    med = float(np.median(frame_ms))
+    busy = sum(e.self_device_time_total for e in events) / 3e3
+    lv = {"argv": argv, "build_seconds": build_s, "warm_up_seconds": warm_s,
+          "warm_up_steps": asr.warm_up_steps,
+          "expected_latency_s": asr.warm_up_steps / asr.fps, "frames": LIVE_FRAMES,
+          "launches": launches, "frame_ms_median": med,
+          "frame_ms_p90": float(np.percentile(frame_ms, 90)), "fps": 1e3 / med,
+          "asr_share": asr_share, "device_busy_ms_per_frame": busy,
+          "device_busy_share": busy / med, "ms_per_frame_by_class": ms_by_class(events, 3),
+          "kernel_checks": checks, "spp_buffer_max_abs_err": spp_err, "spp": spp,
+          "static_repeat_equal": bool(np.array_equal(static[3], static[4])),
+          "downscale_shape": list(half.shape), "downscale_ms": half_ms,
+          "depth_range": [float(depth.min()), float(depth.max())], "depth_frame_equal": depth_ok,
+          "jpeg_parts": [len(p) for p in parts], "jpeg_sizes": jpeg_sizes,
+          "train_gui": {"steps": gapp.trainer.global_step, "loss": burst["loss"], "ms": burst_ms,
+                        "launches": burst_launches, "training": gapp.training,
+                        "frame_finite": bool(np.isfinite(trained_frame).all())},
+          "model": "the recipe's -O --torso checkpoint, NetworkConfig(torso=True, exp_eye=True, "
+                   "bfloat16) full width, 512x512, white background"}
+    report["live"] = {**lv, "frame_ms": frame_ms}
+    emit({"phase": "live", **lv})
+    problems = []
+    if launches["grid_encode_bf16"] != 3 * LIVE_FRAMES or launches["grid_encode"] or \
+            launches["march_rays"] != LIVE_FRAMES or launches["composite_rays"] != LIVE_FRAMES:
+        problems.append(f"the playing frames' launches {launches}")
+    if not all(r["ok"] for rows in checks.values() for r in rows):
+        problems.append(f"a kernel differs from its plain version in a live frame: {checks}")
+    if live_frame.shape != (LIVE_SIZE, LIVE_SIZE, 3) or not np.isfinite(live_frame).all():
+        problems.append("the live frame is no finite 512x512 image")
+    if not spp_err <= 1e-5 or spp != 4 or not lv["static_repeat_equal"]:
+        problems.append(f"spp accumulation: buffer error {spp_err}")
+    if list(half.shape) != [LIVE_SIZE, LIVE_SIZE, 3] or not np.isfinite(half).all():
+        problems.append(f"the downscaled frame {half.shape}")
+    if not depth_ok or depth.shape != (LIVE_SIZE, LIVE_SIZE, 3):
+        problems.append(f"the depth frame {depth.shape}, range {lv['depth_range']}")
+    if len(parts) != 2 or any(s != (LIVE_SIZE, LIVE_SIZE) for s in jpeg_sizes) or \
+            thread.is_alive():
+        problems.append(f"serve: parts {jpeg_sizes}, thread alive {thread.is_alive()}")
+    g = lv["train_gui"]
+    if g["steps"] != 16 or not math.isfinite(g["loss"]) or not g["training"] or \
+            not g["frame_finite"] or burst_launches["grid_encode_backward_bf16"] != 32:
+        problems.append(f"train_gui: {g}")
+    if problems:
+        raise RuntimeError(f"live: {problems}")
+
+
+def mesh_phase(report, out_dir, root, head_ckpt):
+    """mesh: ``Trainer.save_mesh`` at its defaults (resolution 256, threshold
+    10) on the camera phase's head checkpoint (the field in float32), launch
+    counts from 0: A 2 a chunk of 262,144 points, 128 in all; then the
+    sweep and the tetrahedra timed apart, and ``extract_geometry`` and the
+    PLY, whose bytes are the ones save_mesh wrote; A against its plain version on the first
+    chunk (both of its calls); the card's tetrahedra on the 64^3 middle of
+    the field against the CPU's, at threshold 10 and at that sub-field's
+    median."""
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.ops import _kernels, grid_encode, grid_encode_plain
+    from radnerf_tpu_torch.train import Trainer
+    from radnerf_tpu_torch.utils.mesh import (
+        extract_geometry, lattice_axes, marching_tetrahedra, save_mesh_ply,
+    )
+
+    ws = os.path.join(root, "mesh")
+    tr = Trainer(Options(exp_eye=True, train_camera=True), device="cuda", workspace=ws,
+                 use_checkpoint=head_ckpt)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    path = tr.save_mesh(resolution=MESH_RESOLUTION, threshold=MESH_THRESHOLD)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+
+    dev, res, chunk = tr.device, MESH_RESOLUTION, 128**2 * 16
+    aabb = tr.render_cfg.aabb
+    axes = [torch.from_numpy(a).to(dev) for a in lattice_axes(aabb[:3], aabb[3:], res)]
+    pts = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    e = torch.full((1, 1), 0.25, device=dev)
+    with torch.no_grad():
+        def sweep():
+            return torch.cat([tr.net.field_density(pts[h:h + chunk], None, e)["sigma"]
+                              for h in range(0, pts.shape[0], chunk)])
+        sweep_ms = fenced_ms(lambda i: sweep(), 1)[0]
+        field = sweep().view(res, res, res)
+        t0 = time.perf_counter()
+        _, tris = marching_tetrahedra(field, MESH_THRESHOLD)
+        torch.cuda.synchronize()
+        tetra_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        world, faces = extract_geometry(aabb[:3], aabb[3:], res, MESH_THRESHOLD,
+                                        lambda p: tr.net.field_density(p, None, e)["sigma"],
+                                        device=dev)
+        extract_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    save_mesh_ply(os.path.join(ws, "parts.ply"), world, faces)
+    ply_ms = (time.perf_counter() - t0) * 1e3
+    with open(path, "rb") as a, open(os.path.join(ws, "parts.ply"), "rb") as b:
+        same_ply = a.read() == b.read()
+
+    cfg = tr.net.cfg
+    x = pts[:chunk]
+    a_calls = {"spatial": (x, tr.net.encoder.detach(), cfg.grid_spec, cfg.bound),
+               "ambient": (torch.zeros(chunk, cfg.ambient_dim, device=dev),
+                           tr.net.encoder_ambient.detach(), cfg.ambient_spec, 1.0)}
+    a_rows = {}
+    for name, args in a_calls.items():
+        gk, gp = grid_encode(*args), grid_encode_plain(*args)
+        nb, nf = grid_work(args[0], args[2], args[3])
+        bms, by = bound_ms(nb, nf)
+        a_rows[name] = {"bit_for_bit": bool(torch.equal(gk, gp)),
+                        "max_abs_err": float((gk - gp).abs().max()),
+                        "device_ms": device_ms(lambda: grid_encode(*args), 20),
+                        "plain_ms": cuda_ms(lambda: grid_encode_plain(*args), 3),
+                        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
+
+    mid = res // 2 - TETRA_CHECK // 2
+    sub = field[mid:mid + TETRA_CHECK, mid:mid + TETRA_CHECK, mid:mid + TETRA_CHECK]
+    tetra = {}
+    for thr in (MESH_THRESHOLD, float(sub.median())):
+        t0 = time.perf_counter()
+        vk, fk = marching_tetrahedra(sub, thr)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        vc, fc = marching_tetrahedra(sub.cpu(), thr)
+        tetra[str(thr)] = {"faces": int(fk.shape[0]), "card_ms": card_ms,
+                           "cpu_ms": (time.perf_counter() - t0) * 1e3,
+                           "faces_equal": bool(torch.equal(fk.cpu(), fc)),
+                           "max_abs_vertex_err": float((vk.cpu() - vc).abs().max())
+                           if vk.shape[0] else 0.0}
+    ms = {"path": os.path.relpath(path, root), "seconds": total_s, "launches": launches,
+          "resolution": res, "threshold": MESH_THRESHOLD, "chunks": -(-res**3 // chunk),
+          "sweep_ms": sweep_ms, "tetrahedra_ms": tetra_ms, "extract_geometry_ms": extract_ms,
+          "ply_ms": ply_ms, "vertices": int(world.shape[0]), "faces": int(faces.shape[0]),
+          "tetrahedra_faces": int(tris.shape[0]),
+          "ply_bytes": os.path.getsize(path), "parts_ply_equal": same_ply,
+          "sigma_range": [float(field.min()), float(field.max())],
+          "grid_encode_chunk": a_rows, "tetrahedra_vs_cpu": tetra,
+          "model": "the camera phase's -O head checkpoint in a float32 NetworkConfig(torso="
+                   "False, exp_eye=True, train_camera=True); the eye input at 0.25"}
+    report["mesh"] = ms
+    emit({"phase": "mesh", **ms})
+    problems = []
+    chunks = ms["chunks"]
+    if launches["grid_encode"] != 2 * chunks or launches["grid_encode_bf16"]:
+        problems.append(f"launches {launches}")
+    if not same_ply:
+        problems.append("extract_geometry's PLY differs from save_mesh's")
+    if not all(r["bit_for_bit"] for r in a_rows.values()):
+        problems.append(f"A differs from its plain version on a lattice chunk: {a_rows}")
+    if not all(t["faces_equal"] and t["max_abs_vertex_err"] <= 1e-12 for t in tetra.values()) \
+            or tetra[str(float(sub.median()))]["faces"] == 0:
+        problems.append(f"the card's tetrahedra against the CPU's: {tetra}")
+    if problems:
+        raise RuntimeError(f"mesh: {problems}")
+    del tr, field, pts
+    torch.cuda.empty_cache()
 
 
 def gather_phase(report, dev):

@@ -66,6 +66,14 @@ class Options:
     lpips_weights: str = ""
     torso: bool = False
 
+    # the interactive app (``--gui``): its view and progressive supersampling
+    gui: bool = False
+    W: int = 450
+    H: int = 450
+    radius: float = 3.35
+    fovy: float = 21.24
+    max_spp: int = 1
+
     # audio and codes
     att: int = 2
     aud: str = ""
@@ -79,8 +87,18 @@ class Options:
     train_camera: bool = False
     smooth_path: bool = False
     smooth_path_window: int = 7
+    # streaming audio features (``--asr``): a wav file, or the microphone
+    # when empty; 20 ms chunks at ``fps`` = 50 and a CTC window of l + m + r
+    # chunks
     asr: bool = False
+    asr_wav: str = ""
+    asr_play: bool = False
     asr_model: str = "cpierse/wav2vec2-large-xlsr-53-esperanto"
+    asr_save_feats: bool = False
+    fps: int = 50
+    l: int = 10
+    m: int = 50
+    r: int = 10
 
     # test mode
     test: bool = False

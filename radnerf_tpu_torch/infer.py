@@ -6,18 +6,23 @@ features, on the card unless told otherwise:
         --workspace trial_obama_torso/ -O --torso \\
         --ckpt trial_obama_torso/checkpoints/ngp.npz
 
+    python -m radnerf_tpu_torch.infer --pose data/obama.json --workspace trial_obama_torso/ \\
+        -O --torso --ckpt trial_obama_torso/checkpoints/ngp.npz --gui --asr --asr_wav speech.wav
+
 In a program: ``main([...], device="cpu")``, which returns the FPS the
 render measured. The test-mode smoothing (path, eye, lips) is on; ``-O``
-renders under the bf16 policy; ``--asr`` and ``--gui`` are not ported
-(ROADMAP queue 1 item 7).
+renders under the bf16 policy. ``--gui`` serves the interactive app over the
+poses as an MJPEG stream instead of writing a video, driven by streaming
+speech features with ``--asr`` (then no ``--aud``); ``main(...,
+logits_fn=f)`` gives it its acoustic model.
 """
 
 from __future__ import annotations
 
-from .main import build_parser, float32_matmuls, options_from_args, refuse_unported
+from .main import build_parser, float32_matmuls, live_app, options_from_args
 
 
-def main(argv=None, device="cuda") -> float:
+def main(argv=None, device="cuda", logits_fn=None) -> float:
     from .data import PoseAudioDataset
     from .train import Trainer
 
@@ -27,7 +32,6 @@ def main(argv=None, device="cuda") -> float:
     args = parser.parse_args(argv)
     if not args.asr and not args.aud:
         parser.error("--aud is required unless --asr streaming is enabled")
-    refuse_unported(args)
     opt = options_from_args(args)
     opt.pose = args.pose
     opt.apply_test_mode()  # test.py:113-119 smooths at test
@@ -35,7 +39,12 @@ def main(argv=None, device="cuda") -> float:
 
     trainer = Trainer(opt, device=device, name="ngp", workspace=opt.workspace,
                       use_checkpoint=opt.ckpt)
-    return trainer.test(PoseAudioDataset(opt, device=device))
+    dataset = PoseAudioDataset(opt, device=device)
+    if opt.gui:
+        app = live_app(opt, trainer, dataset, logits_fn)
+        app.serve()  # the viewer at http://127.0.0.1:8965/
+        return app.fps
+    return trainer.test(dataset)
 
 
 if __name__ == "__main__":

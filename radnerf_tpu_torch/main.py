@@ -7,6 +7,8 @@
     python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ -O \\
         --torso --head_ckpt trial_obama/checkpoints/ngp.npz --iters 200000
     python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ -O --torso --test
+    python -m radnerf_tpu_torch.main data/obama/ --workspace trial_obama_torso/ -O --torso \\
+        --test --gui --asr --asr_wav speech.wav
 
 In a program: ``main([...], device="cpu")``, which returns the trainer.
 Training runs train -> evaluate every ``eval_interval`` epochs (writing the
@@ -17,9 +19,13 @@ renders it. The flags are ``main.py``'s but for the TPU capacity knobs
 work. ``-O`` (``--fp16 --exp_eye``) runs the bf16 policy (bf16 MLPs, grid
 encodes on bf16 tables); ``--finetune_lips`` and ``--patch_size`` (>= 32)
 train with the LPIPS term (its seeded, uncalibrated filters unless
-``--lpips_weights`` names a file). Not ported yet, and refused:
-``--train_camera`` (ROADMAP queue 1 item 4), ``--gui`` and ``--asr`` (queue
-1 item 7).
+``--lpips_weights`` names a file); ``--train_camera`` learns per-frame
+camera offsets. ``--gui`` serves the interactive app (``apps/frame_server.py``)
+as an MJPEG stream instead: over the test split with ``--test`` (driven by
+streaming speech features with ``--asr``: a wav file given by ``--asr_wav``,
+else the microphone), or training while it renders. ``main(...,
+logits_fn=f)`` gives ``--asr`` its acoustic model (the default is wav2vec2,
+``apps/asr.py``).
 """
 
 from __future__ import annotations
@@ -150,15 +156,6 @@ def options_from_args(args) -> Options:
     return opt
 
 
-def refuse_unported(args):
-    """--train_camera (ROADMAP queue 1 item 4), --gui and --asr (item 7) are
-    not ported."""
-    for flag, item in (("train_camera", 4), ("gui", 7), ("asr", 7)):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported to radnerf_tpu_torch yet "
-                                      f"(ROADMAP queue 1 item {item})")
-
-
 def float32_matmuls():
     """The port's GEMMs as JAX computes them: TF32 off for cuDNN (the audio
     convs, LPIPS) and for matmuls, and no bf16 reduction of split-K partials
@@ -183,24 +180,40 @@ def eval_metrics(opt: Options, device, test: bool) -> list:
     return metrics
 
 
-def main(argv=None, device="cuda"):
+def live_app(opt: Options, trainer, dataset, logits_fn=None):
+    """The interactive app over ``dataset``; with ``opt.asr`` driven by a
+    ``StreamingASR`` (acoustic model ``logits_fn``, default wav2vec2) that
+    has warmed up."""
+    from .apps import InteractiveApp, StreamingASR
+
+    asr = None
+    if opt.asr:
+        asr = StreamingASR(opt, logits_fn=logits_fn, device=trainer.device)
+        asr.warm_up()
+    return InteractiveApp(opt, trainer, dataset, asr=asr)
+
+
+def main(argv=None, device="cuda", logits_fn=None):
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``) on ``device``;
-    returns the trainer."""
+    returns the trainer. ``logits_fn``: the acoustic model of ``--asr``."""
     from .data import TalkingHeadDataset
     from .train import Trainer
 
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     opt = options_from_args(args)
     float32_matmuls()
 
     if opt.test:
         trainer = Trainer(opt, device=device, name="ngp", workspace=opt.workspace,
-                          use_checkpoint=opt.ckpt, metrics=eval_metrics(opt, device, True))
+                          use_checkpoint=opt.ckpt,
+                          metrics=[] if opt.gui else eval_metrics(opt, device, True))
         test_set = TalkingHeadDataset(opt, split="train" if opt.test_train else "test",
                                       device=device)
         test_set.training = False
         test_set.num_rays = -1
+        if opt.gui:
+            live_app(opt, trainer, test_set, logits_fn).serve()
+            return trainer
         if test_set.has_gt:
             trainer.evaluate(test_set)
         trainer.test(test_set)
@@ -217,6 +230,13 @@ def main(argv=None, device="cuda"):
                       metrics=eval_metrics(opt, device, False), eval_interval=eval_interval)
     if opt.torso and opt.head_ckpt:
         trainer.freeze_loaded_head(opt.head_ckpt)
+    if opt.gui:
+        from .apps import InteractiveApp
+
+        app = InteractiveApp(opt, trainer, train_ds)
+        app.training = True
+        app.serve()
+        return trainer
     valid_ds = TalkingHeadDataset(opt, split="val", device=device)
     trainer.log(f"[INFO] max_epoch = {max_epoch}")
     trainer.train(train_ds, valid_ds, max_epoch)

@@ -20,7 +20,10 @@ the bf16 field. With
 ``training=True`` the march takes the perturbation ``noises`` and autograd
 runs through the grid encodes and the compositor into kernels A' and C'
 (the head stage), or through the torso's grid encode alone into A' (the
-torso stage, whose frozen head records no graph).
+torso stage, whose frozen head records no graph). With ``train_camera`` the
+rays first turn and move by the frame's learnt offsets; B marches them
+detached and the sample positions are formed again from its t under
+autograd, so no backward of B is needed.
 
 Grid maintenance: ``RendererState.create``, ``reset_extra_state``,
 ``mark_untrained_grid`` (cells no training camera sees become -1),
@@ -314,11 +317,11 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
       bg_color: [N, 3]; noises: [N] in [0, 1) or None, the march
       perturbation.
       training: run with autograd (a train step of either stage) and
-        return ``ambient``, the per-ray ambient sum the head loss reads.
-        Inference runs under ``torch.no_grad()``. Learnable camera offsets
-        are not ported for training and raise. The torso runs on every
-        pixel and is masked afterwards (the JAX path at
-        ``torso_capacity_frac >= 1``).
+        return ``ambient``, the per-ray ambient sum the head loss reads;
+        with ``train_camera`` the rays first move by frame ``index``'s
+        learnt offsets (``camera_offsets``). Inference runs under
+        ``torch.no_grad()``. The torso runs on every pixel and is masked
+        afterwards (the JAX path at ``torso_capacity_frac >= 1``).
 
     Returns (results, state): image [N, 3], weights_sum [N] (the head's
       opacity), depth [N] (normalised by the full-AABB near/far),
@@ -337,25 +340,61 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
         with torch.no_grad():
             return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye,
                            0, bg_color, noises, False)
-    if net.cfg.train_camera:
-        raise NotImplementedError("training camera offsets is not ported "
-                                  "(ROADMAP queue 1 item 4)")
     return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                    bg_color, noises, True)
+
+
+def camera_offsets(net: NeRFNetwork, index, rays_o, rays_d):
+    """The rays of frame ``index`` moved by its learnt camera offsets (JAX
+    ``renderer.py:432-448``, reference renderer.py:169-175): ``rays_o + dT``
+    and the row-vector product ``rays_d @ dR``, dR = rx @ ry @ rz of the
+    frame's ``camera_dR`` in degrees (+1e-8 rad)."""
+    dT = net.camera_dT[index]
+    # divide by a tensor (see _grid_points)
+    ang = net.camera_dR[index] / torch.full((), 180.0, device=dT.device) * math.pi + 1e-8
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    one, zero = torch.ones_like(ca[0]), torch.zeros_like(ca[0])
+
+    def mat(*rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    rx = mat((one, zero, zero), (zero, ca[0], -sa[0]), (zero, sa[0], ca[0]))
+    ry = mat((ca[1], zero, sa[1]), (zero, one, zero), (-sa[1], zero, ca[1]))
+    rz = mat((ca[2], -sa[2], zero), (sa[2], ca[2], zero), (zero, zero, one))
+    return rays_o + dT, rays_d @ (rx @ ry @ rz)
+
+
+def sample_positions(rays_o, rays_d, t, bound: float):
+    """``clip(o + t d, -bound, bound)`` [N, S, 3] of the march's ``t`` [N,
+    S], as kernel B forms its xyz (a multiply, an add, the clamp, each in
+    float32), with autograd: ``jnp.clip``'s gradient, split evenly at a
+    tie, as lax.max / lax.min split it (``torch.clamp`` would pass all of
+    it)."""
+    p = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
+    return torch.minimum(torch.maximum(p, p.new_tensor(-bound)), p.new_tensor(bound))
 
 
 def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
             noises, training):
     mcfg = cfg.march_config()
     aabb = rays_o.new_tensor(cfg.aabb)
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    # with learnt camera offsets the gradient reaches the rays only through
+    # the samples' positions and the SH directions: as in JAX (near/far
+    # under stop_gradient, the window and the march through floor and
+    # comparisons), the march takes the rays detached and the positions are
+    # formed again from its t under autograd
+    camera = training and net.cfg.train_camera
+    if camera:
+        rays_o, rays_d = camera_offsets(net, index, rays_o, rays_d)
+    ro, rd = (rays_o.detach(), rays_d.detach()) if camera else (rays_o, rays_d)
+    nears, fars = near_far_from_aabb(ro, rd, aabb, cfg.min_near)
 
     enc_a = net.encode_audio(auds)
     if enc_a is not None and cfg.smooth_lips:
         enc_a, state = smooth_audio_code(state, enc_a, True)
     ind_code = net.individual_codes[index] if net.individual_codes is not None else None
 
-    t_lo, t_hi = march_window(state, rays_o, rays_d, nears, fars)
+    t_lo, t_hi = march_window(state, ro, rd, nears, fars)
     hit = t_lo < t_hi
     results = {
         "n_hit": hit.sum(dtype=torch.int32),
@@ -364,8 +403,10 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                                 0.0).max().to(torch.int32),
     }
 
-    march = march_rays(rays_o, rays_d, nears, fars, state.sigma_bytes, mcfg,
+    march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
                        t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
+    if camera:
+        march = dict(march, xyz=sample_positions(rays_o, rays_d, march["t"], cfg.bound))
     sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)
     comp = composite_rays(sig, col, march["dt"], march["t"],
                           march["valid"], ambient=amb.abs().sum(dim=-1),

@@ -66,7 +66,7 @@ import torch
 
 from ..config import Options
 from ..convert import jax_from_state_dict, load_jax_params, network_to_jax, _state_dict_from_jax
-from ..data.rays import convert_poses, get_audio_features
+from ..data.rays import convert_poses, get_audio_features, get_bg_coords, rays_from_pixels
 from ..device import resolve_device
 from ..models import (
     NeRFNetwork,
@@ -84,6 +84,7 @@ from ..models import (
 from ..ops import build_sigma_bytes, packbits, unpackbits
 from ..utils.color import linear_to_srgb, srgb_to_linear
 from ..utils.image import write_png, write_video
+from ..utils.mesh import extract_geometry, save_mesh_ply
 from . import checkpoint as ckpt_lib
 from .losses import head_loss, torso_loss
 
@@ -214,6 +215,7 @@ class Trainer:
                       "results": [], "loss_mode": [], "lpips_term": []}
         self._lpips_terms = []  # device scalars of the epoch running
         self.telemetry = {}
+        self._bg_coords = {}  # (H, W) -> the frame's bg_coords on the device
         self._cap_restored = False
         if workspace:
             self._restore(use_checkpoint)
@@ -540,6 +542,86 @@ class Trainer:
         self.log(f"==> Rendered {len(frames)} frames at {fps:.2f} FPS")
         write_video(os.path.join(save_path, f"{name}.mp4"), np.stack(frames, 0))
         return fps
+
+    # ----------------------------------------------- the interactive app
+    def train_gui(self, dataset, step: int = 16) -> dict:
+        """A training burst of the interactive app (utils.py:976-1035): the
+        untrained cells marked at step 0, then ``step`` loop steps (the
+        upkeep when due) over the dataset's epoch order; returns the mean
+        loss as {"loss": float}."""
+        if self.global_step == 0:
+            self.state = mark_untrained_grid(self.render_cfg, self.state, dataset.poses,
+                                             tuple(dataset.intrinsics))
+        order = dataset.epoch_indices()
+        losses = [self.step(dataset, order[s % len(order)]) for s in range(step)]
+        return {"loss": float(torch.stack(losses).mean())}
+
+    def test_gui(self, pose, intrinsics, W: int, H: int, auds=None, eye: float = 0.25,
+                 index: int = 0, bg_color=None, spp: int = 1, downscale: float = 1):
+        """A free-viewpoint frame (utils.py:1037-1135): {"image" [H, W, 3],
+        "depth" [H, W]} numpy, rendered at ``downscale`` of (H, W) and
+        resized back (bilinear image, nearest depth, through cv2), in sRGB
+        with ``color_space == "linear"``. The rays are built on the device
+        from the 4x4 ``pose`` and (fx, fy, cx, cy) ``intrinsics``; ``auds``
+        is the audio window (numpy or a tensor) or None; ``bg_color`` the
+        background ([H*W, 3], area-resized on the device to the render's
+        size, or already at the render's size), white when None;
+        ``spp`` > 1 perturbs the march, seeded by ``spp``."""
+        rH, rW = int(H * downscale), int(W * downscale)
+        dev = self.device
+        rays_o, rays_d = rays_from_pixels(
+            torch.as_tensor(np.asarray(pose, np.float32)).to(dev),
+            np.asarray(intrinsics) * downscale, torch.arange(rH * rW, device=dev), rW)
+        if bg_color is None:
+            bg = torch.ones((rH * rW, 3), device=dev)
+        else:
+            bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev).reshape(-1, 3)
+            if bg.shape[0] == H * W and (rH, rW) != (H, W):
+                # the app's full-size background at the render's size (JAX
+                # passes it as it is, and its render fails on the shapes)
+                bg = torch.nn.functional.interpolate(
+                    bg.view(1, H, W, 3).permute(0, 3, 1, 2), size=(rH, rW),
+                    mode="area").permute(0, 2, 3, 1).reshape(-1, 3)
+        if (rH, rW) not in self._bg_coords:
+            self._bg_coords[(rH, rW)] = _to_tensor(get_bg_coords(rH, rW), dev)
+        batch = self.to_device({
+            "rays_o": rays_o, "rays_d": rays_d, "H": rH, "W": rW,
+            "bg_coords": self._bg_coords[(rH, rW)],
+            "poses": convert_poses(np.asarray(pose, np.float32)[None]), "auds": auds,
+            "eye": np.asarray([[eye]], np.float32) if self.opt.exp_eye else None,
+            "index": index, "bg_color": bg})
+        pred, depth = self.test_step(batch, perturb=False if spp == 1 else spp)
+        if (rH, rW) != (H, W):
+            import cv2
+
+            pred = cv2.resize(pred, (W, H), interpolation=cv2.INTER_LINEAR)
+            depth = cv2.resize(depth, (W, H), interpolation=cv2.INTER_NEAREST)
+        if self.opt.color_space == "linear":
+            pred = linear_to_srgb(torch.from_numpy(np.clip(pred, 0, 1))).numpy()
+        return {"image": pred, "depth": depth}
+
+    # ------------------------------------------------------------- meshes
+    def save_mesh(self, save_path: Optional[str] = None, resolution: int = 256,
+                  threshold: float = 10.0) -> str:
+        """The density iso-surface as a PLY (utils.py:871-891), default
+        ``<workspace>/meshes/<name>_<epoch>.ply``: sigma of the evaluation
+        parameters on a ``resolution``^3 lattice over the box, with no audio
+        code, on the device. A model with an eye input (``exp_eye``) takes
+        the app's default eye value, 0.25 (JAX's query passes none there and
+        fails on the shapes). Returns the path."""
+        save_path = save_path or os.path.join(self.workspace, "meshes",
+                                              f"{self.name}_{self.epoch}.ply")
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        self.log(f"==> Saving mesh to {save_path}")
+        e = torch.full((1, 1), 0.25, device=self.device) if self.net_cfg.eye_dim > 0 else None
+        aabb = self.render_cfg.aabb
+        with self._eval_params(), torch.no_grad():
+            vertices, triangles = extract_geometry(
+                aabb[:3], aabb[3:], resolution, threshold,
+                lambda p: self.net.field_density(p, None, e)["sigma"], device=self.device)
+        save_mesh_ply(save_path, vertices, triangles)
+        self.log(f"==> Finished saving mesh ({len(vertices)} verts, {len(triangles)} faces).")
+        return save_path
 
     # ------------------------------------------------------- checkpoints
     @property

@@ -2,7 +2,7 @@
 tests/test_train.py's 64x64 on-disk dataset: ``main`` trains (train ->
 evaluate -> best checkpoint -> test split evaluated and rendered), then runs
 ``--test``; ``infer`` renders a pose json with audio features from the best
-checkpoint, one frame per audio row; the unported flags are refused.
+checkpoint, one frame per audio row; what the entry points still refuse.
 
 The narrow test model goes in through ``NetworkConfig.from_options`` and
 ``RenderConfig.from_options``, wrapped to take tests/test_torch_train.py's
@@ -76,20 +76,23 @@ def test_main_trains_evaluates_and_tests(small, data_dir, tmp_path):  # noqa: F8
 
 
 def test_entry_points_refuse_what_is_not_ported(small, data_dir, tmp_path):  # noqa: F811
-    """--gui and --asr name the queue item that ports them, --train_camera
-    its own; infer needs --pose and --aud; without ``device`` the entry
-    point asks for the card, and raises here."""
-    ws = str(tmp_path / "ws")
-    for flag in ("--gui", "--asr"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            main(_args(data_dir, ws, flag), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            infer.main(["--pose", "p.json", "--aud", "a.npy", flag], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        main(_args(data_dir, ws, "-O", "--train_camera", "--iters", "4"), device="cpu")
+    """Every flag of the JAX CLIs is ported now; what the entry points still
+    refuse: infer needs --pose, and --aud unless --asr streams the audio
+    (infer --asr without --gui renders the poses with no audio, as JAX's
+    does); without ``device`` the entry point asks for the card, and raises
+    here."""
     with pytest.raises(SystemExit):
         infer.main(["--pose", "p.json"], device="cpu")  # no --aud
     with pytest.raises(SystemExit):
         infer.main(["--aud", "a.npy"], device="cpu")  # no --pose
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(_args(data_dir, ws, "--iters", "4"))
+    pose_path, out = str(tmp_path / "pose.json"), str(tmp_path / "asr")
+    with open(pose_path, "w") as f:
+        json.dump({"focal_len": 100.0, "cx": 32.0, "cy": 32.0,
+                   "frames": [{"transform_matrix": _make_pose().tolist()}] * 2}, f)
+    fps = infer.main(["--pose", pose_path, "--asr", "--workspace", out, "--exp_eye",
+                      "--ckpt", "scratch"], device="cpu")
+    assert fps > 0 and len(os.listdir(os.path.join(out, "results"))) == 4
+    ws = str(tmp_path / "ws")
+    for flag in ("--train_camera", "--gui"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(_args(data_dir, ws, flag, "--iters", "4"))

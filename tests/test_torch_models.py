@@ -113,19 +113,27 @@ def test_forward_torso_matches_jax(imported):
 
 def test_bfloat16_policy_is_not_ported():
     """The bf16 policy builds (a network of float32 master parameters, bf16
-    MLPs and tables); what is still not ported, training the camera
-    offsets, raises and names its ROADMAP item."""
-    from radnerf_tpu_torch.models import RendererState, render_rays
+    MLPs and tables), and training the camera offsets under it, the last
+    part of it that was refused, renders: the gradient reaches the frame's
+    camera rows."""
+    from radnerf_tpu_torch.models import render_rays
 
     cfg = NetworkConfig(compute_dtype="bfloat16", ind_num=4, train_camera=True)
     assert cfg.dtype == torch.bfloat16 and cfg.table_dtype == torch.bfloat16
     net = NeRFNetwork(cfg, device="cpu")
     assert all(p.dtype == torch.float32 for p in net.parameters())
     rc = RenderConfig(grid_size=16)
-    z3, z = torch.zeros(4, 3), torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        render_rays(net, rc, RendererState.create(rc, device="cpu"), z3, z3, None, z,
-                    torch.zeros(1, 6), None, 0, z3, training=True)
+    rng = np.random.default_rng(3)
+    d = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = -2.0 * d
+    full = state_from_numpy(rc, np.full((1, 16**3), 20.0, np.float32),
+                            np.zeros(16 * 16, np.float32), 20.0, 0.0, device="cpu")
+    res, _ = render_rays(net, rc, full, o, d, None, torch.zeros(8, 2), torch.zeros(1, 6),
+                         torch.full((1, 1), 0.25), 2, torch.ones(8, 3), training=True)
+    res["image"].sum().backward()
+    assert res["image"].dtype == torch.float32 and int(res["n_samples_needed"]) > 0
+    assert net.camera_dT.grad[2].abs().sum() > 0 and not net.camera_dT.grad[[0, 1, 3]].any()
 
 
 def test_entry_points_default_to_cuda():
@@ -178,8 +186,10 @@ def test_port_imports_no_jax():
             "radnerf_tpu_torch.train.losses", "radnerf_tpu_torch.train.trainer",
             "radnerf_tpu_torch.utils.color", "radnerf_tpu_torch.data.provider",
             "radnerf_tpu_torch.utils.image", "radnerf_tpu_torch.train.metrics",
-            "radnerf_tpu_torch.main", "radnerf_tpu_torch.infer"} <= set(mods)
-    assert len(mods) >= 29
+            "radnerf_tpu_torch.main", "radnerf_tpu_torch.infer",
+            "radnerf_tpu_torch.apps.asr", "radnerf_tpu_torch.apps.frame_server",
+            "radnerf_tpu_torch.utils.mesh"} <= set(mods)
+    assert len(mods) >= 33
 
     pat = re.compile(r"^\s*(import jax|from jax)|radnerf_tpu\.|from radnerf_tpu ", re.M)
     for path in _port_sources():

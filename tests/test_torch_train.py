@@ -312,18 +312,24 @@ def test_head_train_step_matches_jax(head_params):
 
 
 def test_render_rays_training_raises_for_unported_parts():
-    """Training camera offsets raise in render_rays, naming their ROADMAP
-    item; the lips finetune and patch training (the LPIPS term) build their
-    trainers, with the 0.05 decay in the lips finetune; the torso stage
-    trains."""
+    """Nothing of the training render is refused any more: with learnt
+    camera offsets the gradient reaches the frame's camera rows (and only
+    them) through the positions and directions; the lips finetune and patch
+    training (the LPIPS term) build their trainers, with the 0.05 decay in
+    the lips finetune; the torso stage trains."""
     cfg = NetworkConfig(exp_eye=True, ind_num=4, train_camera=True)
     net = NeRFNetwork(cfg, device="cpu")
     rc = RenderConfig(grid_size=16)
-    st = RendererState.create(rc, device="cpu")
-    z3, z = torch.zeros(4, 3), torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        render_rays(net, rc, st, z3, z3, None, z, torch.zeros(1, 6), None, 0, z3,
-                    training=True)
+    st = state_from_numpy(rc, np.full((1, 16**3), 20.0, np.float32), np.zeros(16 * 16),
+                          20.0, 0.0, device="cpu")
+    rng = np.random.default_rng(4)
+    d = _T(rng.normal(size=(16, 3)).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    res, _ = render_rays(net, rc, st, -2.0 * d, d, None, torch.zeros(16, 2), torch.zeros(1, 6),
+                         torch.full((1, 1), 0.25), 1, torch.ones(16, 3), training=True)
+    (res["image"].sum() + res["ambient"].sum()).backward()
+    for p in (net.camera_dR, net.camera_dT):
+        assert p.grad[1].abs().sum() > 0 and not p.grad[[0, 2, 3]].any()
     small = NetworkConfig(**SMALL)
     for opt, decay in ((Options(finetune_lips=True), 0.05), (Options(patch_size=32), 0.1)):
         tr = Trainer(opt, small, rc, device="cpu")
