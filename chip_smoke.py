@@ -126,6 +126,29 @@ set to 0 just before and read just after):
      chunk and the card's tetrahedra on a 64^3 sub-field against their
      plain and CPU results.
 
+Preprocessing (``python -m radnerf_tpu_torch.process``), on the reference's
+inputs at full size written in a temporary place (``preprocess_phase``):
+ preprocess: a seeded synthetic 3DMM at the BFM's sizes (34,650 vertices,
+     68,556 triangles, id 100, exp 79, tex 100) in the reference's three
+     files, 64 frames of 512x512 rendered from it by the port's renderer
+     over a seeded background, their landmarks, a 2.56 s wav and a seeded
+     BiSeNet checkpoint; tasks 2, 4, 5, 6, 8 (with the photometric stage)
+     and 9 through ``process.main`` with the launch counts set to 0 just
+     before and read just after (kernel E launched), tasks 1 and 3 where
+     ffmpeg is installed; task 4's masks, the BiSeNet on the card against
+     the CPU, the focal and the landmark fit's reprojection error, the
+     photometric loss falling in both stages, the landmark fit's id and exp
+     stage on a second 3DMM whose bases move a landmark by pixels (the
+     cell's move it by a fraction of one, so that the sweep can single out
+     the true focal), the photometric refinement on the card against the
+     CPU on the cell's first 10 frames, bc.jpg against the background, the
+     torso alpha against the truth masks, ``main`` training 8 head steps on
+     the written directory; E against ``rasterize_plain``
+     on a photometric step's own inputs (64 x 512 x 512) bit for bit; the
+     tasks' wall ms, the BiSeNet's ms a frame, the tracker's steps a
+     second, the photometric step fenced and profiled, E against its bound
+     (the function's own bytes) and the z-buffer's layout floor.
+
 Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
 calls as the host enqueues them (a kernel shorter than its wrapper's Python
 reads the host); ``device_ms`` times the same calls queued on the card.
@@ -140,12 +163,14 @@ non-zero. It exits non-zero without a CUDA device, and outside the
 repository (the port is imported from the checkout). A full report goes to
 chiprun_out/chip_smoke.json, the profiler's tables to
 chiprun_out/chip_smoke_profile.txt and chiprun_out/chip_smoke_train_profile.txt.
-The torso and entry steps' tables go beside them.
+The torso and entry steps', the live frame's and the photometric step's
+tables go beside them.
 """
 
 import contextlib
 import copy
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -198,6 +223,8 @@ REPLACES = {
     # the bf16 policy: build_packed_table(dtype=bfloat16) + the bf16 lerp
     "grid_encode_bf16": "radnerf_tpu/ops/grid_encode.py:308",
     "grid_encode_backward_bf16": "radnerf_tpu/ops/grid_encode.py:308",
+    # with _bin_triangles (:172), vmapped per frame in Render3DMM.__call__
+    "rasterize": "radnerf_tpu/preprocess/render_3dmm.py:218",
 }
 BF16_KERNELS = ("grid_encode_bf16", "grid_encode_backward_bf16")
 # the README's -O recipe: head steps, lips finetune steps, torso steps
@@ -220,6 +247,33 @@ LIVE_FRAMES, LIVE_SIZE, LIVE_SECONDS = 30, 512, 3.0
 # the mesh phase: save_mesh's defaults; the side of the sub-field the card's
 # tetrahedra are held to the CPU's on
 MESH_RESOLUTION, MESH_THRESHOLD, TETRA_CHECK = 256, 10.0, 64
+# the preprocess phase: the reference's inputs at full size -- the BFM's
+# sizes (a 175 x 198 vertex lattice: 34,650 vertices, 68,556 triangles; id
+# 100, exp 79, tex 100), one photometric window of 64 frames of 512x512 at
+# focal 1100 (one of the sweep's candidates), 2.56 s of audio (64 frames at
+# 25 fps), then 8 head steps of main on the written directory
+PRE_FRAMES, PRE_SIZE, PRE_FOCAL, PRE_SECONDS = 64, 512, 1100.0, 2.56
+PRE_LATTICE, PRE_DIMS, PRE_TRAIN_STEPS = (175, 198), (100, 79, 100), 8
+# the synthetic 3DMM's id and exp basis amplitudes: the pipeline's (chosen so
+# that the focal sweep can single out the true focal: a landmark moves by a
+# fraction of a pixel) and the id/exp check's (a landmark moves by pixels)
+PRE_AMPS, IDEXP_AMPS = (0.001, 0.005), (0.01, 0.05)
+# its checks: the BiSeNet's logits on the card against the CPU's, as
+# max|diff| over max|logit| (TF32 off; cuDNN's convolution algorithms sum in
+# other orders: float32 sums of up to 4,608 terms through 18 layers); the
+# tracker's mean landmark reprojection error; bc.jpg against the background
+# where the background was seen (the frames and the plate are JPEGs, the
+# frames at quality 100, the plate at cv2's 95: |diff| in 8-bit levels)
+TOL_BISENET_REL, MAX_REPROJ_PX, TOL_BG_MEAN, TOL_BG_P99 = 1e-4, 1.0, 2.0, 10.0
+# the tracker's id and exp on the card, beside the cell: photometric_refine on
+# the card against the CPU on the cell's first 10 frames in windows of 5 (the
+# second with the laplacian over the 5 frames before it): the steps' losses
+# (rel), each parameter's max|diff| over its largest |value|, the projected
+# landmarks (px). Both run the same float32 operations, summed in other
+# orders; an Adam step moves a parameter by up to its learning rate (0.01 for
+# stage 1's id and exp), so a skipped or wrong update shows at 1e-2
+PHOTO_CHECK = {"frames": 10, "batch_size": 5, "light_iters": 6, "fine_iters": 4}
+TOL_PHOTO_LOSS_REL, TOL_PHOTO_PARAM_REL, TOL_PHOTO_LMS_PX = 1e-3, 1e-2, 1e-2
 
 
 def emit(obj):
@@ -766,9 +820,12 @@ def main():
         marks.append(time.perf_counter())
         mesh_phase(report, out_dir, root, head_ckpt)
         marks.append(time.perf_counter())
+        kernels.append(preprocess_phase(report, out_dir, dev))
+        marks.append(time.perf_counter())
         report["phase_seconds"] = {"since_start": marks[0] - start,
                                    **{name: b - a for name, a, b in
-                                      zip(("camera", "live", "mesh"), marks, marks[1:])}}
+                                      zip(("camera", "live", "mesh", "preprocess"), marks,
+                                          marks[1:])}}
         emit({"phase": "phase_seconds", **report["phase_seconds"]})
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -2662,6 +2719,642 @@ def gather_phase(report, dev):
             "device_ms": big["device_ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"]}
+
+
+# ---------------------------------------------------------------- preprocess
+def bisenet_checkpoint(path, seed=0):
+    """A seeded BiSeNet checkpoint in the reference's key layout (every key
+    of 79999_iter.pth, the auxiliary heads and step counters included):
+    He-normal convolutions, batch norm scale U(0.5, 1.5), bias and mean
+    N(0, 0.1), variance U(0.5, 1.5)."""
+    from radnerf_tpu_torch.preprocess.face_parsing import BiSeNet
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in BiSeNet().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.int64)
+            continue
+        if k.endswith("running_var") or (v.dim() == 1 and k.endswith("weight")):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif v.dim() == 1:
+            a = rng.normal(0, 0.1, shape)
+        else:
+            a = rng.normal(size=shape) * math.sqrt(2.0 / np.prod(shape[1:]))
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    torch.save(sd, path)
+    return path
+
+
+def _lattice_uv(gx, gy):
+    """The face lattice: u across gx columns, v up gy rows, both in [-1, 1];
+    vertex (row i, column j) is i * gx + j; two triangles a cell."""
+    u, v = np.meshgrid(np.linspace(-1, 1, gx), np.linspace(1, -1, gy), indexing="xy")
+    i, j = np.meshgrid(np.arange(gy - 1), np.arange(gx - 1), indexing="ij")
+    a = (i * gx + j).reshape(-1)
+    tris = np.concatenate([np.stack([a, a + gx, a + 1], -1),
+                           np.stack([a + 1, a + gx, a + gx + 1], -1)]).astype(np.int32)
+    return u.reshape(-1), v.reshape(-1), tris
+
+
+def _landmark_uv():
+    """68 points in the reference's landmark order over the lattice face:
+    jaw 0-16, brows 17-26, nose 27-35, eyes 36-47 (hexagons), lips 48-67."""
+    pts = [(0.8 * math.cos(a), -0.1 + 0.8 * math.sin(a))
+           for a in np.linspace(math.pi * 1.05, math.pi * 1.95, 17)]
+    for side in (-1, 1):
+        pts += [(side * (0.12 + 0.1 * k), 0.45 + 0.04 * math.sin(math.pi * k / 4))
+                for k in range(5)][::side]
+    pts += [(0.0, 0.3 - 0.1 * k) for k in range(4)]
+    pts += [(0.08 * k, -0.08 - 0.02 * abs(k)) for k in range(-2, 3)]
+    for cx in (-0.32, 0.32):
+        pts += [(cx + 0.1 * math.cos(a), 0.28 + 0.05 * math.sin(a))
+                for a in np.linspace(math.pi, -math.pi, 6, endpoint=False)]
+    pts += [(0.22 * math.cos(a), -0.42 + 0.1 * math.sin(a))
+            for a in np.linspace(math.pi, -math.pi, 12, endpoint=False)]
+    pts += [(0.14 * math.cos(a), -0.42 + 0.04 * math.sin(a))
+            for a in np.linspace(math.pi, -math.pi, 8, endpoint=False)]
+    return np.asarray(pts)
+
+
+def synthetic_3dmm(root, seed=0, amps=PRE_AMPS):
+    """A seeded 3DMM at the BFM's sizes in the reference's files: a face-like
+    surface on a 175 x 198 lattice (34,650 vertices, 68,556 triangles; about
+    1.5 wide, 2 high and 1.5 deep, in 1e5 units as the BFM's), id 100 and
+    exp 79 smooth deformation bases (exp localised at the eyes and mouth), a
+    textured albedo with 100 texture bases, 68 landmark vertices and rigid
+    vertices. With ``amps`` PRE_AMPS the id and exp bases move a landmark by
+    a fraction of a pixel: with stronger ones the fits absorb the perspective
+    that tells the sweep's focal candidates apart into id and exp, and the
+    sweep's losses no longer single out the true focal (measured on the CPU
+    with this generator); IDEXP_AMPS move it by pixels. Writes
+    3DMM_info.npy, keys_info.npy and topology_info.npy under root; returns
+    their paths."""
+    gx, gy = PRE_LATTICE
+    n_id, n_exp, n_tex = PRE_DIMS
+    rng = np.random.default_rng(seed)
+    u, v, tris = _lattice_uv(gx, gy)
+    V = u.size
+    r2 = (u / 0.95) ** 2 + (v / 1.05) ** 2
+    nose = np.exp(-(u**2 + (v + 0.02) ** 2) / 0.015)
+    geo = np.stack([0.75 * u, 1.0 * v, 1.3 * np.sqrt(np.clip(1.0 - 0.95 * r2, 0.0, 1.0))
+                    + 0.25 * nose], -1)
+    # smooth fields: products of low-frequency cosines over the lattice
+    phi = np.stack([np.cos(math.pi * a * (u + 1) / 2) * np.cos(math.pi * b * (v + 1) / 2)
+                    for a in range(5) for b in range(5)])  # [25, V]
+    local = (np.exp(-(u**2 + (v + 0.42) ** 2) / 0.04)
+             + np.exp(-((np.abs(u) - 0.3) ** 2 + (v - 0.3) ** 2) / 0.02))
+
+    def bases(n, amp, window=1.0):
+        a = rng.normal(size=(n, 3, phi.shape[0])) / math.sqrt(phi.shape[0])
+        return (np.einsum("nck,kv->nvc", a, phi) * amp * np.asarray(window)[..., None])
+
+    info = {
+        "mu_shape": (geo * 1e5).reshape(-1).astype(np.float32),
+        "mu_exp": np.zeros(V * 3, np.float32),
+        "b_shape": (bases(n_id, amps[0]) * 1e5).reshape(n_id, -1).astype(np.float32),
+        "sig_shape": np.ones(n_id, np.float32),
+        "b_exp": (bases(n_exp, amps[1], local) * 1e5).reshape(n_exp, -1).astype(np.float32),
+        "sig_exp": np.ones(n_exp, np.float32),
+        "mu_tex": np.clip(np.array([190.0, 140.0, 120.0]) + 30 * phi[[1, 5, 6]].T
+                          + 25 * (np.cos(12 * math.pi * u) * np.cos(12 * math.pi * v))[:, None],
+                          0, 255).reshape(-1).astype(np.float32),
+        "b_tex": bases(n_tex, 8.0).reshape(n_tex, -1).astype(np.float32),
+        "sig_tex": np.ones(n_tex, np.float32),
+    }
+    lm = _landmark_uv()
+    keyinds = np.argmin((u[None] - lm[:, :1]) ** 2 + (v[None] - lm[:, 1:]) ** 2, axis=1)
+    rigid = np.nonzero((v > 0.0) & (r2 < 0.8))[0][::20]
+    paths = {k: os.path.join(root, f"{k}_info.npy") for k in ("3DMM", "keys", "topology")}
+    np.save(paths["3DMM"], info)
+    np.save(paths["keys"], {"keyinds": keyinds.astype(np.int64), "rigid_ids": rigid})
+    np.save(paths["topology"], {"tris": tris})
+    return paths
+
+
+def synthetic_truth(rng, n):
+    """Seeded true tracking parameters for n frames (smooth in time): id,
+    exp, euler, trans (z near -7), SH light (27 per frame) and texture."""
+    n_id, n_exp, n_tex = PRE_DIMS
+    t = np.arange(n)[:, None] / n
+
+    def wave(k, amp):
+        return amp * np.sin(2 * math.pi * (rng.uniform(0.5, 1.5, k) * t + rng.uniform(0, 1, k)))
+
+    light = np.zeros((n, 27))
+    light[:, [0, 9, 18]] = 0.3
+    light[:, [1, 2, 3, 10, 11, 12, 19, 20, 21]] = rng.normal(0, 0.12, 9)
+    light += wave(27, 0.01)
+    return {k: np.asarray(v, np.float32) for k, v in {
+        "id": rng.normal(0, 0.2, (1, n_id)), "exp": wave(n_exp, 0.2),
+        "euler": wave(3, 0.25), "trans": np.concatenate([wave(2, 0.1), -7.0 + wave(1, 0.2)], 1),
+        "light": light, "tex": rng.normal(0, 0.5, (1, n_tex))}.items()}
+
+
+def write_video_inputs(root, paths, dev, seed=1):
+    """The processed directory's inputs before preprocessing, as the
+    reference's tasks 1, 3 and 7 would leave them, made without a video: 64
+    frames of 512x512 (ori_imgs/<i>.jpg, quality 100) of the synthetic 3DMM
+    rendered by the port's Render3DMM from seeded true parameters at focal
+    1100, over a seeded static background and a neck and torso below the
+    face; their .lms landmarks projected from the truth; aud.wav (2.56 s);
+    the BiSeNet checkpoint. Returns (truth, background [H, W, 3] uint8 BGR,
+    truth masks [N, H, W] uint8: 0 bg, 1 head, 2 neck, 3 torso)."""
+    import cv2
+
+    from radnerf_tpu_torch.preprocess.face_tracker import (
+        basis_from_file, euler_rot, landmarks_from_params, project,
+    )
+    from radnerf_tpu_torch.preprocess.render_3dmm import (
+        Render3DMM, forward_geo, forward_tex, mesh_basis_from_file,
+    )
+
+    N, S = PRE_FRAMES, PRE_SIZE
+    rng = np.random.default_rng(seed)
+    truth = synthetic_truth(rng, N)
+    mesh = mesh_basis_from_file(paths["3DMM"], paths["topology"], paths["keys"]).to(dev)
+    lm = basis_from_file(paths["3DMM"], paths["keys"])
+    tt = {k: torch.from_numpy(v).to(dev) for k, v in truth.items()}
+    with torch.no_grad():
+        geo = forward_geo(mesh, tt["id"].expand(N, -1), tt["exp"])
+        cam = torch.einsum("nij,nkj->nki", euler_rot(tt["euler"]), geo) + tt["trans"][:, None]
+        rgba = Render3DMM(PRE_FOCAL, S, S, mesh.tris)(cam, forward_tex(mesh, tt["tex"].expand(
+            N, -1)), tt["light"]).cpu().numpy()
+        lms = project(landmarks_from_params(lm, tt["id"].expand(N, -1), tt["exp"]),
+                      tt["euler"], tt["trans"], PRE_FOCAL, (S / 2.0, S / 2.0)).cpu().numpy()
+    yy, xx = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    bg = np.stack([90 + 60 * np.sin(xx / 70.0) + 20 * np.cos(yy / 45.0),
+                   110 + 50 * np.cos(xx / 90.0 + yy / 120.0),
+                   140 + 40 * np.sin(yy / 60.0)], -1)
+    bg = np.clip(bg + rng.normal(0, 1.0, (1, 1, 3)), 0, 255).astype(np.uint8)  # BGR
+    ori = os.path.join(root, "ori_imgs")
+    os.makedirs(ori)
+    masks = np.zeros((N, S, S), np.uint8)
+    for i in range(N):
+        head = rgba[i, ..., 3] > 0
+        rows = np.nonzero(head.any(1))[0]
+        chin, cx = rows.max(), int(round(lms[i, 8, 0]))
+        neck = (yy > chin - 30) & (yy <= chin + 40) & (np.abs(xx - cx) < 60) & ~head
+        torso = (yy > chin + 40) & (np.abs(xx - cx) < 150 + (yy - chin - 40)) & ~head
+        frame = bg.copy()
+        frame[neck] = (120, 150, 200)
+        frame[torso] = (60, 60, 140)
+        frame[head] = np.clip(np.round(rgba[i, ..., 2::-1][head]), 0, 255).astype(np.uint8)
+        masks[i][head], masks[i][neck], masks[i][torso] = 1, 2, 3
+        cv2.imwrite(os.path.join(ori, f"{i}.jpg"), frame, [cv2.IMWRITE_JPEG_QUALITY, 100])
+        np.savetxt(os.path.join(ori, f"{i}.lms"), lms[i], "%f")
+    write_wav(os.path.join(root, "aud.wav"), PRE_SECONDS)
+    bisenet_checkpoint(os.path.join(root, "79999_iter.pth"))
+    return truth, bg, masks
+
+
+def write_truth_masks(root, masks):
+    """The truth masks over parsing/ in task 4's colours (as
+    classes_to_colors writes them through cv2)."""
+    import cv2
+
+    colors = np.array([(255, 255, 255), (255, 0, 0), (0, 255, 0), (0, 0, 255)], np.uint8)
+    for i, m in enumerate(masks):
+        cv2.imwrite(os.path.join(root, "parsing", f"{i}.png"), colors[m])
+
+
+@contextlib.contextmanager
+def recorded_losses():
+    """Every ``backward()`` called in the block, its tensor recorded
+    (detached, in call order): the losses of an optimisation's steps."""
+    losses, backward = [], torch.Tensor.backward
+
+    def recording(self, *a, **kw):
+        losses.append(self.detach())
+        return backward(self, *a, **kw)
+
+    torch.Tensor.backward = recording
+    try:
+        yield losses
+    finally:
+        torch.Tensor.backward = backward
+
+
+def photometric_ms_by_class(events, reps):
+    """Device ms per photometric step by kind: kernel E; the index kernels
+    and the sorts of their backward (the attribute interpolation's gathers
+    and their gradient); GEMMs (the bases); `cat` copies; elementwise
+    kernels (copies included); reductions; host copies and memsets; the
+    rest."""
+    out = {"rasterize_E": 0.0, "index_and_sort": 0.0, "gemm": 0.0, "cat": 0.0,
+           "elementwise": 0.0, "reduce": 0.0, "memcpy_memset": 0.0, "other": 0.0}
+    for e in events:
+        k = e.key.lower()
+        kind = ("rasterize_E" if "raster_triangles" in k or "unpack_ids" in k
+                else "index_and_sort" if any(w in k for w in ("index", "scatter", "gather",
+                                                               "sort"))
+                else "gemm" if "gemm" in k else "cat" if "catarraybatchedcopy" in k
+                else "elementwise" if "elementwise" in k else "reduce" if "reduce" in k
+                else "memcpy_memset" if "memcpy" in k or "memset" in k else "other")
+        out[kind] += e.self_device_time_total / reps / 1e3
+    return out
+
+
+def idexp_fit_check(root, dev):
+    """The landmark fit's id and exp stage on the card, which the cell's
+    bases cannot show (they move a landmark by a fraction of a pixel, so a
+    fit that never moved id or exp would still reproject within
+    MAX_REPROJ_PX): a synthetic 3DMM whose id and exp bases move a landmark
+    by pixels (IDEXP_AMPS), the true parameters' landmarks at the true focal,
+    and track_landmarks' coarse fit at that focal (``_fit``, its default
+    iterations and smoothing) run twice: pose only, which must miss the
+    landmarks by more than MAX_REPROJ_PX, and whole, which must come within
+    it."""
+    from radnerf_tpu_torch.preprocess import face_tracker
+
+    os.makedirs(os.path.join(root, "idexp"))
+    paths = synthetic_3dmm(os.path.join(root, "idexp"), amps=IDEXP_AMPS)
+    lm = face_tracker.basis_from_file(paths["3DMM"], paths["keys"]).to(dev)
+    N, cxy = PRE_FRAMES, (PRE_SIZE / 2.0, PRE_SIZE / 2.0)
+    truth = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_truth(np.random.default_rng(1), N).items()}
+
+    def landmarks(p, pose):
+        with torch.no_grad():
+            return face_tracker.project(
+                face_tracker.landmarks_from_params(lm, p["id"].expand(N, -1), p["exp"]),
+                pose["euler"], pose["trans"], PRE_FOCAL, cxy)
+
+    lms = landmarks(truth, truth)
+    out = {"amps": IDEXP_AMPS, "idexp_part_px_mean": float(
+        (lms - landmarks({"id": 0 * truth["id"], "exp": 0 * truth["exp"]}, truth))
+        .norm(dim=-1).mean())}
+    n_pose, n_joint = inspect.signature(face_tracker.track_landmarks).parameters[
+        "coarse_iters"].default
+    for name, joint in (("pose_only", 0), ("joint", n_joint)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, _ = face_tracker._fit(lm, lms, PRE_FOCAL, cxy, n_pose, joint, smooth_weight=0.01)
+        torch.cuda.synchronize()
+        out[name] = {"steps": n_pose + joint, "seconds": time.perf_counter() - t,
+                     "reprojection_px_mean": float((landmarks(p, p) - lms).norm(dim=-1).mean())}
+    # the fit's id/exp part at the true pose against the truth's (reported)
+    out["joint"]["idexp_part_err_px_mean"] = float(
+        (landmarks(p, truth) - lms).norm(dim=-1).mean())
+    if not (out["pose_only"]["reprojection_px_mean"] > MAX_REPROJ_PX
+            > out["joint"]["reprojection_px_mean"]):
+        raise RuntimeError(f"the landmark fit's id and exp stage on pixel-sized bases: {out}")
+    return out
+
+
+def photometric_card_vs_cpu(refine, args, dev):
+    """photometric_refine on the card against the same call on the CPU
+    (rasterize_plain there), on the cell's own inputs cut to PHOTO_CHECK's
+    frames and steps: losses, parameters and projected landmarks held to
+    TOL_PHOTO_*. Returns the differences."""
+    from radnerf_tpu_torch.preprocess import face_tracker
+
+    track, lms, images, mesh, lm_basis, h, w = args
+    N, n = len(lms), PHOTO_CHECK["frames"]
+    track = {k: np.asarray(v)[:n] if np.asarray(v).shape[0] == N else v
+             for k, v in track.items()}
+    kw = {k: v for k, v in PHOTO_CHECK.items() if k != "frames"}
+    runs = {}
+    for d in (dev, "cpu"):
+        with recorded_losses() as losses:
+            out = refine(track, lms[:n], images[:n], mesh, lm_basis, h, w, device=d, **kw)
+        runs[d] = (out, np.array([float(v) for v in losses]))
+
+    def landmarks(p):
+        t = {k: torch.from_numpy(np.asarray(p[k], np.float32)) for k in p}
+        return face_tracker.project(
+            face_tracker.landmarks_from_params(lm_basis.to("cpu"), t["id"].expand(n, -1),
+                                               t["exp"]),
+            t["euler"], t["trans"], float(np.asarray(p["focal"]).reshape(-1)[0]),
+            (w / 2.0, h / 2.0)).numpy()
+
+    (got, l_got), (want, l_want) = runs[dev], runs["cpu"]
+    res = {**PHOTO_CHECK, "steps": len(l_got),
+           "loss_rel_err": float(np.abs(l_got / l_want - 1).max()),
+           "param_rel_err": {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                             for k in ("id", "exp", "euler", "trans", "tex", "light")},
+           "landmarks_px_err": float(np.abs(landmarks(got) - landmarks(want)).max()),
+           "tol": [TOL_PHOTO_LOSS_REL, TOL_PHOTO_PARAM_REL, TOL_PHOTO_LMS_PX]}
+    if not (len(l_got) == len(l_want) and res["loss_rel_err"] <= TOL_PHOTO_LOSS_REL
+            and max(res["param_rel_err"].values()) <= TOL_PHOTO_PARAM_REL
+            and res["landmarks_px_err"] <= TOL_PHOTO_LMS_PX):
+        raise RuntimeError(f"photometric_refine on the card against the CPU: {res}")
+    return res
+
+
+def preprocess_phase(report, out_dir, dev):
+    """preprocess: ``python -m radnerf_tpu_torch.process`` in this process on
+    the reference's inputs at full size, made in a temporary place (the
+    BFM-size synthetic 3DMM, 64 frames of 512x512, landmarks, a 2.56 s wav, a
+    seeded BiSeNet), launch counts from 0 just before task 2 and read after
+    task 9: task 2 (a seeded stand-in acoustic model on the card), task 4
+    (the BiSeNet over all 64 frames), tasks 5-6 on the truth masks written
+    over parsing/, task 8 with the photometric stage (kernel E), task 9;
+    tasks 1 and 3 on a video made by ffmpeg where it is installed. Checks:
+    E launched; E against rasterize_plain on a photometric step's own
+    inputs; task 4's masks; the BiSeNet on the card against the CPU; the
+    focal and the reprojection error; the photometric loss falling in both
+    stages; the landmark fit's id and exp stage on pixel-sized bases; the
+    photometric refinement on the card against the CPU; bc.jpg; the torso
+    alpha; ``radnerf_tpu_torch.main`` training on the directory. Then
+    timing: per task, the BiSeNet, the tracker's steps a second, the
+    photometric step fenced and profiled, E against its bound and its
+    layout floor. Returns E's kernels-line entry."""
+    import shutil
+
+    import cv2
+
+    from radnerf_tpu_torch import process
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.ops import _kernels, rasterize, rasterize_plain
+    from radnerf_tpu_torch.ops.rasterize import _covered_pairs
+    from radnerf_tpu_torch.preprocess import face_parsing, face_tracker, render_3dmm
+
+    smi = nvidia_smi_line()
+    ph = {"nvidia_smi": smi}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = synthetic_3dmm(root)
+        truth, bg, masks = write_video_inputs(root, paths, dev)
+        ph["inputs_seconds"] = time.perf_counter() - t0
+        video = os.path.join(root, "video.mp4")
+        ffmpeg = shutil.which("ffmpeg")
+
+        # what the main path calls, recorded: the tracker's fits, the
+        # photometric refinement (its inputs and its steps' losses) and E's
+        # inputs
+        fits, photo, raster_calls = [], {}, []
+        fit_batched, refine = face_tracker._fit_batched, face_tracker.photometric_refine
+        raster = render_3dmm.rasterize
+
+        def timed_fit(basis, lms, focals, cxy, n_pose, n_joint, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fit_batched(basis, lms, focals, cxy, n_pose, n_joint, *a, **kw)
+            torch.cuda.synchronize()
+            fits.append({"candidates": len(focals), "frames": int(lms.shape[0]),
+                         "steps": n_pose + n_joint, "seconds": time.perf_counter() - t})
+            return out
+
+        def recorded_refine(track, lms, images, mesh, lm_basis, h, w, **kw):
+            photo["args"] = (track, lms, images, mesh, lm_basis, h, w)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with recorded_losses() as photo["losses"]:
+                out = refine(track, lms, images, mesh, lm_basis, h, w, **kw)
+            torch.cuda.synchronize()
+            photo["seconds"] = time.perf_counter() - t
+            return out
+
+        def recorded_raster(xy, z, tris, H, W):
+            raster_calls[:] = [(xy, z, tris, H, W)]  # the last call's inputs
+            return raster(xy, z, tris, H, W)
+
+        face_tracker._fit_batched = timed_fit
+        face_tracker.photometric_refine = recorded_refine
+        render_3dmm.rasterize = recorded_raster
+        tasks = [(2, []), (4, ["--parsing_weights", os.path.join(root, "79999_iter.pth")]),
+                 (5, []), (6, []),
+                 (8, ["--basis_path", paths["3DMM"], "--keys_path", paths["keys"],
+                      "--topology_path", paths["topology"]]), (9, [])]
+        task_ms, launches = {}, {}
+        try:
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            for task, extra in tasks:
+                if task == 5:
+                    # task 4 checked, the truth masks go over parsing/ so that
+                    # the plates of tasks 5-6 can be held to the truth
+                    parsed = [cv2.imread(os.path.join(root, "parsing", f"{i}.png"))
+                              for i in range(PRE_FRAMES)]
+                    write_truth_masks(root, masks)
+                t = time.perf_counter()
+                process.main([video, "--task", str(task), *extra], device=dev,
+                             logits_fn=stand_in_logits(44, dev) if task == 2 else None)
+                torch.cuda.synchronize()
+                task_ms[task] = (time.perf_counter() - t) * 1e3
+            launches = _kernels.launches()
+            if ffmpeg:
+                # tasks 1 and 3 on a video of the frames, in a directory of their own
+                vdir = os.path.join(root, "ffmpeg")
+                os.makedirs(vdir)
+                subprocess.run([ffmpeg, "-y", "-loglevel", "error", "-framerate", "25", "-i",
+                                os.path.join(root, "ori_imgs", "%d.jpg"), "-i",
+                                os.path.join(root, "aud.wav"), "-shortest",
+                                os.path.join(vdir, "video.mp4")], check=True, timeout=120)
+                for task in (1, 3):
+                    t = time.perf_counter()
+                    process.main([os.path.join(vdir, "video.mp4"), "--task", str(task)],
+                                 device=dev)
+                    task_ms[task] = (time.perf_counter() - t) * 1e3
+                n_jpg = len(os.listdir(os.path.join(vdir, "ori_imgs")))
+                if not os.path.exists(os.path.join(vdir, "aud.wav")) or n_jpg == 0:
+                    raise RuntimeError(f"tasks 1 and 3 wrote {n_jpg} frames and "
+                                       f"{os.listdir(vdir)}")
+        finally:
+            face_tracker._fit_batched, face_tracker.photometric_refine = fit_batched, refine
+            render_3dmm.rasterize = raster
+        ph.update(task_ms=task_ms, launches=launches,
+                  tasks_run=sorted(task_ms), ffmpeg=bool(ffmpeg),
+                  tasks_1_3="run on an ffmpeg-made video" if ffmpeg
+                  else "not run: no ffmpeg on this machine (the frames and wav are written)",
+                  iterations="the tracker's defaults: focal_iters (2000, 2500), coarse_iters "
+                             "(1000, 2500), light_iters 71, fine_iters 50; no cut")
+        if launches.get("rasterize", 0) <= 0:
+            raise RuntimeError(f"kernel E was not launched by the preprocessing run: {launches}")
+
+        # task 4: the four colours at frame size; the BiSeNet on the card
+        # against the same module on the CPU (TF32 off) on one frame
+        colours = set()
+        for m in parsed:
+            if m is None or m.shape != (PRE_SIZE, PRE_SIZE, 3):
+                raise RuntimeError("task 4 wrote no mask of the frame's size")
+            colours |= {tuple(int(c) for c in row) for row in np.unique(m.reshape(-1, 3), axis=0)}
+        net = face_parsing.load_torch_weights(os.path.join(root, "79999_iter.pth"), dev)
+        frames = [cv2.cvtColor(cv2.imread(os.path.join(root, "ori_imgs", f"{i}.jpg")),
+                               cv2.COLOR_BGR2RGB)
+                  for i in range(min(face_parsing.BATCH, PRE_FRAMES))]
+        x = torch.from_numpy(np.stack([face_parsing.normalize_frame(f) for f in frames])).to(dev)
+        with torch.no_grad():
+            logit_gpu = net(x[:1]).cpu()
+            logit_cpu = copy.deepcopy(net).cpu()(x[:1].cpu())
+            bise_ms = cuda_ms(lambda: net(x), 5) / len(frames)
+            bise_dms = device_ms(lambda: net(x), 5) / len(frames)
+        bise_err = float((logit_gpu - logit_cpu).abs().max() / logit_cpu.abs().max())
+        ph["bisenet"] = {"colours": sorted(colours), "frames": PRE_FRAMES,
+                         "logits_rel_err_vs_cpu": bise_err, "tol": TOL_BISENET_REL,
+                         "ms_per_frame": bise_ms, "device_ms_per_frame": bise_dms,
+                         "batch": len(frames)}
+        if not colours <= {(255, 255, 255), (255, 0, 0), (0, 255, 0), (0, 0, 255)}:
+            raise RuntimeError(f"task 4's masks hold other colours: {sorted(colours)}")
+        if not bise_err <= TOL_BISENET_REL:
+            raise RuntimeError(f"BiSeNet on the card vs the CPU: {bise_err}")
+
+        # task 8: the focal, the reprojection errors of the landmark fit and
+        # of the photometric refinement's output, the photometric loss
+        lm = face_tracker.basis_from_file(paths["3DMM"], paths["keys"])
+        lms = np.stack([np.loadtxt(os.path.join(root, "ori_imgs", f"{i}.lms"))
+                        for i in range(PRE_FRAMES)]).astype(np.float32)
+
+        def reprojection(p):
+            with torch.no_grad():
+                t = {k: torch.from_numpy(np.asarray(p[k], np.float32)).to(dev)
+                     for k in ("id", "exp", "euler", "trans")}
+                proj = face_tracker.project(
+                    face_tracker.landmarks_from_params(lm, t["id"].expand(PRE_FRAMES, -1),
+                                                       t["exp"]),
+                    t["euler"], t["trans"], float(np.asarray(p["focal"]).reshape(-1)[0]),
+                    (PRE_SIZE / 2.0, PRE_SIZE / 2.0)).cpu().numpy()
+            return float(np.linalg.norm(proj - lms, axis=-1).mean())
+
+        track = dict(np.load(os.path.join(root, "track_params.npz")))
+        landmark_fit = photo["args"][0]
+        reproj = reprojection(landmark_fit)
+        # the run's steps: light_iters of stage 1, then those of stage 2
+        n_light = inspect.signature(refine).parameters["light_iters"].default
+        light = [float(v) for v in photo["losses"][:n_light]]
+        fine = [float(v) for v in photo["losses"][n_light:]]
+        sweep, coarse = fits[0], fits[1]
+        ph["tracker"] = {
+            "focal": float(track["focal"][0]), "true_focal": PRE_FOCAL,
+            "landmark_fit_reprojection_px_mean": reproj, "max_reprojection_px": MAX_REPROJ_PX,
+            "refined_reprojection_px_mean": reprojection(track),
+            "sweep": {**sweep, "steps_per_s": sweep["steps"] / sweep["seconds"]},
+            "coarse": {**coarse, "steps_per_s": coarse["steps"] / coarse["seconds"]},
+            "photometric_seconds": photo["seconds"],
+            "light_loss_first_last": [light[0], light[-1]],
+            "fine_loss_first_last": [fine[0], fine[-1]],
+            "photometric_steps": len(photo["losses"]),
+            "pose_err_vs_truth": {f"{k}_{name}": float(np.abs(p[k] - truth[k]).mean())
+                                  for k in ("euler", "trans")
+                                  for name, p in (("landmark_fit", landmark_fit),
+                                                  ("refined", track))}}
+        if ph["tracker"]["focal"] != PRE_FOCAL:
+            raise RuntimeError(f"the tracker picked focal {ph['tracker']['focal']}")
+        if not reproj < MAX_REPROJ_PX:
+            raise RuntimeError(f"the landmark fit's mean reprojection error: {reproj} px")
+        if not (light[-1] < light[0] and fine[-1] < fine[0]):
+            raise RuntimeError(f"photometric loss: light {light[0]} -> {light[-1]}, "
+                               f"fine {fine[0]} -> {fine[-1]}")
+        # id and exp: the landmark fit on pixel-sized bases; the photometric
+        # refinement held to the CPU's
+        ph["tracker"]["idexp_fit"] = idexp_fit_check(root, dev)
+        ph["tracker"]["photometric_vs_cpu"] = photometric_card_vs_cpu(refine, photo["args"], dev)
+
+        # tasks 5-6: the plate where the background was seen, the torso alpha
+        from scipy.ndimage import binary_dilation, distance_transform_edt
+
+        seen = np.zeros((PRE_SIZE, PRE_SIZE), bool)
+        for i in range(0, PRE_FRAMES, 20):
+            seen |= distance_transform_edt(masks[i] == 0) > 5.0
+        plate = cv2.imread(os.path.join(root, "bc.jpg")).astype(np.float64)
+        err = np.abs(plate - bg)[seen]
+        alpha_ok, alpha_vals = True, set()
+        for i in range(PRE_FRAMES):
+            a = cv2.imread(os.path.join(root, "torso_imgs", f"{i}.png"), cv2.IMREAD_UNCHANGED)
+            alpha_vals |= set(np.unique(a[..., 3]).tolist())
+            # opaque on the neck and torso; transparent on the background but
+            # for the neck's 3-pixel vertical dilation and the columns task 6
+            # paints upward from the neck and torso (53 rows from 4 below
+            # the neck's top, 9 from the torso's)
+            body = masks[i] >= 2
+            reach = binary_dilation(masks[i] == 2, np.ones((3, 1), bool), iterations=3)
+            for k in range(1, 58):
+                reach[:-k] |= body[k:]
+            alpha_ok &= bool((a[..., 3][body] == 255).all()
+                             and (a[..., 3][(masks[i] == 0) & ~reach] == 0).all())
+        ph["plates"] = {"bg_seen_share": float(seen.mean()),
+                        "bg_abs_err_mean": float(err.mean()),
+                        "bg_abs_err_p99": float(np.percentile(err, 99)),
+                        "tol_mean": TOL_BG_MEAN, "tol_p99": TOL_BG_P99,
+                        "torso_alpha_matches_truth": alpha_ok,
+                        "alpha_values": sorted(alpha_vals)}
+        if not (err.mean() <= TOL_BG_MEAN and np.percentile(err, 99) <= TOL_BG_P99):
+            raise RuntimeError(f"bc.jpg vs the background: {ph['plates']}")
+        if not alpha_ok or not alpha_vals <= {0, 255}:
+            raise RuntimeError(f"torso plates' alpha vs the truth masks: {ph['plates']}")
+
+        # the directory the pipeline wrote trains
+        ws = os.path.join(root, "workspace")
+        t = time.perf_counter()
+        trainer = port_main([root, "--workspace", ws, "--preload", "2", "--data_range", "0",
+                             str(PRE_TRAIN_STEPS), "--iters", str(PRE_TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        losses = trainer.stats["step_loss"]
+        ph["train"] = {"steps": trainer.global_step, "loss_first": losses[0],
+                       "loss_last": losses[-1], "seconds": time.perf_counter() - t,
+                       "files": sorted(f for f in os.listdir(root) if "." in f)}
+        if trainer.global_step < PRE_TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"main on the written directory: {ph['train']}")
+        del trainer
+
+        # E against its plain version on a photometric step's own inputs
+        xy, z, tris, H, W = raster_calls[0]
+        got, want = rasterize(xy, z, tris, H, W), rasterize_plain(xy, z, tris, H, W)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        # the bound: the function's own bytes (xy, z and tris read, tri_id
+        # written) and ~20 float32 operations for each covered (pixel,
+        # triangle) pair, the depth tests any rasterizer makes; the z-buffer's
+        # layout floor adds this design's scratch bytes (the u64 buffer set
+        # and read, 8 bytes an update at each covered pair)
+        covered = sum(pix.numel() for _, pix, _ in _covered_pairs(xy, z, tris, H, W))
+        B, V, T = xy.shape[0], xy.shape[1], tris.shape[0]
+        nb = B * V * 12 + T * 12 + B * H * W * 4
+        floor_b = nb + B * H * W * (8 + 8) + covered * 8
+        bms, by = bound_ms(nb, covered * 20)
+        e = {"name": "rasterize", "route": "cuda", "source": "radnerf_tpu_torch/csrc/rasterize.cu",
+             "replaces": REPLACES["rasterize"], "launches": launches["rasterize"],
+             "max_abs_err": float((got - want).abs().max()), "pixels_differing": n_diff,
+             "ms": cuda_ms(lambda: rasterize(xy, z, tris, H, W), 20),
+             "device_ms": device_ms(lambda: rasterize(xy, z, tris, H, W), 20),
+             "plain_ms": cuda_ms(lambda: rasterize_plain(xy, z, tris, H, W), 2),
+             "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": covered * 20,
+             "layout_floor_ms": bound_ms(floor_b, 0)[0], "layout_floor_bytes": floor_b,
+             "pairs_covered": covered,
+             "covered_share": float((got >= 0).float().mean()),
+             "shapes": {"frames": B, "vertices": V, "triangles": T, "H": H, "W": W},
+             "library_ms": None}
+        if n_diff:
+            raise RuntimeError(f"kernel E differs from rasterize_plain at {n_diff} pixels")
+
+        # the photometric step: fenced (one window of 64 frames, stage 2
+        # only: 12 steps less 2, so the window's set-up cancels), profiled
+        track_in, lms_in, imgs_in, mesh_in, lm_in, h, w = photo["args"]
+
+        def refine_steps(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            refine(track_in, lms_in, imgs_in, mesh_in, lm_in, h, w, light_iters=0,
+                   fine_iters=n, device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        refine_steps(2)
+        step_ms = (refine_steps(12) - refine_steps(2)) / 10 * 1e3
+        # by class: a profile of the window with 4 steps less one with 1
+        profiles = [device_profile(lambda i, n=n: refine(
+            track_in, lms_in, imgs_in, mesh_in, lm_in, h, w, light_iters=0, fine_iters=n,
+            device=dev), 1) for n in (1, 4)]
+        one, four = (photometric_ms_by_class(events, 1) for _, events in profiles)
+        by_class = {k: (four[k] - one[k]) / 3 for k in one}
+        with open(os.path.join(out_dir, "chip_smoke_preprocess_profile.txt"), "w") as f:
+            f.write(profiles[1][0].key_averages().table(sort_by="self_device_time_total",
+                                                        row_limit=40))
+        ph["photometric_step"] = {
+            "fenced_ms": step_ms, "frames": int(imgs_in.shape[0]),
+            "fenced": "one stage-2 window of 12 steps less one of 2, over 10",
+            "profile": "one stage-2 window of 4 steps less one of 1, over 3",
+            "device_ms_by_class": by_class, "device_ms": sum(by_class.values()),
+            "device_busy_share": sum(by_class.values()) / step_ms}
+        ph["kernel_E"] = {k: e[k] for k in ("device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
+                                            "bytes", "layout_floor_ms", "layout_floor_bytes",
+                                            "launches", "pixels_differing", "pairs_covered",
+                                            "covered_share", "shapes")}
+    report["preprocess"] = ph
+    emit({"phase": "preprocess", **ph})
+    return e
 
 
 if __name__ == "__main__":

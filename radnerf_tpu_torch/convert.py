@@ -142,3 +142,57 @@ def state_from_numpy(cfg: RenderConfig, density_grid: np.ndarray,
             else torch.as_tensor(np.asarray(density_bitfield, np.uint8)).to(dev))
     return make_state(cfg, grid, torso, mean_density, mean_density_torso, thresh,
                       bits, audio_dim)
+
+
+def bisenet_from_jax(params: dict, device="cuda"):
+    """An eval-mode ``preprocess.face_parsing.BiSeNet`` holding the JAX
+    face-parsing pytree (``bisenet_init`` / ``load_torch_weights`` layout,
+    numpy leaves). The JAX output head's bias must be zero: the reference's
+    head has none. The auxiliary heads, which JAX does not keep, stay as
+    initialised."""
+    from .preprocess.face_parsing import BiSeNet
+
+    dev = resolve_device(device)
+    net = BiSeNet(np.asarray(params["conv_out"]["out_w"]).shape[0])
+    sd = {}
+
+    def bn(prefix, p):
+        for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                             ("running_var", "var")):
+            sd[f"{prefix}.{ours}"] = p[theirs]
+
+    def cbr(prefix, p):
+        sd[f"{prefix}.conv.weight"] = p["w"]
+        bn(f"{prefix}.bn", p["bn"])
+
+    res = params["resnet"]
+    sd["cp.resnet.conv1.weight"] = res["conv1"]
+    bn("cp.resnet.bn1", res["bn1"])
+    for i in range(1, 5):
+        for j, blk in enumerate(res[f"layer{i}"]):
+            prefix = f"cp.resnet.layer{i}.{j}"
+            sd[f"{prefix}.conv1.weight"], sd[f"{prefix}.conv2.weight"] = blk["conv1"], blk["conv2"]
+            bn(f"{prefix}.bn1", blk["bn1"])
+            bn(f"{prefix}.bn2", blk["bn2"])
+            if "down_w" in blk:
+                sd[f"{prefix}.downsample.0.weight"] = blk["down_w"]
+                bn(f"{prefix}.downsample.1", blk["down_bn"])
+    for arm in ("arm16", "arm32"):
+        cbr(f"cp.{arm}.conv", params[arm]["conv"])
+        sd[f"cp.{arm}.conv_atten.weight"] = params[arm]["atten_w"]
+        bn(f"cp.{arm}.bn_atten", params[arm]["atten_bn"])
+    for name in ("conv_head32", "conv_head16", "conv_avg"):
+        cbr(f"cp.{name}", params[name])
+    cbr("ffm.convblk", params["ffm_convblk"])
+    sd["ffm.conv1.weight"], sd["ffm.conv2.weight"] = params["ffm_conv1"], params["ffm_conv2"]
+    cbr("conv_out.conv", params["conv_out"]["conv"])
+    sd["conv_out.conv_out.weight"] = params["conv_out"]["out_w"]
+    if np.any(np.asarray(params["conv_out"]["out_b"]) != 0):
+        raise ValueError("the output head's bias is not zero; the reference's head has none")
+    missing, unexpected = net.load_state_dict(
+        {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}, strict=False)
+    left = [k for k in missing if not k.startswith(("conv_out16.", "conv_out32."))
+            and not k.endswith("num_batches_tracked")]
+    if left or unexpected:
+        raise ValueError(f"BiSeNet keys not carried: missing {left}, unexpected {unexpected}")
+    return net.to(dev).eval()

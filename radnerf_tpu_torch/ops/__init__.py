@@ -1,8 +1,8 @@
 """Compute ops of the port: encoders, marcher, compositor, row gather,
-Morton codes.
+rasterizer, Morton codes.
 
-``grid_encode``, ``march_rays``, ``composite_rays`` and ``take_rows`` wrap
-the hand-written CUDA kernels A, B, C and D; the gradients of the first and
+``grid_encode``, ``march_rays``, ``composite_rays``, ``take_rows`` and
+``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E; the gradients of the first and
 third are kernels A' and C' (``grid_encode_backward``,
 ``composite_rays_backward``). Each has a plain PyTorch version (``*_plain``)
 that the wrapper runs for CPU tensors.
@@ -30,6 +30,7 @@ from .marching import (
 )
 from .morton import morton3d, morton3d_invert, morton_dilate, packbits, unpackbits
 from .ray_aabb import near_far_from_aabb
+from .rasterize import rasterize, rasterize_plain
 from .rowgather import bench_gather_study, take_rows, take_rows_plain
 from .sh_encode import sh_encode, sh_output_dim
 
@@ -57,6 +58,8 @@ __all__ = [
     "packbits",
     "unpackbits",
     "near_far_from_aabb",
+    "rasterize",
+    "rasterize_plain",
     "bench_gather_study",
     "take_rows",
     "take_rows_plain",

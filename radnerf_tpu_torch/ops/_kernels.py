@@ -169,6 +169,10 @@ KERNELS = {
         # table, idx, out, P, T, row_bytes, idx_bytes, stream
         "row_gather": [_P, _P, _P, _L, _L, _L, _I, _P],
     }),
+    "rasterize": Kernel("rasterize", {
+        # xy, z, tris, zbuf, tri_id, B, V, T, H, W, stream
+        "rasterize_fwd": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
+    }),
 }
 
 

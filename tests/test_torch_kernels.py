@@ -460,3 +460,42 @@ def test_row_gather_kernel_matches_plain(dev, dtype, width):
     assert torch.equal(got[2], table[5]) and bool((got[[0, 1, 3]] == 0).all())
     study = T.bench_gather_study(P=1 << 16, tables=(4096,), device=dev)
     assert study[4096]["equal"] and study[4096]["max_abs_err"] == 0.0
+
+
+def test_rasterize_kernel_matches_plain(dev):
+    """Kernel E against rasterize_plain bit for bit on a seeded batch of 4
+    frames of 512x512: a jittered 175 x 198 lattice (the BFM's density,
+    ~69k triangles over a face-sized region) over a coarse lattice of large
+    triangles reaching past the borders, one repeated triangle (an exact
+    depth tie) and one degenerate triangle."""
+    rng = np.random.default_rng(0)
+
+    def lattice(gx, gy, x0, x1, y0, y1):
+        xs, ys = np.meshgrid(np.linspace(x0, x1, gx), np.linspace(y0, y1, gy), indexing="xy")
+        i, j = np.meshgrid(np.arange(gy - 1), np.arange(gx - 1), indexing="ij")
+        a = (i * gx + j).reshape(-1)
+        tris = np.concatenate([np.stack([a, a + gx, a + 1], -1),
+                               np.stack([a + 1, a + gx, a + gx + 1], -1)])
+        return np.stack([xs, ys], -1).reshape(-1, 2), tris
+
+    xy1, t1 = lattice(175, 198, 110.0, 400.0, 80.0, 460.0)
+    xy2, t2 = lattice(9, 9, -40.0, 560.0, -40.0, 560.0)
+    tris = np.concatenate([t1, t2 + len(xy1), t1[5000:5001], [[0, 0, 1]]]).astype(np.int32)
+    B = 4
+    xy = np.stack([np.concatenate([xy1 + rng.normal(0, 0.3, xy1.shape),
+                                   xy2 + rng.normal(0, 3.0, xy2.shape)])
+                   for _ in range(B)]).astype(np.float32)
+    z = np.concatenate([rng.uniform(5.0, 5.5, (B, len(xy1))),
+                        rng.uniform(4.0, 8.0, (B, len(xy2)))], 1).astype(np.float32)
+    xy_t, z_t, tris_t = _t(xy, dev), _t(z, dev), _t(tris, dev)
+    before = _kernels.KERNELS["rasterize"].launches
+    got = T.rasterize(xy_t, z_t, tris_t, 512, 512)
+    assert _kernels.KERNELS["rasterize"].launches == before + 1
+    want = T.rasterize_plain(xy_t, z_t, tris_t, 512, 512)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (B, 512, 512)
+    assert torch.equal(got, want)
+    assert float((got >= 0).float().mean()) > 0.5
+    assert not bool((got == len(tris) - 2).any())  # the tie goes to the lower id
+    with pytest.raises(RuntimeError, match="no backward"):
+        T.rasterize(xy_t.requires_grad_(True), z_t, tris_t, 512, 512)
