@@ -102,9 +102,11 @@ The dataset and the entry points, on the same directory:
      lattice), the eval frame fenced and profiled, ``test``'s FPS.
 
 The bf16 policy (``-O``): the frame and the head step beside their float32
-runs (bf16_frame, bf16_train), A-bf16 and A'-bf16 against their plain
-versions (bf16_kernel_checks), and the README's -O recipe through the CLIs
-(recipe: head, lips finetune, torso, --test, infer).
+runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
+packing pass and A'-bf16 against their plain versions on the path's points
+and on spread ones, A'-bf16 beside its reduction floor
+(bf16_kernel_checks), and the README's -O recipe through the CLIs (recipe:
+head, lips finetune, torso, --test, infer).
 
 Camera offsets, the live path, meshes (each path with the launch counts
 set to 0 just before and read just after):
@@ -223,10 +225,12 @@ REPLACES = {
     # the bf16 policy: build_packed_table(dtype=bfloat16) + the bf16 lerp
     "grid_encode_bf16": "radnerf_tpu/ops/grid_encode.py:308",
     "grid_encode_backward_bf16": "radnerf_tpu/ops/grid_encode.py:308",
+    # A-bf16's packing pass: the corner-packed rows of the -O tables
+    "grid_pack_bf16": "radnerf_tpu/ops/grid_encode.py:243",
     # with _bin_triangles (:172), vmapped per frame in Render3DMM.__call__
     "rasterize": "radnerf_tpu/preprocess/render_3dmm.py:218",
 }
-BF16_KERNELS = ("grid_encode_bf16", "grid_encode_backward_bf16")
+BF16_KERNELS = ("grid_encode_bf16", "grid_encode_backward_bf16", "grid_pack_bf16")
 # the README's -O recipe: head steps, lips finetune steps, torso steps
 RECIPE_HEAD_STEPS, RECIPE_LIPS_STEPS, RECIPE_TORSO_STEPS = 8, 8, 8
 TRAIN_STEPS = 48
@@ -1833,8 +1837,10 @@ def bf16_frame_phase(report, out_dir, scene, auds):
           "frame_ms": fenced, "profile": prof}
     report["bf16_frame"] = bf
     emit({"phase": "bf16_frame", **{k: v for k, v in bf.items() if k != "frame_ms"}})
-    if launches["grid_encode_bf16"] != 3 or launches["grid_encode"] != 0 or \
-            launches["march_rays"] != 1 or launches["composite_rays"] != 1:
+    # a fresh network: its three tables packed once each
+    if launches["grid_encode_bf16"] != 3 or launches["grid_pack_bf16"] != 3 or \
+            launches["grid_encode"] != 0 or launches["march_rays"] != 1 or \
+            launches["composite_rays"] != 1:
         raise RuntimeError(f"the -O frame's launches: {launches}")
     # the PSNR against float32 is the policy's own error on this scene, not a
     # check: its U(-4, 4) tables make the density exp() of large values, where
@@ -1902,7 +1908,7 @@ def bf16_train_phase(report, out_dir, root):
                       "grid_encode_ms": kernel_class_ms(events, PROFILED_STEPS,
                                                         "grid_encode_kernel"),
                       "grid_encode_backward_ms": kernel_class_ms(events, PROFILED_STEPS,
-                                                                 "grid_encode_bwd_kernel"),
+                                                                 "grid_encode_bwd"),
                       "phase10_device_busy_ms_per_step":
                           report["train_timing"]["profile"]["device_busy_ms_per_step"],
                       "phase10_ms_per_step_by_class":
@@ -1922,19 +1928,27 @@ def bf16_train_phase(report, out_dir, root):
 
 def bf16_kernel_checks(report, frame_calls, step_calls):
     """bf16_kernel_checks: A-bf16 on the -O frame's D = 3 and D = 2 inputs
-    and on the -O step's (~1.05M samples), A'-bf16 on the step's bf16
-    upstream gradients, against their plain versions on the card: A's
-    largest error in bf16 ulps (at most 1) and its count of differing
-    elements; A''s table gradient within 2 (n - 1) 2^-24 of each row's sum
-    of |terms| (n the row's terms: two orders of a float32 sum), its x
-    gradient within 1e-5 of the largest; each beside the float32
+    (each reading its table's kept packed copy, as the frame does) and on
+    the -O step's (~1.05M samples, packing its table in the call, as the
+    step does), and on as many points spread uniformly over each step
+    call's box; its packing pass on each of those tables; A'-bf16 on the
+    step's bf16 upstream gradients and on the spread points with the same
+    gradients; against their plain versions on the card: A's largest error
+    in bf16 ulps (at most 1) and its count of differing elements; the
+    packing pass bit for bit; A''s table gradient within 2 (n - 1) 2^-24 of
+    each row's sum of |terms| (n the row's terms: two orders of a float32
+    sum), its x gradient within 1e-5 of the largest; each beside the float32
     variant on the same points (its table and grad_out widened) in turns,
-    its bound with bf16 bytes, its plain version's ms. Returns the kernels
-    line's A-bf16 (the frame's three calls) and A'-bf16 (the step's two)
-    entries, launches left to the caller."""
+    its bound with bf16 bytes, its plain version's ms; A' also beside its
+    reduction floor (the float4 reductions it issues, replayed alone:
+    ``studies.grid_bf16.reduction_floor``). Returns the kernels line's
+    A-bf16 (the frame's three calls), A'-bf16 (the step's two) and packing
+    (the frame's three tables) entries, launches left to the caller."""
     from radnerf_tpu_torch.ops import (
         grid_encode, grid_encode_backward, grid_encode_backward_plain, grid_encode_plain,
+        pack_table, pack_table_plain,
     )
+    from radnerf_tpu_torch.studies.grid_bf16 import reduction_floor, spread, study_library
 
     bf16 = torch.bfloat16
     fwd, bwd = [], []
@@ -1942,30 +1956,54 @@ def bf16_kernel_checks(report, frame_calls, step_calls):
         for name, args, kw in calls:
             if name == "grid_encode":
                 x, table, spec, bound = args
-                fwd.append((where, x, table.to(bf16), spec, bound))
+                fwd.append((where, x, table.to(bf16), spec, bound, kw.get("packed")))
             else:
                 x, table, grad_out, spec, bound = args
-                bwd.append((where, x, table, grad_out, spec, bound, kw["need_table"],
-                            kw["need_x"]))
-    a_rows = []
-    for where, x, tb, spec, bound in fwd:
-        got, want = grid_encode(x, tb, spec, bound), grid_encode_plain(x, tb, spec, bound)
+                bwd.append((where, x, table, grad_out, spec, bound, kw["need_x"]))
+    fwd += [("spread", spread(x, bound, 10 + i), tb, spec, bound, None)
+            for i, (where, x, tb, spec, bound, _) in enumerate(list(fwd)) if where == "step"]
+    bwd += [("spread", spread(x, bound, 20 + i), tb, go, spec, bound, need_x)
+            for i, (where, x, tb, go, spec, bound, need_x) in enumerate(list(bwd))
+            if where == "step"]
+    a_rows, pack_rows = [], []
+    for where, x, tb, spec, bound, packed in fwd:
+        # the path's own form: the frame reads its kept packed copy, the
+        # step (and the spread points) pack in the call
+        def call(x=x, tb=tb, spec=spec, bound=bound, packed=packed):
+            return grid_encode(x, tb, spec, bound, packed=packed)
+        got, want = call(), grid_encode_plain(x, tb, spec, bound)
         torch.cuda.synchronize()
         ulps, n_diff = bf16_ulp_err(got, want)
         t32 = tb.float()
-        turns = in_turns({"bf16": lambda: grid_encode(x, tb, spec, bound),
-                          "fp32": lambda: grid_encode(x, t32, spec, bound)})
+        turns = in_turns({"bf16": call, "fp32": lambda: grid_encode(x, t32, spec, bound)})
         nb, nf = grid_work(x, spec, bound, elem=2)
         bms, by = bound_ms(nb, nf)
         a_rows.append({"where": where, "D": spec.input_dim, "n_points": int(x.shape[0]),
+                       "packs_in_call": packed is None,
                        "max_err_ulps": ulps, "elements_differing": n_diff,
                        "max_abs_err": float((got.float() - want.float()).abs().max()),
-                       "ms": cuda_ms(lambda: grid_encode(x, tb, spec, bound), 20),
-                       "device_ms": turns["bf16"], "fp32_device_ms": turns["fp32"],
+                       "ms": cuda_ms(call, 20), "device_ms": turns["bf16"],
+                       "fp32_device_ms": turns["fp32"],
                        "plain_ms": cuda_ms(lambda: grid_encode_plain(x, tb, spec, bound), 3),
                        "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf})
+        if where == "spread":
+            continue
+        pk, pp = pack_table(tb, spec), pack_table_plain(tb, spec)
+        torch.cuda.synchronize()
+        # the bf16 table read, the packed copy (2^D rows of 4 bytes a row) written
+        nb = tb.numel() * 2 * (1 + (1 << spec.input_dim))
+        pack_rows.append({"where": where, "D": spec.input_dim, "rows": int(tb.shape[0]),
+                          "bit_for_bit": bool(torch.equal(pk.view(torch.int16),
+                                                          pp.view(torch.int16))),
+                          "max_abs_err": float((pk.float() - pp.float()).abs().max()),
+                          "ms": cuda_ms(lambda: pack_table(tb, spec), 20),
+                          "device_ms": device_ms(lambda: pack_table(tb, spec), 20),
+                          "plain_ms": cuda_ms(lambda: pack_table_plain(tb, spec), 3),
+                          "bound_ms": bound_ms(nb, 0)[0], "bound_by": "bytes", "bytes": nb,
+                          "flops": 0})
+    rates = study_library("reduction_rates")
     b_rows = []
-    for where, x, tb, go, spec, bound, need_table, need_x in bwd:
+    for where, x, tb, go, spec, bound, need_x in bwd:
         gk = grid_encode_backward(x, tb, go, spec, bound, need_x=need_x)
         gp = grid_encode_backward_plain(x, tb, go, spec, bound, need_x=need_x)
         # each order of a row's float32 sum of n terms is within (n - 1)
@@ -1989,6 +2027,7 @@ def bf16_kernel_checks(report, frame_calls, step_calls):
             "fp32": lambda: grid_encode_backward(x, t32, g32, spec, bound, need_x=need_x)})
         nb, nf = grid_backward_work(x, spec, bound, need_x, elem=2)
         bms, by = bound_ms(nb, nf)
+        n_red, floor_ms = reduction_floor(rates, x, spec, bound, device_ms)
         row = {"where": where, "D": spec.input_dim, "n_points": int(x.shape[0]),
                "x_grad": need_x, "busiest_row_contributions": n_busy,
                "table_err_over_row_bound": over, "table_rel_err": rel_err(gk[0], gp[0]),
@@ -1998,40 +2037,50 @@ def bf16_kernel_checks(report, frame_calls, step_calls):
                "device_ms": turns["bf16"], "fp32_device_ms": turns["fp32"],
                "plain_ms": cuda_ms(lambda: grid_encode_backward_plain(
                    x, tb, go, spec, bound, need_x=need_x), 3),
-               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
+               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf,
+               "reductions": n_red, "reduction_floor_ms": floor_ms}
         if need_x:
             row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
                        max_abs_err=max(row["max_abs_err"],
                                        float((gk[1] - gp[1]).abs().max())))
         b_rows.append(row)
-    checks = {"grid_encode_bf16": a_rows, "grid_encode_backward_bf16": b_rows}
+    checks = {"grid_encode_bf16": a_rows, "grid_pack_bf16": pack_rows,
+              "grid_encode_backward_bf16": b_rows}
     report["bf16_kernel_checks"] = checks
     emit({"phase": "bf16_kernel_checks", **checks})
     for r in a_rows:
         if not r["max_err_ulps"] <= 1.0:
             raise RuntimeError(f"A-bf16 differs from its plain version by more than 1 ulp: {r}")
+    for r in pack_rows:
+        if not r["bit_for_bit"]:
+            raise RuntimeError(f"A-bf16's packing pass differs from its plain version: {r}")
     for r in b_rows:
         if not (r["table_err_over_row_bound"] <= 1.0
                 and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL):
             raise RuntimeError(f"A'-bf16 differs from its plain version: {r}")
-    if sorted(r["where"] for r in a_rows).count("frame") != 3 or \
-            len([r for r in b_rows if r["where"] == "step"]) != 2:
+    if [r["where"] for r in a_rows].count("frame") != 3 or \
+            [r["where"] for r in b_rows].count("step") != 2:
         raise RuntimeError("the -O frame and step made other grid calls than A x 3, A' x 2")
 
     entries = []
     for name, rows, where in (("grid_encode_bf16", a_rows, "frame"),
-                              ("grid_encode_backward_bf16", b_rows, "step")):
+                              ("grid_encode_backward_bf16", b_rows, "step"),
+                              ("grid_pack_bf16", pack_rows, "frame")):
         rows = [r for r in rows if r["where"] == where]
         bms, by = bound_ms(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "radnerf_tpu_torch/csrc/" + name.replace("_bf16", "") + ".cu",
+        entry = {
+            "name": name, "route": "cuda", "source": "radnerf_tpu_torch/csrc/" + (
+                "grid_encode_backward.cu" if "backward" in name else "grid_encode.cu"),
             "replaces": REPLACES[name], "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
-            "fp32_device_ms": sum(r["fp32_device_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "calls": rows})
+            "library_ms": None, "calls": rows}
+        if name != "grid_pack_bf16":
+            entry["fp32_device_ms"] = sum(r["fp32_device_ms"] for r in rows)
+        if "backward" in name:
+            entry["reduction_floor_ms"] = sum(r["reduction_floor_ms"] for r in rows)
+        entries.append(entry)
     return entries
 
 
@@ -2133,14 +2182,14 @@ def recipe_phase(report, root):
                   "torso": RECIPE_TORSO_STEPS}
     problems += [f"{k}: {runs[k]['steps']} steps" for k, v in want_steps.items()
                  if runs[k]["steps"] != v]
-    for name, need in (("head", ("grid_encode_bf16", "grid_encode_backward_bf16", "march_rays",
-                                 "composite_rays", "composite_rays_backward")),
-                       ("lips", ("grid_encode_bf16", "grid_encode_backward_bf16",
-                                 "composite_rays_backward")),
-                       ("torso", ("grid_encode_bf16", "grid_encode_backward_bf16",
-                                  "march_rays", "composite_rays")),
-                       ("test", ("grid_encode_bf16", "march_rays", "composite_rays")),
-                       ("infer", ("grid_encode_bf16", "march_rays", "composite_rays"))):
+    for name, need in (("head", BF16_KERNELS + ("march_rays", "composite_rays",
+                                                "composite_rays_backward")),
+                       ("lips", BF16_KERNELS + ("composite_rays_backward",)),
+                       ("torso", BF16_KERNELS + ("march_rays", "composite_rays")),
+                       ("test", ("grid_encode_bf16", "grid_pack_bf16", "march_rays",
+                                 "composite_rays")),
+                       ("infer", ("grid_encode_bf16", "grid_pack_bf16", "march_rays",
+                                  "composite_rays"))):
         la = runs[name]["launches"]
         if any(la[k] <= 0 for k in need) or la["grid_encode"] or la["grid_encode_backward"]:
             problems.append(f"{name} launches {la}")
@@ -2543,8 +2592,10 @@ def live_phase(report, out_dir, root):
     report["live"] = {**lv, "frame_ms": frame_ms}
     emit({"phase": "live", **lv})
     problems = []
+    # the three tables' packed copies are kept: packed at most once each
     if launches["grid_encode_bf16"] != 3 * LIVE_FRAMES or launches["grid_encode"] or \
-            launches["march_rays"] != LIVE_FRAMES or launches["composite_rays"] != LIVE_FRAMES:
+            launches["march_rays"] != LIVE_FRAMES or launches["composite_rays"] != LIVE_FRAMES \
+            or launches["grid_pack_bf16"] > 3:
         problems.append(f"the playing frames' launches {launches}")
     if not all(r["ok"] for rows in checks.values() for r in rows):
         problems.append(f"a kernel differs from its plain version in a live frame: {checks}")

@@ -14,17 +14,26 @@
 // warp-uniform and, at the coarse levels, neighbouring samples of a ray
 // read (and add into) the same table rows.
 //
-// Both kernels are templates on the table's element type (Table<T> below):
+// The backward is a template on the table's element type (Table<T> below):
 // float, the float32 policy, or __nv_bfloat16, the bf16 policy of -O
 // (radnerf_tpu/ops/grid_encode.py build_packed_table(dtype=bfloat16) +
 // grid_encode01_packed :395-400). Under bf16 a row is one 32-bit word and
 // a row pair 8 bytes; values are widened to float exactly (a bf16 is the
-// high half of a float32); each corner weight, computed in float32 as
-// before, is rounded to bf16, each weight x value product is rounded to
-// bf16, the products are summed in float32 and the sum rounded to bf16
-// once: where XLA rounds when JAX runs the lerp op by op (ops/grid_encode.py
-// _grid_encode_plain_bf16 is the twin). For float the rounding hooks are
-// the identity, so the float32 variants compile to what they were.
+// high half of a float32) and each corner weight, computed in float32, is
+// rounded to bf16. The bf16 forward (grid_encode.cu, on corner-packed rows)
+// forms its corner terms with bf16_terms below: each weight x value
+// product rounded to bf16, the products summed in float32 and the sum
+// rounded to bf16 once: where XLA rounds when JAX runs the lerp op by op
+// (ops/grid_encode.py _grid_encode_plain_bf16 is the twin). For float the
+// weight hook is the identity, so the float32 variants compile to what
+// they were.
+//
+// What bounds the -O kernels on an H100 80GB HBM3 (700 W; PERF.md §6):
+// A-bf16 was bound by its scattered corner gathers, not by bytes or its
+// bf16 arithmetic, so it reads corner-packed rows (grid_encode.cu);
+// A'-bf16 by the global reductions it issues, so it issues one float4 a
+// corner pair into pair keys (grid_encode_backward.cu). Float32 A and A'
+// keep the row layout and the row-pair adds.
 
 #pragma once
 
@@ -41,8 +50,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 template <typename T>
 struct Table;
 
-// float32 tables: a row is a float2, the output and grad_out elements of a
-// (point, level) a float2
+// float32 tables: a row is a float2, the grad_out element of a (point,
+// level) a float2
 template <>
 struct Table<float> {
   using Row = float2;
@@ -54,9 +63,7 @@ struct Table<float> {
     e1 = make_float2(v.z, v.w);
   }
   __device__ static float2 load_out(const Out* __restrict__ p) { return __ldg(p); }
-  __device__ static Out store(float2 v) { return v; }
   __device__ static float weight(float w) { return w; }
-  __device__ static float term(float v) { return v; }
 };
 
 // bf16 tables: a row is two bf16s in one 32-bit word (channel 0 in the low
@@ -81,7 +88,6 @@ struct Table<__nv_bfloat16> {
            ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16);
   }
   __device__ static float weight(float w) { return round_bf16(w); }
-  __device__ static float term(float v) { return round_bf16(v); }
 };
 
 constexpr int kMaxLevels = 32;  // blockDim.y = L; 32 * L threads at most 1024
@@ -190,6 +196,29 @@ __device__ __forceinline__ float corner_weight_grad(const float frac[D], int cor
     dw = dw * (((corner >> e) & 1u) ? frac[e] : 1.0f - frac[e]);
   }
   return dw;
+}
+
+// The bf16 terms bf16(bf16(w0) * e0) and bf16(bf16(w1) * e1) of two corner
+// rows e0, e1 (bf16x2 words: channel 0 in the low half), widened to float2,
+// in bf16x2 arithmetic: one cvt rounds both weights, one fma.rn.bf16x2 a
+// corner's two channels. The exact product of two bf16s fits a float32, so
+// that single rounding equals the plain twin's round_bf16(bf16(w) * e),
+// subnormals included (float32 keeps 16 more bits than bf16 at every
+// exponent, so rounding its exact product again rounds as once); the
+// addend -0 is __hmul2's, which keeps a zero product's sign.
+__device__ __forceinline__ void bf16_terms(uint32_t e0, uint32_t e1, float w0, float w1,
+                                           float2& a, float2& b) {
+  constexpr uint32_t kMinusZeros = 0x80008000u;
+  uint32_t w, p0, p1;  // w: bf16(w0) in the low half, bf16(w1) in the high
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(w1), "f"(w0));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(p0)
+      : "r"(__byte_perm(w, 0, 0x1010)), "r"(e0), "r"(kMinusZeros));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(p1)
+      : "r"(__byte_perm(w, 0, 0x3232)), "r"(e1), "r"(kMinusZeros));
+  a = Table<__nv_bfloat16>::widen(p0);
+  b = Table<__nv_bfloat16>::widen(p1);
 }
 
 }  // namespace grid

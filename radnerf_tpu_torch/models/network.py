@@ -19,9 +19,11 @@ the ``cat``s of bf16 parts; the ambient MLP's output, the density
 (``trunc_exp``), the colour's sigmoid and the torso's outputs back in
 float32 where JAX casts them back. Where no gradient reaches a grid table
 (evaluation, the upkeep, the frozen head of the torso stage) its bf16 copy
-is made once per parameter value (``table_copy``), as JAX's
-``precompute_packed_tables``; a train step casts the master table inside
-its encode. The copies are never parameters, and no checkpoint holds them.
+and, on the card, that copy's corner-packed rows (what kernel A-bf16 reads)
+are made once per parameter value (``table_copy``, ``packed_copy``), as
+JAX's ``precompute_packed_tables``; a train step casts and packs the master
+table inside its encode. The copies are never parameters, and no
+checkpoint holds them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import GridSpec, freq_encode, freq_output_dim, grid_encode, sh_encode, trunc_exp
+from ..ops import (
+    GridSpec, freq_encode, freq_output_dim, grid_encode, pack_table, sh_encode, trunc_exp,
+)
 from .audio import AudioAttNet, AudioNet
 from .modules import MLP
 
@@ -222,21 +226,33 @@ class NeRFNetwork(nn.Module):
         if cfg.train_camera:
             self.camera_dR = nn.Parameter(torch.zeros(cfg.ind_num, 3))
             self.camera_dT = nn.Parameter(torch.zeros(cfg.ind_num, 3))
-        self._table_copies = {}  # name -> ((storage, version), bf16 copy)
+        # name -> ((storage, version), bf16 copy, its packed copy or None)
+        self._table_copies = {}
         self.to(device)
 
-    def table_copy(self, name: str) -> torch.Tensor:
-        """The bf16 copy of grid table ``name``, made again only when the
-        parameter's storage or version (bumped by every in-place update:
-        optimizer steps, loads, the EMA swap) has changed."""
+    def _copies(self, name: str) -> list:
         p = getattr(self, name)
         key = (p.data_ptr(), p._version)
         hit = self._table_copies.get(name)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                hit = (key, p.detach().to(torch.bfloat16))
+                hit = [key, p.detach().to(torch.bfloat16), None]
             self._table_copies[name] = hit
-        return hit[1]
+        return hit
+
+    def table_copy(self, name: str) -> torch.Tensor:
+        """The bf16 copy of grid table ``name``, made again only when the
+        parameter's storage or version (bumped by every in-place update:
+        optimizer steps, loads, the EMA swap) has changed."""
+        return self._copies(name)[1]
+
+    def packed_copy(self, name: str, spec) -> torch.Tensor:
+        """``ops.pack_table`` of ``table_copy(name)`` (what kernel A-bf16
+        reads), kept as long as that copy is."""
+        hit = self._copies(name)
+        if hit[2] is None:
+            hit[2] = pack_table(hit[1], spec)
+        return hit[2]
 
     def _encode(self, x, name: str, spec, bound: float):
         """Grid encode of x through table ``name`` under the policy: float32
@@ -247,7 +263,8 @@ class NeRFNetwork(nn.Module):
             return grid_encode(x, table, spec, bound)
         if torch.is_grad_enabled() and table.requires_grad:
             return grid_encode(x, table, spec, bound, table_dtype=torch.bfloat16)
-        return grid_encode(x, self.table_copy(name), spec, bound)
+        packed = self.packed_copy(name, spec) if x.device.type == "cuda" else None
+        return grid_encode(x, self.table_copy(name), spec, bound, packed=packed)
 
     def encode_audio(self, a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """[seq, audio_in_dim, 16] -> [1, audio_dim] (or [seq, audio_dim]

@@ -4,7 +4,7 @@ rasterizer, Morton codes.
 ``grid_encode``, ``march_rays``, ``composite_rays``, ``take_rows`` and
 ``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E; the gradients of the first and
 third are kernels A' and C' (``grid_encode_backward``,
-``composite_rays_backward``). Each has a plain PyTorch version (``*_plain``)
+``composite_rays_backward``); ``pack_table`` wraps A-bf16's packing pass. Each has a plain PyTorch version (``*_plain``)
 that the wrapper runs for CPU tensors.
 """
 
@@ -16,6 +16,8 @@ from .grid_encode import (
     grid_encode_backward,
     grid_encode_backward_plain,
     grid_encode_plain,
+    pack_table,
+    pack_table_plain,
 )
 from .marching import (
     MarchConfig,
@@ -43,6 +45,8 @@ __all__ = [
     "grid_encode_backward",
     "grid_encode_backward_plain",
     "grid_encode_plain",
+    "pack_table",
+    "pack_table_plain",
     "MarchConfig",
     "build_sigma_bytes",
     "composite_rays",

@@ -12,9 +12,9 @@ sample in the same cell (an FMA moves ``floor(x*scale+0.5)`` and
 ``o + t*d`` across cell boundaries). ``--use_fast_math`` is never used.
 
 A source may hold several kernels, each with its own ``Kernel`` (its own
-C entry points and launch count) over one library: kernel A and its bf16
-variant are both in ``grid_encode.cu``, A' and A'-bf16 in
-``grid_encode_backward.cu``.
+C entry points and launch count) over one library: kernel A, its bf16
+variant and that variant's packing pass are all in ``grid_encode.cu``, A'
+and A'-bf16 in ``grid_encode_backward.cu``.
 
 Libraries go into ``build/kernels/`` at the repository root (git-ignored),
 named by a hash of the source, every header in ``csrc/`` (``*.cuh``) and
@@ -139,12 +139,21 @@ KERNELS = {
         # L, bound, two_bound, stream
         "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
     }),
-    # the bf16 policy's variants: bf16 table (and output, and grad_out)
+    # the bf16 policy's variants: A-bf16 on the corner-packed bf16 table
+    # (bf16 output), its packing pass, A'-bf16 on the bf16 table and grad_out
     "grid_encode_bf16": Kernel("grid_encode_bf16", {
-        "grid_encode_fwd_bf16": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+        # x, packed, scales, level_params, out, N, D, L, bound, two_bound, stream
+        "grid_encode_fwd_bf16_packed": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+    }, source="grid_encode"),
+    "grid_pack_bf16": Kernel("grid_pack_bf16", {
+        # emb, level_params, packed, D, L, stream
+        "grid_pack_bf16": [_P, _P, _P, _I, _I, _P],
     }, source="grid_encode"),
     "grid_encode_backward_bf16": Kernel("grid_encode_backward_bf16", {
-        "grid_encode_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+        # x, emb, grad_out, scales, level_params, keys, grad_table, grad_x, N,
+        # D, L, bound, two_bound, stream
+        "grid_encode_bwd_bf16_keyed": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F,
+                                       _P],
     }, source="grid_encode_backward"),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,

@@ -18,10 +18,16 @@ the sum is rounded to bf16 once; a point outside the box encodes to 0. That
 is where XLA:CPU rounds when JAX runs the function op by op (``jnp.sum``
 upcasts bf16 to float32); under ``jit`` XLA keeps the products in float32,
 which moves a third of the outputs by one bf16 ulp. Kernel A's bf16 variant
-(``grid_encode_fwd_bf16``, its own launch count ``grid_encode_bf16``) and
-the plain twin ``grid_encode_plain(..., table_dtype=torch.bfloat16)`` round
-at the same places. The gradient (kernel A'-bf16, ``grid_encode_bwd_bf16``;
-twin ``grid_encode_backward_plain``) takes the bf16 upstream gradient and
+(``grid_encode_fwd_bf16_packed``, its own launch count ``grid_encode_bf16``)
+and the plain twin ``grid_encode_plain(..., table_dtype=torch.bfloat16)``
+round at the same places. The bf16 kernel reads a corner-packed copy of
+the table (``pack_table``: kernel ``grid_pack_bf16``, plain version
+``pack_table_plain``), ``build_packed_table(dtype=bfloat16)``'s rows: each
+cell's 2^D corner rows side by side, corner-major. A train step's encode
+packs its freshly cast table; the network keeps the packed copy of a table
+that does not change (``NeRFNetwork.packed_copy``). The gradient (kernel
+A'-bf16, ``grid_encode_bwd_bf16_keyed``; twin ``grid_encode_backward_plain``)
+takes the bf16 upstream gradient and
 returns float32 gradients: the table's summed with float32 atomics (JAX
 scatter-adds bf16 products into a bf16 table, which the port deliberately
 does not: its sum is the more exact one), x's through the bf16 weights as
@@ -181,16 +187,20 @@ def _level_corners(x01: torch.Tensor, spec: GridSpec, level: int):
 
 
 def _grid_encode_plain_bf16(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                            bound: float) -> torch.Tensor:
-    """The bf16 policy's encode (module docstring): bf16 [..., L*C]."""
+                            bound: float, packed=None) -> torch.Tensor:
+    """The bf16 policy's encode (module docstring): bf16 [..., L*C]; with
+    ``packed`` (``pack_table``'s copy of the table) each corner's row is read
+    from its cell's packed row, as kernel A-bf16 reads it."""
     x01 = (x.float() + bound) / (2.0 * bound)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
     table = embeddings.to(torch.bfloat16).float()
     outs = []
     for level in range(spec.num_levels):
         out = None
-        for rows, w in _level_corners(x01, spec, level)[0]:
-            term = _bf16_round(_bf16_round(w)[..., None] * table[rows])
+        corners = _level_corners(x01, spec, level)[0]
+        for c, (rows, w) in enumerate(corners):
+            e = table[rows] if packed is None else packed[corners[0][0], c].float()
+            term = _bf16_round(_bf16_round(w)[..., None] * e)
             out = term if out is None else out + term
         outs.append(out)
     out = torch.where(oob, 0.0, torch.cat(outs, dim=-1))
@@ -198,7 +208,7 @@ def _grid_encode_plain_bf16(x: torch.Tensor, embeddings: torch.Tensor, spec: Gri
 
 
 def grid_encode_plain(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                      bound: float = 1.0, table_dtype=None) -> torch.Tensor:
+                      bound: float = 1.0, table_dtype=None, packed=None) -> torch.Tensor:
     """Plain PyTorch grid encoder: points in [-bound, bound] [..., D] ->
     features [..., L*C], level-major; points outside the box encode to 0.
 
@@ -206,13 +216,14 @@ def grid_encode_plain(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
     ``pos = x01*scale + 0.5``, corner weight ``inb * (w_0 * ... * w_{D-1})``
     (inb is 0 or 1, so the grouping rounds nothing), corners summed in order
     0..2^D-1. With ``table_dtype=torch.bfloat16`` (or a bf16 table) it is
-    the bf16 policy's encode of the module docstring, with a bf16 result.
+    the bf16 policy's encode of the module docstring, with a bf16 result,
+    reading the corners from ``packed`` (``pack_table``'s copy) when given.
     """
     spec.check_supported()
     if x.shape[-1] != spec.input_dim:
         raise ValueError(f"expected last dim {spec.input_dim}, got {tuple(x.shape)}")
     if _is_bf16(embeddings, table_dtype):
-        return _grid_encode_plain_bf16(x, embeddings, spec, bound)
+        return _grid_encode_plain_bf16(x, embeddings, spec, bound, packed)
     x01 = (x.float() + bound) / (2.0 * bound)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1)
     inb = 1.0 - oob.float()
@@ -244,6 +255,58 @@ def _level_tables(spec: GridSpec, device: torch.device):
     return _LEVEL_TABLES[key]
 
 
+def pack_table_plain(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Plain version of ``pack_table``: the corner-packed copy of a table
+    in bf16, [n_embeddings, 2^D, C]. Row k of level l holds corner c's row
+    ``(k + delta_c) mod T_l`` of the level (T_l its size, delta_c the sum of
+    the strides of the dims where c's bit is set): for a cell whose corner 0
+    is row k, its 2^D corner rows in corner order. That is JAX's
+    ``build_packed_table(dtype=bfloat16)``'s entry k of level l, corner-major
+    instead of channel-major and without its appended zero row."""
+    spec.check_supported()
+    table = table.to(torch.bfloat16)
+    D, offs = spec.input_dim, spec.offsets
+    levels = []
+    for level in range(spec.num_levels):
+        seg = table[offs[level]:offs[level + 1]]
+        strides = spec.active_strides(level)
+        k = torch.arange(seg.shape[0], dtype=torch.int64, device=table.device)
+        rows = [(k + sum(strides[d] for d in range(D) if (c >> d) & 1)) % seg.shape[0]
+                for c in range(1 << D)]
+        levels.append(seg[torch.stack(rows, dim=1)])
+    return torch.cat(levels)
+
+
+def _check_packed(packed: torch.Tensor, spec: GridSpec):
+    D, C = spec.input_dim, spec.level_dim
+    if packed.shape != (spec.n_embeddings, 1 << D, C) or packed.dtype != torch.bfloat16:
+        raise ValueError(f"packed table {tuple(packed.shape)} {packed.dtype} does not fit {spec}")
+    if not packed.is_contiguous() or packed.data_ptr() % 16:
+        raise ValueError("kernel A-bf16 takes a contiguous packed table aligned to 16 bytes")
+
+
+def pack_table(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """The corner-packed bf16 copy kernel A-bf16 reads (``pack_table_plain``
+    says what it holds): kernel ``grid_pack_bf16`` on a CUDA table, the plain
+    version on a CPU one. table [n_embeddings, C] float32 or bf16 ->
+    [n_embeddings, 2^D, C] bf16 (2^D x the bf16 table's bytes)."""
+    if table.device.type == "cpu":
+        return pack_table_plain(table, spec)
+    spec.check_supported()
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    if D not in (2, 3) or C != 2 or L > 32 or table.shape != (spec.n_embeddings, C):
+        raise ValueError(f"the packing pass takes the [n_embeddings, 2] table of a grid of D "
+                         f"in (2, 3) and at most 32 levels, got {tuple(table.shape)}, {spec}")
+    table = table.to(torch.bfloat16).contiguous()
+    require_cuda_tensors(table)
+    packed = torch.empty((spec.n_embeddings, 1 << D, C), dtype=torch.bfloat16,
+                         device=table.device)
+    params = _level_tables(spec, table.device)[1]
+    KERNELS["grid_pack_bf16"].launch("grid_pack_bf16", table.device, table.data_ptr(),
+                                     params.data_ptr(), packed.data_ptr(), D, L)
+    return packed
+
+
 def _check_kernel_args(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
     """Raise unless kernels A / A' take these points and this table: D in
     (2, 3), 2 channels, at most 32 levels, float32 points, a float32 table
@@ -264,9 +327,10 @@ def _check_kernel_args(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
         raise ValueError("kernels A and A' take a table aligned to a row pair")
 
 
-def _grid_encode_kernel(x, table, spec: GridSpec, bound: float) -> torch.Tensor:
+def _grid_encode_kernel(x, table, spec: GridSpec, bound: float, packed=None) -> torch.Tensor:
     """Kernel A: the forward encode of contiguous CUDA float32 points; on a
-    bf16 table its bf16 variant, with a bf16 result."""
+    bf16 table its bf16 variant, with a bf16 result, reading the table's
+    packed copy ``packed`` (``pack_table``; packed here when not given)."""
     _check_kernel_args(x, table, spec)
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     require_cuda_tensors(x, table)
@@ -275,8 +339,13 @@ def _grid_encode_kernel(x, table, spec: GridSpec, bound: float) -> torch.Tensor:
     if N == 0:
         return out
     scales, params = _level_tables(spec, x.device)
-    name, fn = (("grid_encode_bf16", "grid_encode_fwd_bf16") if table.dtype == torch.bfloat16
-                else ("grid_encode", "grid_encode_fwd"))
+    if table.dtype == torch.bfloat16:
+        packed = pack_table(table, spec) if packed is None else packed
+        _check_packed(packed, spec)
+        require_cuda_tensors(x, packed)
+        name, fn, table = "grid_encode_bf16", "grid_encode_fwd_bf16_packed", packed
+    else:
+        name, fn = "grid_encode", "grid_encode_fwd"
     KERNELS[name].launch(
         fn, x.device, x.data_ptr(), table.data_ptr(), scales.data_ptr(), params.data_ptr(),
         out.data_ptr(), N, D, L, float(bound), float(np.float32(2.0 * bound)))
@@ -353,7 +422,10 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
     version on CPU tensors. Under the bf16 policy (a bf16 table, or
     ``table_dtype=torch.bfloat16`` with the float32 master) grad_out is the
     bf16 upstream gradient, the weights are rounded to bf16 as in the
-    forward, and kernel A'-bf16 runs.
+    forward, and kernel A'-bf16 runs (its table gradient summed through a
+    pair-keyed float32 buffer [n_embeddings, 4] made here: each corner pair
+    one float4 atomic into the key of its first row, then every row formed
+    from two keys; csrc/grid_encode_backward.cu).
 
     Returns (grad_table [n_embeddings, C] float32 or None, grad_x [..., D]
     float32 or None).
@@ -371,31 +443,41 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
                          f"points {tuple(x.shape)}, a {table.dtype} table and {spec}")
     x, grad_out = x.contiguous(), grad_out.contiguous()
     require_cuda_tensors(x, table, grad_out)
-    # the kernel stores every element of grad_x; grad_table takes atomic adds
-    g_table = (torch.zeros((spec.n_embeddings, C), dtype=torch.float32, device=x.device)
-               if need_table else None)
-    g_x = torch.empty_like(x) if need_x else None
+    # the kernel stores every element of grad_x; A' adds into grad_table
+    # (zeroed), A'-bf16 into its pair keys (zeroed) and then stores every
+    # row of grad_table
     N = x.numel() // D
-    if N > 0 and (need_table or need_x):
+    run = N > 0 and (need_table or need_x)
+    g_table = None
+    if need_table:
+        g_table = (torch.empty if run and bf16 else torch.zeros)(
+            (spec.n_embeddings, C), dtype=torch.float32, device=x.device)
+    g_x = torch.empty_like(x) if need_x else None
+    if run:
         scales, params = _level_tables(spec, x.device)
-        name, fn = (("grid_encode_backward_bf16", "grid_encode_bwd_bf16") if bf16
-                    else ("grid_encode_backward", "grid_encode_bwd"))
-        KERNELS[name].launch(
-            fn, x.device, x.data_ptr(), table.data_ptr(),
-            grad_out.data_ptr(), scales.data_ptr(), params.data_ptr(),
-            g_table.data_ptr() if need_table else None,
-            g_x.data_ptr() if need_x else None, N, D, L,
-            float(bound), float(np.float32(2.0 * bound)))
+        args = (x.data_ptr(), table.data_ptr(), grad_out.data_ptr(), scales.data_ptr(),
+                params.data_ptr())
+        outs = (g_table.data_ptr() if need_table else None,
+                g_x.data_ptr() if need_x else None, N, D, L, float(bound),
+                float(np.float32(2.0 * bound)))
+        if bf16:
+            keys = (torch.zeros((spec.n_embeddings, 4), dtype=torch.float32, device=x.device)
+                    if need_table else None)
+            KERNELS["grid_encode_backward_bf16"].launch(
+                "grid_encode_bwd_bf16_keyed", x.device, *args,
+                keys.data_ptr() if need_table else None, *outs)
+        else:
+            KERNELS["grid_encode_backward"].launch("grid_encode_bwd", x.device, *args, *outs)
     return g_table, g_x
 
 
 class _GridEncode(torch.autograd.Function):
     """Kernel A forward, kernel A' backward. Under the bf16 policy
-    (``bf16``) the forward casts a float32 master table to a bf16 copy (a
-    train step's encode re-casts it, as the JAX step re-packs its tables)
-    and the backward returns the master's float32 gradient; on CPU tensors
-    (the bf16 policy only: the float32 encode's CPU autograd runs through the
-    plain ops) both run their plain versions."""
+    (``bf16``) the forward casts a float32 master table to a bf16 copy and
+    packs it (a train step's encode re-casts and re-packs it, as the JAX
+    step re-packs its tables) and the backward returns the master's float32
+    gradient; on CPU tensors (the bf16 policy only: the float32 encode's CPU
+    autograd runs through the plain ops) both run their plain versions."""
 
     @staticmethod
     def forward(ctx, x, embeddings, spec, bound, bf16):
@@ -416,14 +498,16 @@ class _GridEncode(torch.autograd.Function):
 
 
 def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
-                bound: float = 1.0, table_dtype=None) -> torch.Tensor:
+                bound: float = 1.0, table_dtype=None, packed=None) -> torch.Tensor:
     """Encode points in [-bound, bound]: kernel A on CUDA tensors, the plain
     twin on CPU tensors. x [..., D] float32, embeddings [n_embeddings, C]
     float32 -> [..., L*C] float32.
 
     Under the bf16 policy (``table_dtype=torch.bfloat16`` with the float32
     master table, or a bf16 table) the result is bf16 and the kernel is
-    A's bf16 variant.
+    A's bf16 variant, on ``packed`` (``pack_table`` of the bf16 table: a
+    caller whose table does not change keeps it; packed in the call when
+    not given, and always when autograd wants a gradient).
 
     When autograd wants a gradient for x or the table, the encode goes
     through a ``torch.autograd.Function`` whose backward is kernel A'
@@ -435,10 +519,10 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
     if x.device.type == "cpu":
         if bf16 and wants_grad:
             return _GridEncode.apply(x, embeddings, spec, bound, True)
-        return grid_encode_plain(x, embeddings, spec, bound, table_dtype)
+        return grid_encode_plain(x, embeddings, spec, bound, table_dtype, packed)
     x = x.contiguous()
     if wants_grad:
         return _GridEncode.apply(x, embeddings, spec, bound, bf16)
     if bf16:
         embeddings = embeddings.to(torch.bfloat16)
-    return _grid_encode_kernel(x, embeddings, spec, bound)
+    return _grid_encode_kernel(x, embeddings, spec, bound, packed if bf16 else None)

@@ -145,6 +145,96 @@ def test_bf16_encode_matches_jax(input_dim):
     assert oob.sum() > 10 and np.all(got[oob] == 0.0)
 
 
+def _pack_specs(input_dim):
+    # 5 levels of 8 to 256 with 2^10-row levels: dense levels and wrapped ones
+    kw = dict(input_dim=input_dim, num_levels=5, level_dim=2, base_resolution=8,
+              log2_hashmap_size=10, desired_resolution=256)
+    return JGridSpec.create(**kw), T.GridSpec.create(**kw)
+
+
+@pytest.mark.parametrize("input_dim", [2, 3])
+def test_pack_table_matches_jax(input_dim):
+    """Kernel A-bf16's corner-packed table (the plain version of its packing
+    pass): row k of level l holds, corner by corner, the bf16 rows JAX's
+    build_packed_table(dtype=bfloat16) puts in entry k of level l
+    (channel-major there), at dense levels and at wrapped 2^10-row ones."""
+    jspec, tspec = _pack_specs(input_dim)
+    rng = np.random.default_rng(60 + input_dim)
+    emb = rng.normal(size=(jspec.n_embeddings, 2)).astype(np.float32)
+    jpacked = build_packed_table(jnp.asarray(emb), jspec, jnp.bfloat16)
+    got = T.pack_table(_T(emb), tspec)
+    D, offs = input_dim, tspec.offsets
+    assert got.dtype == BF16 and got.shape == (tspec.n_embeddings, 1 << D, 2)
+    sizes = [offs[l + 1] - offs[l] for l in range(tspec.num_levels)]
+    assert 1024 in sizes and any(s < 1024 for s in sizes)
+    for level, size in enumerate(sizes):
+        want = np.asarray(jpacked[level][:size].astype(jnp.float32))
+        want = want.reshape(size, 2, 1 << D).transpose(0, 2, 1)  # [T, corner, channel]
+        np.testing.assert_array_equal(got[offs[level]:offs[level + 1]].float().numpy(), want)
+    assert torch.equal(T.pack_table(_T(emb).to(BF16), tspec), got)
+
+
+@pytest.mark.parametrize("input_dim", [2, 3])
+def test_packed_encode_matches_row_layout(input_dim):
+    """The bf16 encode through the packed table (the plain version of what
+    kernel A-bf16 reads) is bit for bit the row-layout twin's, at dense and
+    wrapped levels, points outside the box included."""
+    _, tspec = _pack_specs(input_dim)
+    rng = np.random.default_rng(70 + input_dim)
+    tb = _T(rng.normal(size=(tspec.n_embeddings, 2)).astype(np.float32)).to(BF16)
+    x = _T(rng.uniform(-1.05, 1.05, (2048, input_dim)).astype(np.float32))
+    got = T.grid_encode(x, tb, tspec, packed=T.pack_table(tb, tspec))
+    want = T.grid_encode_plain(x, tb, tspec)
+    assert got.dtype == BF16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("input_dim", [2, 3])
+def test_corner_pairs_key_their_first_row(input_dim):
+    """What kernel A'-bf16's pair keys rest on: at every level, dense or
+    wrapped, corner 2q + 1's row is corner 2q's plus one modulo the level's
+    size (dim 0's stride is 1), so a pair's terms can go whole into the key
+    of its first row, and row r's gradient is keys[r].xy + keys[r - 1].zw:
+    equal (to float64 rounding) to the row-wise scatter of the same terms."""
+    from radnerf_tpu_torch.ops.grid_encode import _level_corners
+
+    _, tspec = _pack_specs(input_dim)
+    rng = np.random.default_rng(80 + input_dim)
+    x01 = _T(rng.uniform(0, 1, (4096, input_dim)).astype(np.float32))
+    g = _T(rng.normal(size=(4096, 2)))
+    for level in range(tspec.num_levels):
+        off = tspec.offsets[level]
+        size = tspec.offsets[level + 1] - off
+        corners = _level_corners(x01, tspec, level)[0]
+        rows = torch.zeros((size, 2), dtype=torch.float64)
+        keys = torch.zeros((size, 4), dtype=torch.float64)
+        for c0 in range(0, 1 << input_dim, 2):
+            (r0, w0), (r1, w1) = corners[c0], corners[c0 + 1]
+            r0, r1 = r0 - off, r1 - off
+            assert torch.equal(r1, (r0 + 1) % size)
+            t0, t1 = w0.double()[:, None] * g, w1.double()[:, None] * g
+            rows.index_add_(0, r0, t0).index_add_(0, r1, t1)
+            keys.index_add_(0, r0, torch.cat([t0, t1], dim=1))
+        rebuilt = keys[:, :2] + keys.roll(1, dims=0)[:, 2:]
+        torch.testing.assert_close(rebuilt, rows, rtol=1e-12, atol=1e-12)
+
+
+def test_packed_copy_follows_the_table():
+    """The network's packed copy of a table is made once per table value:
+    the same object while the parameter is unchanged, a new packing of the
+    new bf16 copy after an in-place update."""
+    net = NeRFNetwork(NetworkConfig(**SMALL, compute_dtype="bfloat16"), device="cpu")
+    spec = net.cfg.grid_spec
+    packed = net.packed_copy("encoder", spec)
+    assert net.packed_copy("encoder", spec) is packed
+    assert torch.equal(packed, T.pack_table(net.table_copy("encoder"), spec))
+    with torch.no_grad():
+        net.encoder.mul_(2.0)
+    again = net.packed_copy("encoder", spec)
+    assert again is not packed
+    assert torch.equal(again, T.pack_table(net.table_copy("encoder"), spec))
+
+
 def _float64_gradients(x, emb, g, tspec):
     """Table and x gradients of the bf16 forward in float64: the terms
     bf16(w) * g with bf16 table values, the fractions from the float32

@@ -303,6 +303,51 @@ def test_grid_encode_bf16_kernels_match_plain(dev, layout, input_dim):
     assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
 
 
+@pytest.mark.parametrize("input_dim", [2, 3])
+def test_pack_table_kernel_matches_plain(dev, input_dim):
+    """A-bf16's packing pass (kernel grid_pack_bf16, its own launch count)
+    bit for bit with its plain version, from a bf16 table and from the
+    float32 master; a packed copy given to the encode gives the encode's own
+    result, with no packing launch."""
+    spec = T.GridSpec.create(input_dim=input_dim, desired_resolution=2048)
+    rng = np.random.default_rng(input_dim + 40)
+    emb = _t(rng.uniform(-4, 4, (spec.n_embeddings, 2)).astype(np.float32), dev)
+    pack = _kernels.KERNELS["grid_pack_bf16"]
+    before = pack.launches
+    got = T.pack_table(emb.to(torch.bfloat16), spec)
+    assert pack.launches == before + 1
+    want = T.pack_table_plain(emb.cpu(), spec)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(T.pack_table(emb, spec), got)
+    x = _t(_grid_points("ray", 20_000, input_dim, rng), dev)
+    before = pack.launches
+    with_copy = T.grid_encode(x, emb.to(torch.bfloat16), spec, packed=got)
+    assert pack.launches == before
+    assert torch.equal(with_copy, T.grid_encode(x, emb.to(torch.bfloat16), spec))
+
+
+def test_grid_encode_bf16_subnormal_products_bit_for_bit(dev):
+    """A-bf16's bf16x2 corner products round once, as the plain version's
+    round_bf16(bf16(w) * e): bit for bit on a table of bf16 subnormals and
+    values near the smallest normal, whose products with the weights are
+    subnormal, and of ordinary values."""
+    bf16 = torch.bfloat16
+    for input_dim in (2, 3):
+        spec = T.GridSpec.create(input_dim=input_dim, desired_resolution=2048)
+        rng = np.random.default_rng(input_dim + 50)
+        mant = rng.uniform(1.0, 2.0, (spec.n_embeddings, 2))
+        expo = rng.integers(-133, -118, (spec.n_embeddings, 2)).astype(np.float64)
+        vals = np.where(rng.random((spec.n_embeddings, 2)) < 0.8,
+                        mant * np.exp2(expo), rng.uniform(-4, 4, (spec.n_embeddings, 2)))
+        sign = np.where(rng.random((spec.n_embeddings, 2)) < 0.5, -1.0, 1.0)
+        tb = _t((sign * vals).astype(np.float32), dev).to(bf16)
+        assert bool(((tb.float().abs() < 2.0**-126) & (tb != 0)).any())
+        x = _t(_grid_points("spread", 50_000, input_dim, rng), dev)
+        got, want = T.grid_encode(x, tb, spec), T.grid_encode_plain(x, tb, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 def test_bf16_render_refuses_reduced_precision_gemm_sums(dev):
     """Under the bf16 policy render_rays refuses cuBLAS's bf16 reduction of
     split-K partials (PyTorch's default), which JAX does not do."""
