@@ -149,7 +149,9 @@ inputs at full size written in a temporary place (``preprocess_phase``):
      on a photometric step's own inputs (64 x 512 x 512) bit for bit; the
      tasks' wall ms, the BiSeNet's ms a frame, the tracker's steps a
      second, the photometric step fenced and profiled, E against its bound
-     (the function's own bytes) and the z-buffer's layout floor.
+     (the function's own bytes) and the z-buffer's layout floor, the
+     centres within one pixel of the triangles' boxes and those E tests
+     after its trim beside those covered.
 
 Each kernel's ``ms`` comes from ``cuda_ms``, whose events bracket the
 calls as the host enqueues them (a kernel shorter than its wrapper's Python
@@ -3119,7 +3121,7 @@ def preprocess_phase(report, out_dir, dev):
     from radnerf_tpu_torch import process
     from radnerf_tpu_torch.main import main as port_main
     from radnerf_tpu_torch.ops import _kernels, rasterize, rasterize_plain
-    from radnerf_tpu_torch.ops.rasterize import _covered_pairs
+    from radnerf_tpu_torch.ops.rasterize import _covered_pairs, _live_ranges, _trimmed_ranges
     from radnerf_tpu_torch.preprocess import face_parsing, face_tracker, render_3dmm
 
     smi = nvidia_smi_line()
@@ -3349,8 +3351,14 @@ def preprocess_phase(report, out_dir, dev):
         # written) and ~20 float32 operations for each covered (pixel,
         # triangle) pair, the depth tests any rasterizer makes; the z-buffer's
         # layout floor adds this design's scratch bytes (the u64 buffer set
-        # and read, 8 bytes an update at each covered pair)
+        # and read, 8 bytes an update at each covered pair); the centres
+        # within one pixel of the live triangles' boxes, and those E tests
+        # after its trim
         covered = sum(pix.numel() for _, pix, _ in _covered_pairs(xy, z, tris, H, W))
+        i0, i1, j0, j1, live = _live_ranges(xy, tris, H, W)
+        tested = int(((i1 - i0 + 1) * (j1 - j0 + 1))[live].sum())
+        i0, i1, j0, j1 = _trimmed_ranges(xy, tris, H, W)
+        trimmed = int(((i1 - i0 + 1).clamp_min(0) * (j1 - j0 + 1).clamp_min(0))[live].sum())
         B, V, T = xy.shape[0], xy.shape[1], tris.shape[0]
         nb = B * V * 12 + T * 12 + B * H * W * 4
         floor_b = nb + B * H * W * (8 + 8) + covered * 8
@@ -3363,7 +3371,7 @@ def preprocess_phase(report, out_dir, dev):
              "plain_ms": cuda_ms(lambda: rasterize_plain(xy, z, tris, H, W), 2),
              "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": covered * 20,
              "layout_floor_ms": bound_ms(floor_b, 0)[0], "layout_floor_bytes": floor_b,
-             "pairs_covered": covered,
+             "pairs_covered": covered, "pairs_tested": tested, "pairs_tested_after_trim": trimmed,
              "covered_share": float((got >= 0).float().mean()),
              "shapes": {"frames": B, "vertices": V, "triangles": T, "H": H, "W": W},
              "library_ms": None}
@@ -3402,6 +3410,7 @@ def preprocess_phase(report, out_dir, dev):
         ph["kernel_E"] = {k: e[k] for k in ("device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
                                             "bytes", "layout_floor_ms", "layout_floor_bytes",
                                             "launches", "pixels_differing", "pairs_covered",
+                                            "pairs_tested", "pairs_tested_after_trim",
                                             "covered_share", "shapes")}
     report["preprocess"] = ph
     emit({"phase": "preprocess", **ph})

@@ -8,31 +8,50 @@
 // [256 pixels, K] barycentric tests and an argmin. At the reference's mesh
 // density (~69k triangles on a 512x512 face) a tile in the face holds more
 // than K candidates, and the lists keep only the first K. A z-buffer with
-// atomics needs no lists and drops nothing: on Hopper a 64-bit atomicMin in
-// L2 is cheap, and the scatter the TPU avoided is the natural form here.
+// atomics needs no lists and drops nothing.
 //
 // Inputs: xy [B, V, 2] f32 (screen; pixel (i, j) has its centre at
 // (j + 0.5, i + 0.5)), z [B, V] f32 (positive depth), tris [T, 3] i32.
 // Output: tri_id [B, H, W] i32, the covering triangle of least depth, the
 // lower id at equal depth, -1 where none covers.
 //
-// Pass 1, one thread per (frame, triangle): walks the pixel centres within
-// one pixel of the triangle's bounding box, clipped to the image (the margin
+// Pass 1, one thread per (frame, triangle): the pixel centres within one
+// pixel of the triangle's bounding box, clipped to the image (the margin
 // takes in a centre that the rounded tests put inside although it lies an
-// ulp outside the box); for each it runs the inside test and the depth in
-// JAX's float32 expressions, in JAX's order (built with -fmad=false, IEEE
-// division), and for a covered centre does an atomicMin of
+// ulp outside the box), less the margin rows and columns that no rounded
+// test can cover (the trim, below); for each centre the inside test and the
+// depth in JAX's float32 expressions, in JAX's order (built with
+// -fmad=false, IEEE division), and for a covered centre an atomicMin of
 // (order-preserving bits of zp) << 32 | triangle into a u64 buffer
 // [B, H, W] that starts at all ones. Pass 2, one thread per pixel, unpacks
 // the buffer into tri_id.
 //
-// What bounds it on an H100: bytes. It reads xy, z and tris once, writes
-// the buffer once, updates it once per covered (pixel, triangle) pair, reads
-// it once and writes tri_id once: at 64 x 512 x 512 that is ~0.35 GB, ~0.1
-// ms at 3.35 TB/s. The tests (~20 flops each, a few per triangle at the
-// reference's density) are far below the float32 rate. This first design
-// keeps one thread per triangle: a triangle far larger than a pixel makes
-// its thread long, which a face mesh at 512x512 never has.
+// What bounds it on an H100 (PERF.md; the attribution study
+// radnerf_tpu_torch/studies/raster.py): instructions. At the photometric
+// step's 64 x 512 x 512 a triangle tests ~13 centres and covers ~1: the
+// margin rows and columns are most of the centres tested. The raster pass
+// was 70% of E, the two IEEE divisions at every centre 45% of it, its
+// atomics (against plain stores, or a buffer held in L2) 5%.
+//
+// The trim. A margin column lies outside the box by d > 0 (its centres at
+// x = xmin - d). For the triangle the float ops see (p0, p0 + e1, p0 + e2,
+// within u wx of the vertices, u = 2^-24) some exact barycentric of such a
+// centre is at most -d / (2 wx): they sum to 1, and sum W_i (x_i - xmin) =
+// -d over at most two negative W_i with x_i - xmin <= wx. The rounded w_i
+// differ from the exact ones by at most
+//   err = 4u (1 + |W1| + |W2| + R1 + R2),  Rk = (Ak + |Wk| Aden) / |den|,
+// A1 = |dx e2y| + |dy e2x|, A2 = |e1x dy| + |e1y dx|, Aden = |e1x e2y| +
+// |e1y e2x| (first order; dx, dy, the products, the differences, den and
+// the quotient each round once, and w0 = (1 - w1) - w2 twice more). Over
+// the window |dx| <= wx + 1, |dy| <= wy + 1, and |Wk| <= 2 Ak / |den| where
+// Aden <= 2^20 |den|. So where d > 2 wx err the rounded w_i is negative at
+// every centre of the column, and the column is dropped; the same for the
+// last column and the first and last rows. The bound is evaluated in float
+// with 4x room (16u for 4u), from X = wx + 2 and Y = wy + 2, and only where
+// the coordinates are finite and below 2^40; a dropped centre is one the
+// exact test rejects, so the result does not depend on the trim. It leaves
+// ~2.6 centres a triangle of the ~13 (a column within ~1e-4 px of the box
+// stays).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,7 +96,28 @@ __global__ void raster_triangles(const float* __restrict__ xy,
   const float fi0 = fmaxf(ceilf(ymin - 0.5f) - 1.0f, 0.0f);
   const float fi1 = fminf(floorf(ymax - 0.5f) + 1.0f, (float)(H - 1));
   if (!(fj0 <= fj1) || !(fi0 <= fi1)) return;  // off the image (or NaN)
-  const int j0 = (int)fj0, j1 = (int)fj1, i0 = (int)fi0, i1 = (int)fi1;
+  int j0 = (int)fj0, j1 = (int)fj1, i0 = (int)fi0, i1 = (int)fi1;
+
+  // the trim (header): drop the margin rows and columns no rounded test covers
+  const float wx = xmax - xmin, wy = ymax - ymin;
+  const float ad = fabsf(den);
+  const float aden = fabsf(e1x * e2y) + fabsf(e1y * e2x);
+  const float reach = fmaxf(fmaxf(fabsf(xmin), fabsf(xmax)), fmaxf(fabsf(ymin), fabsf(ymax)));
+  if (aden <= 0x1p20f * ad && reach < 0x1p40f) {
+    const float X = wx + 2.0f, Y = wy + 2.0f;
+    const float s = (X * fabsf(e2y) + Y * fabsf(e2x)) + (Y * fabsf(e1x) + X * fabsf(e1y));
+    const float inv = 1.0f / ad;
+    const float err = 0x1p-20f * (1.0f + 2.0f * s * inv + s * (1.0f + 2.0f * aden * inv) * inv);
+    const float dx_min = 2.01f * wx * err + 0x1p-20f * wx;
+    const float dy_min = 2.01f * wy * err + 0x1p-20f * wy;
+    const float keep = 1.0f - 0x1p-20f;  // fl(xmin - c) may round up by an ulp
+    const float cl = (float)j0 + 0.5f, cr = (float)j1 + 0.5f;
+    const float ct = (float)i0 + 0.5f, cb = (float)i1 + 0.5f;
+    if (cl < xmin && (xmin - cl) * keep > dx_min) ++j0;
+    if (cr > xmax && (cr - xmax) * keep > dx_min) --j1;
+    if (ct < ymin && (ymin - ct) * keep > dy_min) ++i0;
+    if (cb > ymax && (cb - ymax) * keep > dy_min) --i1;
+  }
 
   unsigned long long* frame = zbuf + (long long)b * H * W;
   for (int pi = i0; pi <= i1; ++pi) {

@@ -16,7 +16,9 @@ and at equal ``zp`` the lower triangle id (JAX takes the first in its
 candidate order, tile by tile, so at an exact tie the two may pick
 different triangles of the same depth). Neither drops a triangle: JAX keeps
 at most K = 128 candidates a tile and bins a triangle into at most 2x2
-tiles, and drops the rest.
+tiles, and drops the rest. Kernel E tests fewer centres than the plain
+version: it drops the margin rows and columns that no rounded test can
+cover (``_trimmed_ranges``), which changes no result.
 """
 
 from __future__ import annotations
@@ -56,10 +58,13 @@ def _ordered_key(zp: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     return ((u - 0x80000000) << 32) | tri
 
 
-def _covered_pairs(xy, z, tris, H, W):
+def _tested_pairs(xy, tris, H, W):
     """Every (pixel, triangle) pair kernel E tests, frame by frame in chunks
     of at most _PAIRS_PER_CHUNK pairs (at least one triangle a chunk):
-    yields (frame, pixel index, key) of the covered pairs."""
+    yields (frame, pixel row, pixel column, triangle, n1, n2, den) with the
+    barycentric numerators n1 = cross(d, e2), n2 = cross(e1, d) and den =
+    cross(e1, e2) in the rasterizer's float32 expressions (w1 = n1 / den,
+    w2 = n2 / den where den != 0)."""
     tris = tris.long()
     i0, i1, j0, j1 = _pixel_ranges(xy, tris, H, W)
     widths = j1 - j0 + 1
@@ -87,16 +92,72 @@ def _covered_pairs(xy, z, tris, H, W):
             p0, p1, p2 = xy[b, v[:, 0]], xy[b, v[:, 1]], xy[b, v[:, 2]]
             e1, e2 = p1 - p0, p2 - p0
             den = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
-            den_ = torch.where(den == 0, torch.ones_like(den), den)
             dx = (pj.float() + 0.5) - p0[:, 0]
             dy = (pi.float() + 0.5) - p0[:, 1]
-            w1 = (dx * e2[:, 1] - dy * e2[:, 0]) / den_
-            w2 = (e1[:, 0] * dy - e1[:, 1] * dx) / den_
-            w0 = 1.0 - w1 - w2
-            inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (den.abs() > 1e-12)
-            zv = z[b, v]
-            zp = w0 * zv[:, 0] + w1 * zv[:, 1] + w2 * zv[:, 2]
-            yield b, (pi * W + pj)[inside], _ordered_key(zp[inside], tt[inside])
+            n1 = dx * e2[:, 1] - dy * e2[:, 0]
+            n2 = e1[:, 0] * dy - e1[:, 1] * dx
+            yield b, pi, pj, tt, n1, n2, den
+
+
+def _covered_pairs(xy, z, tris, H, W):
+    """The covered pairs among ``_tested_pairs``: yields (frame, pixel
+    index, key) chunk by chunk."""
+    for b, pi, pj, tt, n1, n2, den in _tested_pairs(xy, tris, H, W):
+        den_ = torch.where(den == 0, torch.ones_like(den), den)
+        w1 = n1 / den_
+        w2 = n2 / den_
+        w0 = 1.0 - w1 - w2
+        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (den.abs() > 1e-12)
+        zv = z[b, tris[tt].long()]
+        zp = w0 * zv[:, 0] + w1 * zv[:, 1] + w2 * zv[:, 2]
+        yield b, (pi * W + pj)[inside], _ordered_key(zp[inside], tt[inside])
+
+
+def _live_ranges(xy, tris, H, W):
+    """``_pixel_ranges`` and whether each (frame, triangle) can cover a
+    centre at all (``|den| > 1e-12`` and a range on the image): the
+    triangles whose centres kernel E tests. Returns (i0, i1, j0, j1, live)
+    [B, T]."""
+    tris = tris.long()
+    i0, i1, j0, j1 = _pixel_ranges(xy, tris, H, W)
+    p = xy[:, tris]  # [B, T, 3, 2]
+    e1, e2 = p[:, :, 1] - p[:, :, 0], p[:, :, 2] - p[:, :, 0]
+    den = e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]
+    return i0, i1, j0, j1, (i0 <= i1) & (j0 <= j1) & (den.abs() > 1e-12)
+
+
+def _trimmed_ranges(xy, tris, H, W):
+    """Kernel E's window after its trim (csrc/rasterize.cu, in its float32
+    expressions): ``_pixel_ranges`` less each margin row or column that
+    lies farther outside the bounding box than the rounded tests can
+    reach. Returns (i0, i1, j0, j1) int64 [B, T], empty where i0 > i1 or
+    j0 > j1; a covered centre of ``_covered_pairs`` always lies inside."""
+    tris = tris.long()
+    i0, i1, j0, j1 = _pixel_ranges(xy, tris, H, W)
+    p = xy[:, tris]  # [B, T, 3, 2]
+    e1, e2 = p[:, :, 1] - p[:, :, 0], p[:, :, 2] - p[:, :, 0]
+    e1x, e1y, e2x, e2y = e1[..., 0], e1[..., 1], e2[..., 0], e2[..., 1]
+    ad = (e1x * e2y - e1y * e2x).abs()
+    lo, hi = p.amin(dim=2), p.amax(dim=2)
+    wx, wy = hi[..., 0] - lo[..., 0], hi[..., 1] - lo[..., 1]
+    aden = (e1x * e2y).abs() + (e1y * e2x).abs()
+    reach = torch.maximum(lo.abs().amax(-1), hi.abs().amax(-1))
+    ok = (aden <= 2.0**20 * ad) & (reach < 2.0**40)
+    X, Y = wx + 2.0, wy + 2.0
+    s = (X * e2y.abs() + Y * e2x.abs()) + (Y * e1x.abs() + X * e1y.abs())
+    inv = 1.0 / ad
+    err = 2.0**-20 * (1.0 + 2.0 * s * inv + s * (1.0 + 2.0 * aden * inv) * inv)
+    dx_min = 2.01 * wx * err + 2.0**-20 * wx
+    dy_min = 2.01 * wy * err + 2.0**-20 * wy
+    keep = 1.0 - 2.0**-20
+    cl, cr = j0.float() + 0.5, j1.float() + 0.5
+    ct, cb = i0.float() + 0.5, i1.float() + 0.5
+    xmin, xmax, ymin, ymax = lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]
+    j0 = j0 + (ok & (cl < xmin) & ((xmin - cl) * keep > dx_min)).long()
+    j1 = j1 - (ok & (cr > xmax) & ((cr - xmax) * keep > dx_min)).long()
+    i0 = i0 + (ok & (ct < ymin) & ((ymin - ct) * keep > dy_min)).long()
+    i1 = i1 - (ok & (cb > ymax) & ((cb - ymax) * keep > dy_min)).long()
+    return i0, i1, j0, j1
 
 
 def rasterize_plain(xy: torch.Tensor, z: torch.Tensor, tris: torch.Tensor,

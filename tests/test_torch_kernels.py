@@ -509,10 +509,13 @@ def test_row_gather_kernel_matches_plain(dev, dtype, width):
 
 def test_rasterize_kernel_matches_plain(dev):
     """Kernel E against rasterize_plain bit for bit on a seeded batch of 4
-    frames of 512x512: a jittered 175 x 198 lattice (the BFM's density,
-    ~69k triangles over a face-sized region) over a coarse lattice of large
-    triangles reaching past the borders, one repeated triangle (an exact
-    depth tie) and one degenerate triangle."""
+    frames of 512x512: a jittered 175 x 198 lattice (the BFM's density, ~69k
+    triangles over a face-sized region) over a coarse lattice of large
+    triangles reaching past the borders (whose margins the trim keeps or
+    drops by their size), one repeated triangle (an exact depth tie) and one
+    degenerate triangle; the same at 450x450; a batch whose second
+    frame has every triangle off the image; no triangle at all; one
+    triangle covering the whole frame behind the lattice."""
     rng = np.random.default_rng(0)
 
     def lattice(gx, gy, x0, x1, y0, y1):
@@ -523,6 +526,17 @@ def test_rasterize_kernel_matches_plain(dev):
                                np.stack([a + 1, a + gx, a + gx + 1], -1)])
         return np.stack([xs, ys], -1).reshape(-1, 2), tris
 
+    def check(xy, z, tris, H, W):
+        xy_t, z_t, tris_t = _t(xy, dev), _t(z, dev), _t(tris, dev)
+        before = _kernels.KERNELS["rasterize"].launches
+        got = T.rasterize(xy_t, z_t, tris_t, H, W)
+        assert _kernels.KERNELS["rasterize"].launches == before + 1
+        want = T.rasterize_plain(xy_t, z_t, tris_t, H, W)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (xy.shape[0], H, W)
+        assert torch.equal(got, want)
+        return got
+
     xy1, t1 = lattice(175, 198, 110.0, 400.0, 80.0, 460.0)
     xy2, t2 = lattice(9, 9, -40.0, 560.0, -40.0, 560.0)
     tris = np.concatenate([t1, t2 + len(xy1), t1[5000:5001], [[0, 0, 1]]]).astype(np.int32)
@@ -532,15 +546,21 @@ def test_rasterize_kernel_matches_plain(dev):
                    for _ in range(B)]).astype(np.float32)
     z = np.concatenate([rng.uniform(5.0, 5.5, (B, len(xy1))),
                         rng.uniform(4.0, 8.0, (B, len(xy2)))], 1).astype(np.float32)
-    xy_t, z_t, tris_t = _t(xy, dev), _t(z, dev), _t(tris, dev)
-    before = _kernels.KERNELS["rasterize"].launches
-    got = T.rasterize(xy_t, z_t, tris_t, 512, 512)
-    assert _kernels.KERNELS["rasterize"].launches == before + 1
-    want = T.rasterize_plain(xy_t, z_t, tris_t, 512, 512)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and got.shape == (B, 512, 512)
-    assert torch.equal(got, want)
+    got = check(xy, z, tris, 512, 512)
     assert float((got >= 0).float().mean()) > 0.5
     assert not bool((got == len(tris) - 2).any())  # the tie goes to the lower id
+    check(xy, z, tris, 450, 450)
+    far = xy[:2].copy()
+    far[1] += 1000.0  # every triangle of frame 1 off the image
+    got = check(far, z[:2], tris, 512, 512)
+    assert bool((got[1] == -1).all()) and bool((got[0] >= 0).any())
+    got = check(xy[:2], z[:2], np.zeros((0, 3), np.int32), 512, 512)
+    assert bool((got == -1).all())
+    whole = np.array([[-10.0, -10.0], [2000.0, -10.0], [-10.0, 2000.0]], np.float32)
+    xy_w = np.concatenate([xy[:2, :len(xy1)], np.broadcast_to(whole, (2, 3, 2))], 1)
+    z_w = np.concatenate([z[:2, :len(xy1)], np.full((2, 3), 9.0, np.float32)], 1)
+    tris_w = np.concatenate([t1, [[len(xy1), len(xy1) + 1, len(xy1) + 2]]]).astype(np.int32)
+    got = check(xy_w, z_w, tris_w, 512, 512)
+    assert bool((got >= 0).all()) and bool((got == len(t1)).any())
     with pytest.raises(RuntimeError, match="no backward"):
-        T.rasterize(xy_t.requires_grad_(True), z_t, tris_t, 512, 512)
+        T.rasterize(_t(xy, dev).requires_grad_(True), _t(z, dev), _t(tris, dev), 512, 512)

@@ -3,7 +3,9 @@ the CPU: ``rasterize_plain`` (kernel E's plain version) against
 ``_raster_hard`` run op by op (outside ``jit``: XLA:CPU contracts FMAs
 inside it, which can move a pixel centre on an edge to the other side), on
 meshes under JAX's candidate cap; ``rasterize_attributes``, ``Render3DMM``,
-``vertex_normals`` and ``sh_irradiance``, values and gradients.
+``vertex_normals`` and ``sh_irradiance``, values and gradients. Without JAX:
+kernel E's trim (``_trimmed_ranges`` holds every covered centre) and the
+binned study design's plain binning (``bin_triangles_plain``).
 
 Tolerances: triangle ids are equal except where both winners have the same
 depth (JAX takes the first in its candidate order, the port the lower id).
@@ -21,6 +23,8 @@ import torch
 from radnerf_tpu.preprocess import render_3dmm as J
 
 from radnerf_tpu_torch.ops import rasterize, rasterize_plain
+from radnerf_tpu_torch.ops.rasterize import _covered_pairs
+from radnerf_tpu_torch.studies.raster import bin_triangles_plain
 from radnerf_tpu_torch.preprocess import render_3dmm as P
 
 H = W = 48
@@ -73,10 +77,10 @@ def _zp(xy, z, tris, tri, i, j):
     return float(w0 * z[v[0]] + w1 * z[v[1]] + w2 * z[v[2]])
 
 
-def _jax_raster(xy, z, tris, tile=16, K=128):
+def _jax_raster(xy, z, tris, tile=16, K=128, h=H, w=W):
     """JAX's rasterizer op by op, one frame at a time."""
     return np.stack([np.asarray(J._raster_hard(jnp.asarray(xy[b]), jnp.asarray(z[b]),
-                                               jnp.asarray(tris), H, W, tile, K))
+                                               jnp.asarray(tris), h, w, tile, K))
                      for b in range(xy.shape[0])])
 
 
@@ -111,6 +115,113 @@ def test_rasterize_plain_matches_jax_op_by_op():
     # the wrapper runs the plain version on CPU tensors
     assert np.array_equal(rasterize(torch.from_numpy(xy), torch.from_numpy(z),
                                     torch.from_numpy(tris), H, W).numpy(), got)
+
+
+def test_rasterize_plain_matches_jax_on_a_frame_off_the_tiles():
+    """A 41 x 43 frame, a multiple of no tile side, with the mesh reaching
+    past its last row and column: JAX pads its 16x16 tiles to 48 x 48 and
+    crops; the port's plain version tests the same centres."""
+    h, w = 41, 43
+    rng = np.random.default_rng(5)
+    xy, z, tris = _mesh(rng, 2)
+    for b in range(2):
+        cand = np.asarray(_bin(jnp.asarray(xy[b]), jnp.asarray(tris), h, w, 16, 128))
+        assert (cand >= 0).sum(1).max() < 128
+    want = _jax_raster(xy, z, tris, h=h, w=w)
+    got = rasterize_plain(torch.from_numpy(xy), torch.from_numpy(z), torch.from_numpy(tris),
+                          h, w).numpy()
+    assert got.shape == (2, h, w) and (want >= 0).mean() > 0.5
+    # the mesh reaches the last row and column
+    assert (want[:, -1] >= 0).any() and (want[:, :, -1] >= 0).any()
+    for b, i, j in np.argwhere(got != want):
+        assert got[b, i, j] >= 0 and want[b, i, j] >= 0
+        assert _zp(xy[b], z[b], tris, got[b, i, j], i, j) == \
+            _zp(xy[b], z[b], tris, want[b, i, j], i, j)
+
+
+def _edge_mesh(rng, n):
+    """n small triangles whose bounding boxes end within a few float32 ulps
+    of pixel centres (the trim's closest calls), some with vertices on pixel
+    centres; n slivers, a vertex within 1e-6 (relative) of the line through
+    the other two; and large triangles reaching past the frame."""
+    c = rng.integers(4, 40, (n, 1, 2)).astype(np.float64) + 0.5
+    tiny = rng.integers(-3, 4, (n, 3, 2)) * 2.0**-19
+    small = c + rng.uniform(-1.2, 1.2, (n, 3, 2)) * rng.choice([1.0, 0.0], (n, 3, 2)) + tiny
+    sliver = c + np.stack([np.zeros((n, 2)), rng.uniform(2, 9, (n, 2)),
+                           rng.uniform(2, 9, (n, 2))], 1)
+    sliver[:, 2] = sliver[:, 1] * (1 + rng.choice([1e-7, 3e-7, 1e-6], (n, 1))) \
+        - sliver[:, 0] * rng.choice([1e-7, 3e-7, 1e-6], (n, 1))
+    big = rng.uniform(-20, 70, (n // 8, 3, 2))
+    xy = np.concatenate([small, sliver, big]).reshape(1, -1, 2).astype(np.float32)
+    tris = np.arange(xy.shape[1]).reshape(-1, 3).astype(np.int32)
+    z = rng.uniform(1, 3, (1, xy.shape[1])).astype(np.float32)
+    return xy, z, tris
+
+
+@pytest.mark.parametrize("mesh", ["lattice", "edges"])
+def test_trimmed_ranges_hold_every_covered_centre(mesh):
+    """Kernel E's trim drops margin rows and columns of the window: every
+    covered (pixel, triangle) pair of the untrimmed window lies inside the
+    trimmed one; on the lattice (triangles of ~5 px, whose margins are ~40%
+    of their windows) the trim leaves under 70% of the centres."""
+    from radnerf_tpu_torch.ops.rasterize import _pixel_ranges, _trimmed_ranges
+
+    rng = np.random.default_rng(7)
+    xy, z, tris = _mesh(rng, 2) if mesh == "lattice" else _edge_mesh(rng, 3000)
+    xy_t, z_t, tris_t = torch.from_numpy(xy), torch.from_numpy(z), torch.from_numpy(tris)
+    i0, i1, j0, j1 = _trimmed_ranges(xy_t, tris_t, H, W)
+    pairs = 0
+    for b, pix, key in _covered_pairs(xy_t, z_t, tris_t, H, W):
+        t = key & 0xFFFFFFFF
+        pi, pj = pix // W, pix % W
+        assert ((pi >= i0[b, t]) & (pi <= i1[b, t]) & (pj >= j0[b, t]) & (pj <= j1[b, t])).all()
+        pairs += pix.numel()
+    assert pairs > 1000
+    f0, f1, g0, g1 = _pixel_ranges(xy_t, tris_t.long(), H, W)
+    full = ((f1 - f0 + 1).clamp_min(0) * (g1 - g0 + 1).clamp_min(0)).sum()
+    kept = ((i1 - i0 + 1).clamp_min(0) * (j1 - j0 + 1).clamp_min(0)).sum()
+    assert kept < full
+    if mesh == "lattice":
+        assert kept < 0.7 * full
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_bin_triangles_plain_lists_every_covered_pair(tile):
+    """The binned design's binning (``studies/raster_binned.cu``), plain
+    version, on a 45 x 80 frame: every covered (pixel, triangle) pair of
+    ``_covered_pairs`` has its triangle in the pixel's tile list or in its
+    frame's wide list; a triangle off the image and a degenerate one are in
+    no list; a triangle wider than 2x2 tiles is in the wide list; no list
+    holds a triangle twice."""
+    h, w = 45, 80
+    rng = np.random.default_rng(6)
+    xy, z, tris = _mesh(rng, 2)
+    V = xy.shape[1]
+    extra = np.array([[[90.0, 5.0], [99.0, 5.0], [95.0, 9.0]],  # off the image
+                      [[1.0, 1.0], [75.0, 2.0], [3.0, 43.0]],  # over 3 tiles a row
+                      [[5.0, 5.0], [5.0, 5.0], [9.0, 9.0]]], np.float32)  # degenerate
+    xy = np.concatenate([xy, np.broadcast_to(extra.reshape(1, 9, 2), (2, 9, 2))], 1)
+    z = np.concatenate([z, np.full((2, 9), 3.0, np.float32)], 1)
+    tris = np.concatenate([tris, V + np.arange(9).reshape(3, 3)]).astype(np.int32)
+    T = len(tris)
+    off, big, flat = T - 3, T - 2, T - 1
+    xy_t, z_t, tris_t = torch.from_numpy(xy), torch.from_numpy(z), torch.from_numpy(tris)
+    keys = bin_triangles_plain(xy_t, tris_t, h, w, tile)
+    n_tx = -(-w // tile)
+    n_tiles = n_tx * -(-h // tile)
+    assert torch.equal(torch.unique(keys), keys)
+    t = keys % T
+    assert not torch.isin(t, torch.tensor([off, flat])).any()
+    wide = (keys // T) % (n_tiles + 1) == n_tiles
+    assert set(t[wide].tolist()) == {big}
+    pairs = 0
+    for b, pix, key in _covered_pairs(xy_t, z_t, tris_t, h, w):
+        tri = key & 0xFFFFFFFF
+        k = (pix // w // tile) * n_tx + (pix % w) // tile
+        listed = ((b * (n_tiles + 1) + k) * T + tri, (b * (n_tiles + 1) + n_tiles) * T + tri)
+        assert (torch.isin(listed[0], keys) | torch.isin(listed[1], keys)).all()
+        pairs += pix.numel()
+    assert pairs > h * w
 
 
 def _raster_f32(xy, z, tris):
