@@ -101,6 +101,23 @@ The dataset and the entry points, on the same directory:
      versions on one eval frame's own inputs (~4.2M samples, [262,144, 16]
      lattice), the eval frame fenced and profiled, ``test``'s FPS.
 
+The grid and march variants (``variants_phase``, ``variant_kernel_checks``):
+ variants: ``radnerf_tpu_torch.main --exp_eye --grid_levels 8 --grid_ch 4
+     --bound 2 --max_steps 128`` on the same directory at full width (the
+     JAX bench's 8x4 grid, 3-D and 2-D; cascade 2; the general orbit, K =
+     257, S = 128), 16 steps, evaluation, test, then ``infer``, with every
+     launch count set to 0 just before and read just after; an eval
+     frame's peak memory reckoned first; the fixed batch's loss before and
+     after; the step fenced and profiled, an eval frame fenced, profiled
+     and its samples counted;
+ variant_kernel_checks: A bit for bit and A' (per row of the table
+     gradient, x within 1e-5) on that run's recorded step and eval calls,
+     on ``get_encoder("hashgrid")`` at its defaults and on smoothstep,
+     align_corners, 1- and 8-channel grids; B bit for bit on the recorded
+     step (noises) and eval calls and at cascade 2 on the affine orbit;
+     each beside its ms, plain ms and bound, one kernels-line entry per
+     kernel and variant.
+
 The bf16 policy (``-O``): the frame and the head step beside their float32
 runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
 packing pass and A'-bf16 against their plain versions on the path's points
@@ -280,6 +297,19 @@ TOL_BISENET_REL, MAX_REPROJ_PX, TOL_BG_MEAN, TOL_BG_P99 = 1e-4, 1.0, 2.0, 10.0
 # stage 1's id and exp), so a skipped or wrong update shows at 1e-2
 PHOTO_CHECK = {"frames": 10, "batch_size": 5, "light_iters": 6, "fine_iters": 4}
 TOL_PHOTO_LOSS_REL, TOL_PHOTO_PARAM_REL, TOL_PHOTO_LMS_PX = 1e-3, 1e-2, 1e-2
+# the variants phase: the JAX bench's 8x4 grid (bench.py:47-58; 3-D and 2-D)
+# at bound 2 (cascade 2) with max_steps 128 (dt_min < dt_max: the general
+# orbit, K = 257), through main's flags; 16 steps (2 epochs of the 8
+# frames), then fenced and profiled steps; the variant checks' points (2^20,
+# get_encoder's hash grid at its defaults among them) and their grids
+VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4", "--bound", "2", "--max_steps", "128"]
+VARIANT_STEPS, VARIANT_TIMED_STEPS, VARIANT_POINTS = 16, 8, 1 << 20
+VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
+    "smoothstep": dict(input_dim=2, interpolation="smoothstep"),
+    "align_corners": dict(input_dim=3, align_corners=True),
+    "c1": dict(input_dim=3, level_dim=1),
+    "c8": dict(input_dim=3, level_dim=8),
+}
 
 
 def emit(obj):
@@ -388,7 +418,7 @@ def row_counts(x, spec, bound):
     x01 = x01[inb]
     counts = torch.zeros(spec.n_embeddings, dtype=torch.int64, device=x.device)
     for level in range(L):
-        pg = torch.floor(x01 * spec.level_scale(level) + 0.5).long()
+        pg = torch.floor(x01 * spec.level_scale(level) + spec.shift).long()
         for corner in range(1 << D):
             bits = torch.tensor([(corner >> d) & 1 for d in range(D)], device=x.device)
             rows = _corner_index(spec, level, pg + bits) + spec.offsets[level]
@@ -399,14 +429,16 @@ def row_counts(x, spec, bound):
 def grid_work(x, spec, bound, elem=4):
     """Bytes and flops one grid encode needs for these points: the points,
     the output, and each table row the in-bounds points touch, read once
-    (table values and output of ``elem`` bytes: 2 for the bf16 policy);
-    per in-bounds (point, level) 3D flops for the position, 2D per corner
-    weight and 2C per corner accumulation."""
+    (rows of C values of ``elem`` bytes, 2 for the bf16 policy; a hashed
+    level's rows are those its hash reaches); per in-bounds (point, level)
+    3D flops for the position (5D more for smoothstep's weights), 2D per
+    corner weight and 2C per corner accumulation."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     counts, n_in = row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * elem
-    n_flops = n_in * L * (3 * D + (1 << D) * (2 * D + 2 * C))
+    smooth = 5 * D if spec.interpolation == "smoothstep" else 0
+    n_flops = n_in * L * (3 * D + smooth + (1 << D) * (2 * D + 2 * C))
     return n_bytes, n_flops
 
 
@@ -418,48 +450,62 @@ def grid_backward_work(x, spec, bound, need_x, elem=4):
     the bf16 policy); per in-bounds (point, level) 3D flops for the
     position, per corner 2D for the weight and C for the weighted gradient,
     and with the x gradient 2C for the dot with the row, 2D for its weight
-    derivatives and 2D to scale the position gradient."""
+    derivatives and 2D to scale the position gradient (smoothstep: 5D more
+    for the weights and 4D for their slopes)."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
     counts, n_in = row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * 4
     per_corner = 2 * D + C
+    smooth = 5 * D if spec.interpolation == "smoothstep" else 0
     if need_x:
         n_bytes += n_rows * C * elem + x.numel() * 4
         per_corner += 2 * C + 2 * D
-    n_flops = n_in * L * (3 * D + (1 << D) * per_corner + (2 * D if need_x else 0))
+        smooth += 4 * D if smooth else 0
+    n_flops = n_in * L * (3 * D + smooth + (1 << D) * per_corner + (2 * D if need_x else 0))
     return n_bytes, n_flops
 
 
 def march_work(rays_o, rays_d, nears, fars, window, mcfg, noises=None):
     """Bytes and flops the march needs: the ray geometry, window and noises,
     the distinct sigma bytes its steps look up, the [N, S] outputs; ~20
-    flops per step walked (position, clamp, cell). The walk is the kernel's:
-    the orbit starts at ``nears + dt * noises`` where noises are given, and
-    a cell is ``floor(0.5 * (p / mip_bound + 1) * H)``."""
-    from radnerf_tpu_torch.ops import morton3d
+    flops per step walked (position, clamp, cell), ~6 more on the general
+    orbit (its step) and ~12 more at cascade > 1 (the level). The walk is
+    the kernel's: on the affine orbit from the window's first step of the
+    orbit from ``nears + dt * noises``, on the general orbit every step from
+    ``nears + clamp(nears * dt_gamma, dt_min, dt_max) * noises``, until the
+    window's end or K steps; a cell is the plain version's (the cascade's
+    level, ``floor(0.5 * (p / mip_bound + 1) * H)``)."""
+    from radnerf_tpu_torch.ops.marching import _cells, _clamp_dt
 
-    N, S, K, H = rays_o.shape[0], mcfg.n_sample_slots, mcfg.n_march_iters, mcfg.grid_size
+    N, S, K = rays_o.shape[0], mcfg.n_sample_slots, mcfg.n_march_iters
     dt = float(np.float32(mcfg.dt_min))
-    mip_bound = float(np.float32(min(1.0, mcfg.bound)))
     t_lo, t_hi = window
-    t0 = nears if noises is None else nears + dt * noises
-    k0 = torch.clamp(torch.floor((t_lo - t0) / torch.full_like(t0, dt)), min=0.0)
     t_end = torch.minimum(fars, t_hi)
-    cells, steps = [], 0
+    if mcfg.affine:
+        t0 = nears if noises is None else nears + dt * noises
+        k0 = torch.clamp(torch.floor((t_lo - t0) / torch.full_like(t0, dt)), min=0.0)
+    else:
+        t0 = nears if noises is None else nears + _clamp_dt(nears, mcfg) * noises
+    cells, steps, t = [], 0, t0
     for k in range(K):
-        t = t0 + (k0 + k) * dt
+        if mcfg.affine:
+            t, step = t0 + (k0 + k) * dt, torch.full_like(t0, dt)
+        else:  # the recurrence
+            if k:
+                t = t + step
+            step = _clamp_dt(t, mcfg)
         walk = t < t_end
         if not bool(walk.any()):
             break
         steps += int(walk.sum())
         p = torch.clamp(rays_o[walk] + t[walk, None] * rays_d[walk], -mcfg.bound, mcfg.bound)
-        c = torch.clamp(torch.floor(0.5 * (p / mip_bound + 1.0) * H), 0, H - 1).long()
-        cells.append(morton3d(c))
+        cells.append(_cells(p, step[walk], mcfg))
     n_cells = int(torch.unique(torch.cat(cells)).numel()) if cells else 0
     n_in = 24 + 16 + (4 if noises is not None else 0)
     n_bytes = N * n_in + n_cells + N * S * (4 + 4 + 1 + 12) + N * 4
-    return n_bytes, 20 * steps
+    per_step = 20 + (0 if mcfg.affine else 6) + (12 if mcfg.cascade > 1 else 0)
+    return n_bytes, per_step * steps
 
 
 def composite_steps(sig, dts, valid, T_thresh):
@@ -810,6 +856,12 @@ def main():
         entry_timing_phase(report, out_dir, entry_trainer, root)
         del entry_trainer
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        step_calls, eval_calls, variant_launches = variants_phase(report, out_dir, root)
+        kernels += variant_kernel_checks(report, step_calls, eval_calls, variant_launches)
+        variants_s = time.perf_counter() - t0
+        del step_calls, eval_calls
+        torch.cuda.empty_cache()
         frame_calls = bf16_frame_phase(report, out_dir, (net, rc, state, b), auds)
         step_calls = bf16_train_phase(report, out_dir, root)
         bf16_entries = bf16_kernel_checks(report, frame_calls, step_calls)
@@ -828,7 +880,7 @@ def main():
         marks.append(time.perf_counter())
         kernels.append(preprocess_phase(report, out_dir, dev))
         marks.append(time.perf_counter())
-        report["phase_seconds"] = {"since_start": marks[0] - start,
+        report["phase_seconds"] = {"since_start": marks[0] - start, "variants": variants_s,
                                    **{name: b - a for name, a, b in
                                       zip(("camera", "live", "mesh", "preprocess"), marks,
                                           marks[1:])}}
@@ -839,7 +891,11 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: kern[k] for k in keys} for kern in kernels]})
+    line = [{k: kern[k] for k in keys} for kern in kernels]
+    for entry, kern in zip(line, kernels):  # whose launches: the path's, or its check's
+        if "launches_in" in kern:
+            entry["launches_in"] = kern["launches_in"]
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1668,6 +1724,369 @@ def entry_timing_phase(report, out_dir, tr, root):
         for c in calls:
             if not c["ok"]:
                 raise RuntimeError(f"{name} differs from its twin in the eval frame: {c}")
+
+
+def variants_phase(report, out_dir, root):
+    """variants: ``python -m radnerf_tpu_torch.main <dir> --exp_eye
+    --grid_levels 8 --grid_ch 4 --bound 2 --max_steps 128`` in this process
+    at full width in float32 (65,536 rays, VARIANT_STEPS steps: 2 epochs of
+    the 8 frames, the evaluation, the test split) with every launch count
+    set to 0 just before and read just after: kernels A and A' at 4
+    channels, B on the general orbit at cascade 2, C and C' launched; the
+    peak memory reckoned before the run (an eval frame marches at most
+    512 * 512 * 128 samples) and measured; the loss on a fixed batch before
+    (the seeded init on an upkept grid) and after; the files written; then
+    ``Trainer.step`` fenced (upkeep steps apart) and a 3-step profile, an
+    eval frame fenced and profiled with its samples, and infer from the
+    run's ngp.npz. Returns (one step's recorded A, A' and B calls, one eval
+    frame's A and B calls, the run's launches)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    import radnerf_tpu_torch.models.renderer as renderer_mod
+    from radnerf_tpu_torch import infer
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.main import build_parser, options_from_args
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import (
+        NetworkConfig, RenderConfig, RendererState, mark_untrained_grid, update_density_grid,
+    )
+    from radnerf_tpu_torch.ops import _kernels, march_rays
+    from radnerf_tpu_torch.train import Trainer
+
+    ws = os.path.join(root, "variants")
+    argv = [root, "--workspace", ws, "--exp_eye", "--preload", "2", "--ckpt", "scratch",
+            "--iters", str(VARIANT_STEPS), "--ema_update_interval", "1", *VARIANT_FLAGS]
+    opt = options_from_args(build_parser().parse_args(argv))
+    rc, ncfg = RenderConfig.from_options(opt), NetworkConfig.from_options(opt)
+    mcfg = rc.march_config()
+    if mcfg.affine or rc.cascade != 2 or ncfg.grid_spec.level_dim != 4:
+        raise RuntimeError(f"the variant flags do not give the variants: {mcfg}, {ncfg}")
+    # the peak, reckoned before the run: an eval frame's [N, S] march outputs
+    # and scattered field values (45 B a slot), and per sample its index and
+    # the field's widest live set (the sigma MLP's input and what it keeps:
+    # position, direction, both encodes, the ambient MLP's input and hidden
+    # layer, the ambient coordinates, the sigma MLP's input and hidden layer)
+    gs, gw = ncfg.grid_spec, ncfg.ambient_spec
+    slots = TRAIN_SIZE * TRAIN_SIZE * mcfg.n_sample_slots
+    floats = (3 + 3 + gs.output_dim + gs.output_dim + ncfg.audio_dim + ncfg.hidden_dim_ambient
+              + 2 + gw.output_dim + gs.output_dim + gw.output_dim + 1 + ncfg.hidden_dim)
+    reckoned = slots * 45 + slots * (8 + 4 * floats)
+    card = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "variants_reckoning", "eval_frame_samples_at_most": slots,
+          "field_floats_per_sample": floats, "reckoned_eval_peak_gb": reckoned / 1e9,
+          "card_gb": card / 1e9})
+    if reckoned > 0.8 * card:
+        raise RuntimeError(f"an eval frame would take {reckoned / 1e9:.1f} GB")
+
+    # the fixed batch's loss at the seeded init (main's own draw), on a grid
+    # upkept as the first upkeep does
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    dev = ds.device
+    tr0 = Trainer(opt, device=dev)
+    fixed = tr0.next_batch(ds, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(123),
+                              device=dev)
+    with torch.no_grad():
+        probe = update_density_grid(
+            tr0.net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev),
+                                             ds.poses, ds.intrinsics),
+            tr0.net.encode_audio(ds.audio_window(0)), fixed["eye"],
+            generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr0.loss(fixed, fixed_noises, 0, state=probe)[0])
+    del tr0, probe
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = port_main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    losses = tr.stats["step_loss"]
+    files = {"checkpoints": sorted(os.listdir(tr.ckpt_path)),
+             "validation": len(os.listdir(os.path.join(ws, "validation"))),
+             "results": sorted(os.listdir(os.path.join(ws, "results")))}
+    out = os.path.join(root, "variants_infer")
+    _kernels.reset_launches()
+    fps = infer.main(["--pose", os.path.join(root, "pose.json"), "--aud",
+                      os.path.join(root, "novel.npy"), "--workspace", out, "--exp_eye",
+                      "--ckpt", tr.best_path, *VARIANT_FLAGS])
+    torch.cuda.synchronize()
+    infer_launches = _kernels.launches()
+    files["infer"] = len(os.listdir(os.path.join(out, "results")))
+
+    # the step, fenced (upkeep steps apart) and profiled; one more step's
+    # kernel calls recorded
+    interval, order = opt.update_extra_interval, ds.epoch_indices()
+    step_ms, upkeep_step_ms = [], []
+    for n in range(VARIANT_TIMED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        (upkeep_step_ms if upkeep else step_ms).extend(
+            fenced_ms(lambda i: tr.step(ds, order[n % len(order)]), 1))
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS + 1)):
+        raise RuntimeError("a profiled or recorded variants step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds, order[i % len(order)]), PROFILED_STEPS)
+    with open(os.path.join(out_dir, "chip_smoke_variants_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    # the module itself (the package's name grid_encode is the function)
+    grid_mod = sys.modules["radnerf_tpu_torch.ops.grid_encode"]
+    with recorded_calls([(network_mod, "grid_encode"), (grid_mod, "grid_encode_backward"),
+                         (renderer_mod, "march_rays")]) as step_calls:
+        tr.step(ds, order[0])
+    torch.cuda.synchronize()
+
+    # an eval frame: fenced, profiled, its samples; its calls recorded
+    val = TalkingHeadDataset(tr.opt, split="val", device=dev)
+    batch = tr.next_batch(val, 0)
+    with recorded_calls([(network_mod, "grid_encode"),
+                         (renderer_mod, "march_rays")]) as eval_calls:
+        tr.eval_step(batch)
+    torch.cuda.synchronize()
+    m_args, m_kw = next((a, kw) for name, a, kw in eval_calls if name == "march_rays")
+    n_samples = int(march_rays(*m_args, **m_kw)["valid"].sum())
+    eval_ms = fenced_ms(lambda i: tr.eval_step(batch), 3)
+    _, eval_events = device_profile(lambda i: tr.eval_step(batch), 2)
+    # the frames whose kernels the trace kept (one march a frame): a trace
+    # of two frames this large has kept one of them
+    frames = int(sum(e.count for e in eval_events if "march_rays_kernel" in e.key))
+    if frames < 1:
+        raise RuntimeError("the eval frames' profile holds no march")
+    eval_busy = sum(e.self_device_time_total for e in eval_events) / frames / 1e3
+    med = float(np.median(step_ms))
+    vp = {"argv": argv, "seconds": run_s, "steps": VARIANT_STEPS, "launches": launches,
+          "march": {"cascade": mcfg.cascade, "affine": mcfg.affine, "dt_min": mcfg.dt_min,
+                    "dt_max": mcfg.dt_max, "K": mcfg.n_march_iters, "S": mcfg.n_sample_slots},
+          "grids": {"spatial": str(gs), "ambient": str(gw)},
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+          "eval_psnr": tr.stats["results"], "files": files,
+          "infer": {"launches": infer_launches, "fps": fps},
+          "max_memory_allocated_gb": peak_gb, "reckoned_eval_peak_gb": reckoned / 1e9,
+          "train_step_ms_median": med, "train_step_ms": step_ms,
+          "upkeep_step_ms": upkeep_step_ms,
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS),
+                      "grid_encode_ms": kernel_class_ms(events, PROFILED_STEPS, "grid_encode"),
+                      "march_ms": kernel_class_ms(events, PROFILED_STEPS, "march_rays")},
+          "eval_frame_ms": eval_ms, "eval_frame_device_ms": eval_busy,
+          "eval_frames_profiled": frames,
+          "eval_frame_device_ms_by_class": ms_by_class(eval_events, frames),
+          "eval_frame_samples": n_samples,
+          "model": "NetworkConfig(torso=False, exp_eye=True) full width, float32, grids 8x4 "
+                   "(3-D and 2-D), bound 2, max_steps 128, the CLI's defaults otherwise"}
+    report["variants"] = {**vp, "step_losses": losses}
+    emit({"phase": "variants", **{k: v for k, v in vp.items() if k != "train_step_ms"}})
+    problems = []
+    if any(launches[k] <= 0 for k in TRAIN_KERNELS) or \
+            any(infer_launches[k] <= 0 for k in FRAME_KERNELS):
+        problems.append(f"launches {launches}, infer {infer_launches}")
+    if len(losses) != VARIANT_STEPS or not all(math.isfinite(v) for v in losses):
+        problems.append(f"losses {losses}")
+    if not loss_end < loss_0:
+        problems.append(f"the fixed batch's loss did not fall: {loss_0} -> {loss_end}")
+    if "ngp.npz" not in files["checkpoints"] or files["validation"] != 2 * VAL_FRAMES or \
+            not files["results"] or files["infer"] not in (1, INFER_FRAMES):
+        problems.append(f"files {files}")
+    if [n for n, _, _ in step_calls] != ["march_rays", "grid_encode", "grid_encode",
+                                         "grid_encode_backward", "grid_encode_backward"]:
+        problems.append(f"the step's calls {[n for n, _, _ in step_calls]}")
+    if not n_samples > 0:
+        problems.append("the eval frame marched no sample")
+    if problems:
+        raise RuntimeError(f"variants: {problems}")
+    del tr, ds, val, prof, events
+    torch.cuda.empty_cache()
+    return step_calls, eval_calls, launches
+
+
+def variant_kernel_checks(report, step_calls, eval_calls, launches):
+    """variant_kernel_checks: kernels A, A' and B on the variants
+    against their plain versions on the card. A bit for bit and A'
+    (the table gradient per row within 2 (n - 1) 2^-24 of its sum of |terms|
+    or 1e-4 of the largest, x within 1e-5) on the variants run's recorded
+    4-channel calls (the step's and an eval frame's), on get_encoder
+    ("hashgrid") at its defaults and on VARIANT_GRIDS' tiled grids
+    (smoothstep, align_corners, 1 and 8 channels), each on VARIANT_POINTS
+    seeded points (a few outside the box) with a seeded upstream gradient;
+    B bit for bit (valid, t, dt, xyz, count) on the recorded step call
+    (with noises) and eval call (without), and at cascade 2 on the affine
+    orbit (bound 2, max_steps 16) on the eval call's rays. Each beside its
+    ms, device ms, plain ms and bound. Returns the kernels line's entries:
+    one per kernel and variant; the variants run's own (A and A' at 4
+    channels, B on the general orbit at cascade 2) carry its launches, the
+    others, which run only in their checks, the launches of their check."""
+    from radnerf_tpu_torch.ops import (
+        GridSpec, MarchConfig, get_encoder, grid_encode, grid_encode_backward,
+        grid_encode_backward_plain, grid_encode_plain, march_rays, march_rays_plain,
+    )
+
+    dev = step_calls[0][1][0].device
+    gen = torch.Generator(dev).manual_seed(31)
+    fwd, bwd, mar = [], [], []
+    for where, calls in (("step", step_calls), ("eval", eval_calls)):
+        for name, args, kw in calls:
+            if name == "grid_encode":
+                fwd.append(("path", where, *args))
+            elif name == "grid_encode_backward":
+                x, table, go, spec, bound = args
+                bwd.append(("path", where, x, table, go, spec, bound, kw["need_x"]))
+            else:  # the renderer passes the window, cull and noises by name
+                mar.append(("general_cascade2", where, args, kw))
+    specs = {"hashgrid": get_encoder("hashgrid")[0].spec,
+             **{k: GridSpec.create(num_levels=16, desired_resolution=2048, **v)
+                for k, v in VARIANT_GRIDS.items()}}
+    for variant, spec in specs.items():
+        D, C = spec.input_dim, spec.level_dim
+        x = (torch.rand((VARIANT_POINTS, D), generator=gen, device=dev) * 2.04 - 1.02)
+        table = torch.randn((spec.n_embeddings, C), generator=gen, device=dev)
+        go = torch.randn((VARIANT_POINTS, spec.output_dim), generator=gen, device=dev)
+        fwd.append((variant, "spread", x, table, spec, 1.0))
+        bwd.append((variant, "spread", x, table, go, spec, 1.0, True))
+    _, _, m_args, m_kw = next(m for m in mar if m[1] == "eval")
+    cfg2 = MarchConfig(bound=2.0, cascade=2, grid_size=m_args[5].grid_size, max_steps=16,
+                       dt_gamma=m_args[5].dt_gamma)
+    mar.append(("cascade2_affine", "eval", (*m_args[:5], cfg2), m_kw))
+
+    rows = {"grid_encode": [], "grid_encode_backward": [], "march_rays": []}
+    for variant, where, x, table, spec, bound in fwd:
+        def call(x=x, table=table, spec=spec, bound=bound):
+            return grid_encode(x, table, spec, bound)
+        def plain(x=x, table=table, spec=spec, bound=bound):
+            return grid_encode_plain(x, table, spec, bound)
+        got, check_launches = counted("grid_encode", call)
+        want = plain()
+        torch.cuda.synchronize()
+        nb, nf = grid_work(x, spec, bound)
+        bms, by = bound_ms(nb, nf)
+        rows["grid_encode"].append({
+            "variant": variant, "where": where, "spec": str(spec), "n_points": int(x.shape[0]),
+            "check_launches": check_launches, "bit_for_bit": bool(torch.equal(got, want)),
+            "max_abs_err": float((got - want).abs().max()), "ms": cuda_ms(call, 20),
+            "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3), "bound_ms": bms,
+            "bound_by": by, "bytes": nb, "flops": nf})
+    for variant, where, x, table, go, spec, bound, need_x in bwd:
+        def call(x=x, table=table, go=go, spec=spec, bound=bound, need_x=need_x):
+            return grid_encode_backward(x, table, go, spec, bound, need_x=need_x)
+        def plain(x=x, table=table, go=go, spec=spec, bound=bound, need_x=need_x):
+            return grid_encode_backward_plain(x, table, go, spec, bound, need_x=need_x)
+        gk, check_launches = counted("grid_encode_backward", call)
+        gp = plain()
+        counts = row_counts(x, spec, bound)[0]
+        abs_rows = grid_encode_backward_plain(x, table, go.abs(), spec, bound,
+                                              need_x=False)[0]
+        allowed = torch.maximum(
+            2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 * abs_rows.double(),
+            torch.full_like(abs_rows, TOL_STEP_GRAD * float(gp[0].abs().max()),
+                            dtype=torch.float64))
+        torch.cuda.synchronize()
+        nb, nf = grid_backward_work(x, spec, bound, need_x)
+        bms, by = bound_ms(nb, nf)
+        row = {"variant": variant, "where": where, "spec": str(spec),
+               "n_points": int(x.shape[0]), "x_grad": need_x, "check_launches": check_launches,
+               "busiest_row_contributions": int(counts.max()),
+               "table_err_over_allowed": float(((gk[0] - gp[0]).abs().double()
+                                                / allowed).max()),
+               "table_rel_err": rel_err(gk[0], gp[0]),
+               "max_abs_err": float((gk[0] - gp[0]).abs().max()), "ms": cuda_ms(call, 20),
+               "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
+               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
+        if need_x:
+            row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
+                       max_abs_err=max(row["max_abs_err"], float((gk[1] - gp[1]).abs().max())))
+        rows["grid_encode_backward"].append(row)
+    for variant, where, args, kw in mar:
+        def call(args=args, kw=kw):
+            return march_rays(*args, **kw)
+        def plain(args=args, kw=kw):
+            return march_rays_plain(*args, **kw)
+        mk, check_launches = counted("march_rays", call)
+        mp = plain()
+        torch.cuda.synchronize()
+        cfg = args[5]
+        nb, nf = march_work(*args[:4], kw["t_window"], cfg, kw.get("noises"))
+        bms, by = bound_ms(nb, nf)
+        differing = [k for k in ("valid", "t", "dt", "xyz", "count")
+                     if not torch.equal(mk[k], mp[k])]
+        rows["march_rays"].append({
+            "variant": variant, "where": where, "cascade": cfg.cascade, "affine": cfg.affine,
+            "noises": kw.get("noises") is not None, "check_launches": check_launches,
+            "n_rays": int(args[0].shape[0]), "n_samples": int(mk["valid"].sum()),
+            "bit_for_bit": not differing, "differing": differing,
+            "max_abs_err": max(float((mk[k].float() - mp[k].float()).abs().max())
+                               for k in ("t", "dt", "xyz")),
+            "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
+            "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
+            "flops": nf})
+    # what the card still refuses raises before a launch: 3 channels, 4-D
+    # points, the bf16 kernels at 4 channels and on a hash grid
+    refused = {}
+    for what, kw, dtype in (("c3", dict(level_dim=3), None), ("d4", dict(input_dim=4), None),
+                            ("bf16_c4", dict(level_dim=4), torch.bfloat16),
+                            ("bf16_hash", dict(gridtype="hash"), torch.bfloat16)):
+        spec = GridSpec.create(num_levels=4, base_resolution=4, log2_hashmap_size=8, **kw)
+        x = torch.zeros((4, spec.input_dim), device=dev)
+        table = torch.zeros((spec.n_embeddings, spec.level_dim), device=dev)
+        try:
+            grid_encode(x, table, spec, table_dtype=dtype)
+            refused[what] = False
+        except ValueError:
+            refused[what] = True
+    rows["refused"] = refused
+    report["variant_kernel_checks"] = rows
+    emit({"phase": "variant_kernel_checks", **rows})
+    if not all(refused.values()):
+        raise RuntimeError(f"a variant the kernels do not take was not refused: {refused}")
+    bad = [r for r in rows["grid_encode"] if not r["bit_for_bit"]]
+    bad += [r for r in rows["grid_encode_backward"]
+            if not (r["table_err_over_allowed"] <= 1.0
+                    and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL)]
+    bad += [r for r in rows["march_rays"] if not r["bit_for_bit"] or r["n_samples"] == 0]
+    if bad:
+        raise RuntimeError(f"variant kernels differ from their plain versions: {bad}")
+    if [r["variant"] for r in rows["march_rays"]].count("general_cascade2") != 2:
+        raise RuntimeError("the variants step and eval frame made other march calls than B x 2")
+
+    entries = []
+    for name, kernel_rows in rows.items():
+        if name == "refused":
+            continue
+        for variant in dict.fromkeys(r["variant"] for r in kernel_rows):
+            mine = [r for r in kernel_rows if r["variant"] == variant]
+            # the path's entries time the eval frame's calls (A, B) or the
+            # step's (A'); the other rows stand beside them in "calls"
+            path = "step" if name == "grid_encode_backward" else "eval"
+            timed = [r for r in mine if r["where"] in (path, "spread")]
+            bms, by = bound_ms(sum(r["bytes"] for r in timed), sum(r["flops"] for r in timed))
+            # the path's variants carry the variants run's launches; the
+            # others run only in their check, and carry its launches
+            on_path = variant in ("path", "general_cascade2")
+            entries.append({
+                "name": f"{name}:{'c4_path' if variant == 'path' else variant}",
+                "route": "cuda", "source": f"radnerf_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name],
+                "launches": launches[name] if on_path else sum(r["check_launches"] for r in mine),
+                "launches_in": "the variants run" if on_path else "its check only",
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": sum(r["ms"] for r in timed),
+                "device_ms": sum(r["device_ms"] for r in timed),
+                "plain_ms": sum(r["plain_ms"] for r in timed), "bound_ms": bms,
+                "bound_by": by, "library_ms": None, "calls": mine})
+    return entries
+
+
+def counted(name, fn):
+    """(fn(), the launches of kernel ``name`` that call made)."""
+    from radnerf_tpu_torch.ops import _kernels
+
+    before = _kernels.KERNELS[name].launches
+    out = fn()
+    return out, _kernels.KERNELS[name].launches - before
 
 
 def eval_kernel_checks(tr, batch):

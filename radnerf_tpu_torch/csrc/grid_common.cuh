@@ -14,26 +14,33 @@
 // warp-uniform and, at the coarse levels, neighbouring samples of a ray
 // read (and add into) the same table rows.
 //
-// The backward is a template on the table's element type (Table<T> below):
-// float, the float32 policy, or __nv_bfloat16, the bf16 policy of -O
-// (radnerf_tpu/ops/grid_encode.py build_packed_table(dtype=bfloat16) +
-// grid_encode01_packed :395-400). Under bf16 a row is one 32-bit word and
-// a row pair 8 bytes; values are widened to float exactly (a bf16 is the
-// high half of a float32) and each corner weight, computed in float32, is
+// Float32 tables take every grid the JAX package does
+// (radnerf_tpu/ops/grid_encode.py _corner_index :142, grid_encode01 :168):
+// C in {1, 2, 4, 8} channels as a template argument, so a row is one 4- to
+// 16-byte load (two at C = 8); hashed levels (:160); per call the shift
+// (0.5, or 0 under align_corners, :190) and smoothstep (:194). A level's
+// row is [offset, size, stride_0 .. stride_{D-1}]; a hashed level uses no
+// stride, so its row carries stride 0 in dim 0, where a dense level's is
+// always 1, and that is its hash flag.
+//
+// The bf16 policy of -O (radnerf_tpu/ops/grid_encode.py
+// build_packed_table(dtype=bfloat16) + grid_encode01_packed :395-400)
+// takes C = 2 tiled linear grids only. A bf16 row is one 32-bit word and a
+// row pair 8 bytes; values are widened to float exactly (a bf16 is the high
+// half of a float32) and each corner weight, computed in float32, is
 // rounded to bf16. The bf16 forward (grid_encode.cu, on corner-packed rows)
 // forms its corner terms with bf16_terms below: each weight x value
 // product rounded to bf16, the products summed in float32 and the sum
 // rounded to bf16 once: where XLA rounds when JAX runs the lerp op by op
-// (ops/grid_encode.py _grid_encode_plain_bf16 is the twin). For float the
-// weight hook is the identity, so the float32 variants compile to what
-// they were.
+// (ops/grid_encode.py _grid_encode_plain_bf16 is the twin).
 //
 // What bounds the -O kernels on an H100 80GB HBM3 (700 W; PERF.md §6):
 // A-bf16 was bound by its scattered corner gathers, not by bytes or its
 // bf16 arithmetic, so it reads corner-packed rows (grid_encode.cu);
 // A'-bf16 by the global reductions it issues, so it issues one float4 a
 // corner pair into pair keys (grid_encode_backward.cu). Float32 A and A'
-// keep the row layout and the row-pair adds.
+// keep the row layout and add rows (and aligned row pairs) as vector
+// reductions.
 
 #pragma once
 
@@ -47,59 +54,41 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T>
-struct Table;
-
-// float32 tables: a row is a float2, the grad_out element of a (point,
-// level) a float2
-template <>
-struct Table<float> {
-  using Row = float2;
-  using Out = float2;
-  __device__ static float2 load(const Row* __restrict__ p) { return __ldg(p); }
-  __device__ static void load2(const Row* __restrict__ p, float2& e0, float2& e1) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    e0 = make_float2(v.x, v.y);
-    e1 = make_float2(v.z, v.w);
-  }
-  __device__ static float2 load_out(const Out* __restrict__ p) { return __ldg(p); }
-  __device__ static float weight(float w) { return w; }
-};
-
 // bf16 tables: a row is two bf16s in one 32-bit word (channel 0 in the low
 // half, as they lie in memory), and so are the output and grad_out
 // elements of a (point, level)
-template <>
-struct Table<__nv_bfloat16> {
-  using Row = uint32_t;
-  using Out = uint32_t;
+struct Bf16 {
   __device__ static float2 widen(uint32_t v) {
     return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
   }
-  __device__ static float2 load(const Row* __restrict__ p) { return widen(__ldg(p)); }
-  __device__ static void load2(const Row* __restrict__ p, float2& e0, float2& e1) {
+  __device__ static float2 load(const uint32_t* __restrict__ p) { return widen(__ldg(p)); }
+  __device__ static void load2(const uint32_t* __restrict__ p, float2& e0, float2& e1) {
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
     e0 = widen(v.x);
     e1 = widen(v.y);
   }
-  __device__ static float2 load_out(const Out* __restrict__ p) { return widen(__ldg(p)); }
-  __device__ static Out store(float2 v) {
+  __device__ static uint32_t store(float2 v) {
     return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v.x)) |
            ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16);
   }
-  __device__ static float weight(float w) { return round_bf16(w); }
 };
 
 constexpr int kMaxLevels = 32;  // blockDim.y = L; 32 * L threads at most 1024
 
+// the spatial hash's prime of dim d (reference gridencoder.cu:50-63)
+__device__ __forceinline__ constexpr uint32_t hash_prime(int d) {
+  return d == 0 ? 1u : (d == 1 ? 2654435761u : 805459861u);
+}
+
 // One level's constants from the wrapper's tables: the fp32 scale, and the
 // int32 row [offset, size, stride_0 .. stride_{D-1}] (ops/grid_encode.py
-// _level_tables).
+// _level_tables); a hashed level's row has stride 0 in dim 0.
 template <int D>
 struct Level {
   float scale;
   uint32_t offset, size;
   uint32_t stride[D];
+  bool hashed;
 };
 
 template <int D>
@@ -112,6 +101,7 @@ __device__ __forceinline__ Level<D> load_level(const float* __restrict__ scales,
   lv.size = (uint32_t)p[1];
 #pragma unroll
   for (int d = 0; d < D; ++d) lv.stride[d] = (uint32_t)p[2 + d];
+  lv.hashed = lv.stride[0] == 0;
   return lv;
 }
 
@@ -130,29 +120,46 @@ __device__ __forceinline__ bool unit_position(const float* __restrict__ x, float
   return !oob;
 }
 
-// The cell's lower corner and the fractions within it at one level.
-template <int D>
-__device__ __forceinline__ void cell(const float p[D], float scale, uint32_t pg[D],
-                                     float frac[D]) {
+// The cell's lower corner at one level, the fractions the weights are
+// formed from (kSmooth: f * f * (3 - 2 f) of the cell fraction f, in the
+// plain version's op order) and, for the x gradient, d frac / d pos (1, or
+// 6 f (1 - f) under smoothstep).
+template <int D, bool kSmooth>
+__device__ __forceinline__ void cell(const float p[D], float scale, float shift,
+                                     uint32_t pg[D], float frac[D], float slope[D]) {
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const float pos = p[d] * scale + 0.5f;
+    const float pos = p[d] * scale + shift;
     const float fl = floorf(pos);
-    frac[d] = pos - fl;
+    const float f = pos - fl;
     pg[d] = (uint32_t)fl;
+    if constexpr (kSmooth) {
+      frac[d] = f * f * (3.0f - 2.0f * f);
+      slope[d] = 6.0f * f * (1.0f - f);
+    } else {
+      frac[d] = f;
+      slope[d] = 1.0f;
+    }
   }
 }
 
 // Table row of corner `corner` (bit d set: +1 in dim d): the uint32 index of
-// the reference's get_grid_index, wrapped into the level. A level's size is
-// either its dense n^D rounded up to 8 (the index never reaches it) or
-// 2^log2_hashmap_size, a power of two: both avoid the division.
-template <int D>
+// the reference's get_grid_index, or on a hashed level the XOR of coord_d *
+// prime_d in uint32, wrapped into the level. A level's size is either its
+// dense n^D rounded up to 8 (the index never reaches it) or
+// 2^log2_hashmap_size, a power of two: both avoid the division. kHash false:
+// the level is never hashed (the bf16 kernels, tiled grids only).
+template <int D, bool kHash = true>
 __device__ __forceinline__ uint32_t corner_row(const Level<D>& lv, const uint32_t pg[D],
                                                int corner) {
   uint32_t idx = 0;  // uint32 wraparound, as the reference index
+  if (kHash && lv.hashed) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) idx += (pg[d] + ((corner >> d) & 1u)) * lv.stride[d];
+    for (int d = 0; d < D; ++d) idx ^= (pg[d] + ((corner >> d) & 1u)) * hash_prime(d);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) idx += (pg[d] + ((corner >> d) & 1u)) * lv.stride[d];
+  }
   if (idx >= lv.size) idx = (lv.size & (lv.size - 1)) ? idx % lv.size : idx & (lv.size - 1);
   return idx + lv.offset;
 }
@@ -168,21 +175,11 @@ __device__ __forceinline__ float corner_weight(const float frac[D], int corner) 
 }
 
 // Corners 2q and 2q + 1 differ only in dim 0, whose stride is 1, so their
-// rows are r0 and r0 + 1 unless the index wraps at the level's size; with r0
-// even the two rows are one aligned 16-byte pair, read (or added) at once.
+// rows are r0 and r0 + 1 unless the index wraps at the level's size (or
+// the level is hashed); with r0 even the two rows are one aligned pair,
+// read (or added) at once.
 __device__ __forceinline__ bool pair_aligned(uint32_t r0, uint32_t r1) {
   return r1 == r0 + 1 && (r0 & 1u) == 0;
-}
-
-template <typename T>
-__device__ __forceinline__ void load_pair(const typename Table<T>::Row* __restrict__ emb,
-                                          uint32_t r0, uint32_t r1, float2& e0, float2& e1) {
-  if (pair_aligned(r0, r1)) {
-    Table<T>::load2(emb + r0, e0, e1);
-  } else {
-    e0 = Table<T>::load(emb + r0);
-    e1 = Table<T>::load(emb + r1);
-  }
 }
 
 // d weight / d frac_d: the other dims' factors, signed by the corner's bit
@@ -196,6 +193,75 @@ __device__ __forceinline__ float corner_weight_grad(const float frac[D], int cor
     dw = dw * (((corner >> e) & 1u) ? frac[e] : 1.0f - frac[e]);
   }
   return dw;
+}
+
+// The C float32 channels of a (point, level) output element, one 4-, 8- or
+// 16-byte access (two at C = 8).
+template <int C>
+struct alignas(C >= 4 ? 16 : 4 * C) Channels {
+  float v[C];
+};
+
+// A float32 row of C channels: one 4- or 8-byte load at C = 1 or 2, one or
+// two 16-byte loads at C = 4 or 8.
+template <int C>
+__device__ __forceinline__ void load_row(const float* __restrict__ emb, uint32_t r, float e[C]) {
+  if constexpr (C == 1) {
+    e[0] = __ldg(emb + r);
+  } else if constexpr (C == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(emb) + r);
+    e[0] = v.x;
+    e[1] = v.y;
+  } else {
+    const float4* row = reinterpret_cast<const float4*>(emb + (size_t)r * C);
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 v = __ldg(row + q);
+      e[4 * q] = v.x;
+      e[4 * q + 1] = v.y;
+      e[4 * q + 2] = v.z;
+      e[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// The rows of corners 2q and 2q + 1: at C <= 2 one load of both where they
+// are an aligned pair (8 or 16 bytes; at C = 2 that cuts the scattered L1
+// requests a quarter), else a load each.
+template <int C>
+__device__ __forceinline__ void load_row_pair(const float* __restrict__ emb, uint32_t r0,
+                                              uint32_t r1, float e0[C], float e1[C]) {
+  if constexpr (C == 1) {
+    if (pair_aligned(r0, r1)) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(emb + r0));
+      e0[0] = v.x;
+      e1[0] = v.y;
+      return;
+    }
+  } else if constexpr (C == 2) {
+    if (pair_aligned(r0, r1)) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(emb + 2 * (size_t)r0));
+      e0[0] = v.x;
+      e0[1] = v.y;
+      e1[0] = v.z;
+      e1[1] = v.w;
+      return;
+    }
+  }
+  load_row<C>(emb, r0, e0);
+  load_row<C>(emb, r1, e1);
+}
+
+// The bf16 rows of corners 2q and 2q + 1, widened: one 8-byte load where
+// they are an aligned pair.
+__device__ __forceinline__ void load_pair_bf16(const uint32_t* __restrict__ emb, uint32_t r0,
+                                               uint32_t r1, float2& e0, float2& e1) {
+  if (pair_aligned(r0, r1)) {
+    Bf16::load2(emb + r0, e0, e1);
+  } else {
+    e0 = Bf16::load(emb + r0);
+    e1 = Bf16::load(emb + r1);
+  }
 }
 
 // The bf16 terms bf16(bf16(w0) * e0) and bf16(bf16(w1) * e1) of two corner
@@ -217,8 +283,8 @@ __device__ __forceinline__ void bf16_terms(uint32_t e0, uint32_t e1, float w0, f
   asm("fma.rn.bf16x2 %0, %1, %2, %3;"
       : "=r"(p1)
       : "r"(__byte_perm(w, 0, 0x3232)), "r"(e1), "r"(kMinusZeros));
-  a = Table<__nv_bfloat16>::widen(p0);
-  b = Table<__nv_bfloat16>::widen(p1);
+  a = Bf16::widen(p0);
+  b = Bf16::widen(p1);
 }
 
 }  // namespace grid

@@ -55,6 +55,30 @@
 // in flight: 0.060 ms against 0.076 at the 58 registers the compiler took
 // unbounded (PERF.md).
 
+// The general orbit and the mip cascade (kOrbit and kCascade below,
+// template arguments, so the affine orbit at cascade 1 carries none of
+// their code; one entry point takes every orbit and cascade) take the rest
+// of JAX's march: the general orbit t_{k+1} = t_k + clamp(t_k * dt_gamma,
+// dt_min, dt_max) (marching.py:108 _orbit, the non-affine branch
+// :445-453) and the mip cascade (:126 _mip_level). The recurrence is sequential, so a group
+// cannot take G consecutive steps at once as on the affine orbit: every
+// lane of the group walks the G steps of the chunk in turn from the chunk's
+// first t, each step's multiply, clamp and add rounded in float32 as the
+// plain version rounds them, and keeps its own step's t and dt; then the
+// group does its G lookups together, as on the affine orbit. A warp issues
+// the walk's instructions once whether one lane of a group or all of them
+// run it, so the group's other lanes walk for free; one lane walking and
+// shuffling each step's t and dt out to its lane issues the same walk and
+// 2G shuffles more, and was 1.11-1.16x slower on the variants run's calls
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md). The walk starts at t0 =
+// near + clamp(near * dt_gamma, dt_min, dt_max) * noise (:427-429) and
+// counts K steps from there; the window's t_hi only ends it (JAX's general
+// branch does not skip to t_lo, and neither does this kernel: it looks up
+// every step from t0). At cascade > 1 a point's level is clip(max(e(max|p|),
+// e(dt * H * 0.5)), 0, C - 1), e the frexpf exponent from the float's
+// bits, and its cell level * H^3 + morton(floor(0.5 * (p / min(2^level,
+// bound) + 1) * H)) (:276-285).
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,6 +128,21 @@ __device__ __forceinline__ uint32_t cell_coord(float p, float mip_bound, float H
   return (uint32_t)c;
 }
 
+// frexpf's exponent of v > 0 from its bits (biased exponent - 126), 0 for
+// v <= 0, as JAX's _mip_level takes it
+__device__ __forceinline__ int frexp_exponent(float v) {
+  return v > 0.0f ? ((__float_as_int(v) >> 23) & 0xFF) - 126 : 0;
+}
+
+// The cascade level of a point p with step dt, and the bound of its level's
+// box: min(2^level, bound)
+__device__ __forceinline__ int mip_level(float px, float py, float pz, float dt, float H,
+                                         int cascade) {
+  const float mx = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
+  const int e = max(frexp_exponent(mx), frexp_exponent(dt * H * 0.5f));
+  return min(max(e, 0), cascade - 1);
+}
+
 __host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // A block's output rows in shared memory: t and dt regions of f1 floats,
@@ -146,6 +185,9 @@ __device__ __forceinline__ void copy_out(T* __restrict__ dst, const T* src, int 
   for (int i = head + n_vec * V + tid; i < n; i += nt) dst[i] = src[i];
 }
 
+// kOrbit: the general orbit (false: the affine one, t0 + (k0 + k) * dt);
+// kCascade: cascade > 1 (false: one level of mip_bound)
+template <bool kOrbit, bool kCascade>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ nears, const float* __restrict__ fars,
@@ -153,7 +195,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
     const float* __restrict__ noises, const uint8_t* __restrict__ sigma_bytes,
     float* __restrict__ t_out, float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
     float* __restrict__ xyz_out, int* __restrict__ count_out, int N, int K, int S, int R,
-    int H, float bound, float mip_bound, float dt, int use_cull, float log_cull) {
+    int H, float bound, float mip_bound, float dt, int use_cull, float log_cull,
+    int cascade, float dt_gamma, float dt_max) {
   extern __shared__ uint4 smem[];
   const TileLayout L = tile_layout(R, S);
   const int n0 = blockIdx.x * R;
@@ -183,11 +226,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
   if (live) {
     ox = rays_o[3 * n], oy = rays_o[3 * n + 1], oz = rays_o[3 * n + 2];
     dx = rays_d[3 * n], dy = rays_d[3 * n + 1], dz = rays_d[3 * n + 2];
-    t0 = noises != nullptr ? nears[n] + dt * noises[n] : nears[n];
-    k0 = floorf((t_lo[n] - t0) / dt);
-    k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
+    if constexpr (kOrbit) {
+      // dt is dt_min; the walk starts at t0 (k0 stays 0)
+      const float near = nears[n];
+      t0 = noises != nullptr ? near + clampf(near * dt_gamma, dt, dt_max) * noises[n] : near;
+    } else {
+      t0 = noises != nullptr ? nears[n] + dt * noises[n] : nears[n];
+      k0 = floorf((t_lo[n] - t0) / dt);
+      k0 = k0 < 0.0f ? 0.0f : k0;  // NaN stays NaN, as in the twin
+    }
     t_end = min_nan(fars[n], t_hi[n]);
   }
+  float tc = t0;  // the general orbit: t at the chunk's first step
   const float Hf = (float)H;
   float incl = 0.0f;  // the cull's running sum, in orbit order
   int count = 0;      // kept steps so far
@@ -195,16 +245,37 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
     const int k = kc + gl;
     bool walk = false, occ = false;
     float t = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
+    float step = dt;  // this lane's step size
     uint32_t byte = 0;
+    if constexpr (kOrbit) {
+      // every lane of the group walks the chunk's G steps in turn
+      float tw = tc;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const float dj = clampf(tw * dt_gamma, dt, dt_max);
+        if (j == gl) t = tw, step = dj;
+        tw = tw + dj;
+      }
+      tc = tw;
+    }
     if (live && k < K) {
-      t = t0 + (k0 + (float)k) * dt;
+      if constexpr (!kOrbit) t = t0 + (k0 + (float)k) * dt;
       walk = t < t_end;
       if (walk) {
         px = clampf(ox + t * dx, -bound, bound);
         py = clampf(oy + t * dy, -bound, bound);
         pz = clampf(oz + t * dz, -bound, bound);
-        byte = sigma_bytes[morton3d(cell_coord(px, mip_bound, Hf), cell_coord(py, mip_bound, Hf),
-                                    cell_coord(pz, mip_bound, Hf))];
+        if constexpr (kCascade) {
+          const int level = mip_level(px, py, pz, step, Hf, cascade);
+          const float mb = fminf((float)(1 << level), bound);
+          byte = sigma_bytes[(uint32_t)level * (uint32_t)(H * H * H) +
+                             morton3d(cell_coord(px, mb, Hf), cell_coord(py, mb, Hf),
+                                      cell_coord(pz, mb, Hf))];
+        } else {
+          byte = sigma_bytes[morton3d(cell_coord(px, mip_bound, Hf),
+                                      cell_coord(py, mip_bound, Hf),
+                                      cell_coord(pz, mip_bound, Hf))];
+        }
         occ = (byte & 128u) != 0;
       }
     }
@@ -214,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
       if (occ) {
         const uint32_t q = byte & 127u;
         const float sig = q > 0 ? exp2f(((float)q - 40.0f) * 0.25f) : 0.0f;
-        est = sig * dt * kCullSafety;
+        est = sig * step * kCullSafety;
       }
       float mine = 0.0f;  // incl after this lane's step
 #pragma unroll
@@ -230,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
       if (slot < S) {
         const int i = r * S + slot;
         t_tile[i] = t;
-        dt_tile[i] = dt;
+        dt_tile[i] = step;
         v_tile[i] = 1;
         xyz_tile[3 * i] = px;
         xyz_tile[3 * i + 1] = py;
@@ -253,17 +324,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) march_rays_kernel(
   for (int i = threadIdx.x; i < rays; i += blockDim.x) count_out[n0 + i] = count_tile[i];
 }
 
-}  // namespace
-
-extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
-                              const void* nears, const void* fars,
-                              const void* t_lo, const void* t_hi,
-                              const void* noises, const void* sigma_bytes,
-                              void* t, void* dt,
-                              void* valid, void* xyz, void* count, long long N,
-                              int K, int S, int H, float bound, float mip_bound,
-                              float dt_step, int use_cull, float log_cull,
-                              void* stream) {
+template <bool kOrbit, bool kCascade>
+int launch(const void* rays_o, const void* rays_d, const void* nears, const void* fars,
+           const void* t_lo, const void* t_hi, const void* noises, const void* sigma_bytes,
+           void* t, void* dt, void* valid, void* xyz, void* count, long long N, int K, int S,
+           int H, float bound, float mip_bound, float dt_step, int use_cull, float log_cull,
+           int cascade, float dt_gamma, float dt_max, void* stream) {
   if (N < 0 || N > 0x7fffffffLL - kThreads || S < 1 || K < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -276,16 +342,43 @@ extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d,
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        march_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        march_rays_kernel<kOrbit, kCascade>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned blocks = (unsigned)((N + R - 1) / R);
   if (blocks == 0) return 0;
-  march_rays_kernel<<<blocks, R * kGroup, smem, (cudaStream_t)stream>>>(
+  march_rays_kernel<kOrbit, kCascade><<<blocks, R * kGroup, smem, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)nears,
       (const float*)fars, (const float*)t_lo, (const float*)t_hi,
       (const float*)noises, (const uint8_t*)sigma_bytes, (float*)t, (float*)dt,
       (uint8_t*)valid, (float*)xyz, (int*)count, (int)N, K, S, R, H, bound, mip_bound,
-      dt_step, use_cull, log_cull);
+      dt_step, use_cull, log_cull, cascade, dt_gamma, dt_max);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// the general orbit (affine 0) or the affine one (affine 1: dt = dt_min), at
+// any cascade; sigma_bytes [cascade * H^3]
+extern "C" int march_rays_fwd(const void* rays_o, const void* rays_d, const void* nears,
+                              const void* fars, const void* t_lo, const void* t_hi,
+                              const void* noises, const void* sigma_bytes, void* t, void* dt,
+                              void* valid, void* xyz, void* count, long long N, int K, int S,
+                              int H, int cascade, float bound, float dt_gamma, float dt_min,
+                              float dt_max, int affine, int use_cull, float log_cull,
+                              void* stream) {
+  if (cascade < 1 || cascade > 8 || (long long)cascade * H * H * H > 0xffffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float mip_bound = bound < 1.0f ? bound : 1.0f;  // cascade 1: min(1, bound)
+#define MARCH_ARGS                                                                          \
+  rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes, t, dt, valid, xyz, count,  \
+      N, K, S, H, bound, mip_bound, dt_min, use_cull, log_cull, cascade, dt_gamma, dt_max,  \
+      stream
+  if (affine) {
+    return cascade > 1 ? launch<false, true>(MARCH_ARGS) : launch<false, false>(MARCH_ARGS);
+  }
+  return cascade > 1 ? launch<true, true>(MARCH_ARGS) : launch<true, false>(MARCH_ARGS);
+#undef MARCH_ARGS
 }

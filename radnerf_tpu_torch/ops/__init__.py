@@ -5,10 +5,13 @@ rasterizer, Morton codes.
 ``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E; the gradients of the first and
 third are kernels A' and C' (``grid_encode_backward``,
 ``composite_rays_backward``); ``pack_table`` wraps A-bf16's packing pass. Each has a plain PyTorch version (``*_plain``)
-that the wrapper runs for CPU tensors.
+that the wrapper runs for CPU tensors. ``grid_total_variation``,
+``sph_from_ray``, ``sample_pdf`` and the factory ``get_encoder`` are plain
+PyTorch.
 """
 
 from .activation import trunc_exp
+from .encoding import get_encoder
 from .freq_encode import freq_encode, freq_output_dim
 from .grid_encode import (
     GridSpec,
@@ -16,6 +19,7 @@ from .grid_encode import (
     grid_encode_backward,
     grid_encode_backward_plain,
     grid_encode_plain,
+    grid_total_variation,
     pack_table,
     pack_table_plain,
 )
@@ -34,10 +38,12 @@ from .morton import morton3d, morton3d_invert, morton_dilate, packbits, unpackbi
 from .ray_aabb import near_far_from_aabb
 from .rasterize import rasterize, rasterize_plain
 from .rowgather import bench_gather_study, take_rows, take_rows_plain
+from .sampling import sample_pdf, sph_from_ray
 from .sh_encode import sh_encode, sh_output_dim
 
 __all__ = [
     "trunc_exp",
+    "get_encoder",
     "freq_encode",
     "freq_output_dim",
     "GridSpec",
@@ -45,6 +51,7 @@ __all__ = [
     "grid_encode_backward",
     "grid_encode_backward_plain",
     "grid_encode_plain",
+    "grid_total_variation",
     "pack_table",
     "pack_table_plain",
     "MarchConfig",
@@ -67,6 +74,8 @@ __all__ = [
     "bench_gather_study",
     "take_rows",
     "take_rows_plain",
+    "sample_pdf",
+    "sph_from_ray",
     "sh_encode",
     "sh_output_dim",
 ]

@@ -131,13 +131,15 @@ _F = ctypes.c_float
 
 KERNELS = {
     "grid_encode": Kernel("grid_encode", {
-        # x, emb, scales, level_params, out, N, D, L, bound, two_bound, stream
-        "grid_encode_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+        # x, emb, scales, level_params, out, N, D, L, C, smoothstep, hashed,
+        # shift, bound, two_bound, stream
+        "grid_encode_fwd": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     }),
     "grid_encode_backward": Kernel("grid_encode_backward", {
         # x, emb, grad_out, scales, level_params, grad_table, grad_x, N, D,
-        # L, bound, two_bound, stream
-        "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+        # L, C, smoothstep, hashed, shift, bound, two_bound, stream
+        "grid_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _P],
     }),
     # the bf16 policy's variants: A-bf16 on the corner-packed bf16 table
     # (bf16 output), its packing pass, A'-bf16 on the bf16 table and grad_out
@@ -157,10 +159,9 @@ KERNELS = {
     }, source="grid_encode_backward"),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,
-        # t, dt, valid, xyz, count, N, K, S, H, bound, mip_bound, dt_step,
-        # use_cull, log_cull, stream
-        "march_rays_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _L, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+        # t, dt, valid, xyz, count, N, K, S, H, cascade, bound, dt_gamma,
+        # dt_min, dt_max, affine, use_cull, log_cull, stream
+        "march_rays_fwd": [_P] * 13 + [_L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P],
     }),
     "composite_rays": Kernel("composite_rays", {
         # sigmas, rgbs, dts, ts, valid, ambient, image, depth, weights_sum,

@@ -33,9 +33,14 @@ scatter-adds bf16 products into a bf16 table, which the port deliberately
 does not: its sum is the more exact one), x's through the bf16 weights as
 if their rounding were the identity (autodiff's view of a cast).
 
-Only tiled grids with linear interpolation and ``align_corners=False`` --
-the shapes every RAD-NeRF encoder uses -- are supported; anything else
-raises.
+Every ``GridSpec`` the JAX package takes is encoded: tiled and hash grids
+(a level whose dense index overflows its table hashes its corners, the
+XOR of ``coord_d * prime_d`` in uint32), linear and smoothstep
+interpolation, ``align_corners``, any ``level_dim``. Kernels A and A' take
+D in (2, 3), C in (1, 2, 4, 8) and at most 32 levels; the bf16 kernels
+(and the packing pass) take C = 2 on tiled linear grids without
+``align_corners`` only. ``grid_total_variation`` is the JAX package's TV
+loss at sampled points.
 """
 
 from __future__ import annotations
@@ -47,10 +52,15 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ._kernels import KERNELS, require_cuda_tensors
 
 _U32 = 1 << 32
 _U32_MASK = _U32 - 1
+# the spatial hash's primes, one per dim (reference gridencoder.cu:50-63)
+_PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
+# kernels A / A' channel counts (the upstream gridencoder's set)
+KERNEL_CHANNELS = (1, 2, 4, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,21 +132,42 @@ class GridSpec:
         """Per-dim index strides; a dim stops contributing (stride 0) once the
         running stride exceeds the level's table size (reference
         gridencoder.cu:71-75), and the stride wraps as a uint32."""
-        size = self.offsets[level + 1] - self.offsets[level]
+        return self._strides(level)[0]
+
+    def hashed(self, level: int) -> bool:
+        """True where a hash grid's level overflows its table: its corners
+        are hashed (JAX ``_corner_index``: the final uint32 stride exceeds
+        the level's size)."""
+        return self.gridtype == "hash" and self._strides(level)[1] > self.level_size(level)
+
+    def level_size(self, level: int) -> int:
+        return self.offsets[level + 1] - self.offsets[level]
+
+    def _strides(self, level: int):
+        """(active strides, the final uint32 stride) of a level."""
+        size = self.level_size(level)
         res = self.level_resolution(level)
         n = res if self.align_corners else res + 1
         strides, stride = [], 1
         for _ in range(self.input_dim):
             strides.append(stride if stride <= size else 0)
             stride = (stride * n) % _U32
-        return strides
+        return strides, stride
 
-    def check_supported(self):
-        if (self.gridtype != "tiled" or self.interpolation != "linear"
-                or self.align_corners):
-            raise NotImplementedError(
-                "the port encodes tiled grids with linear interpolation and "
-                f"align_corners=False only, got {self}")
+    @property
+    def shift(self) -> float:
+        """The offset added to ``x01 * scale`` (0 under align_corners)."""
+        return 0.0 if self.align_corners else 0.5
+
+    def init(self, generator: torch.Generator | None = None, device=None) -> torch.Tensor:
+        """A float32 table drawn from U(-1e-4, 1e-4), as ``GridSpec.init`` in
+        JAX (reference grid.py:138-140); torch's draws, not JAX's. It lies on
+        ``device``: by default the generator's, or the card without one
+        (``device="cpu"`` for the CPU)."""
+        if device is None:
+            device = generator.device if generator is not None else "cuda"
+        t = torch.empty((self.n_embeddings, self.level_dim), device=resolve_device(device))
+        return t.uniform_(-1e-4, 1e-4, generator=generator)
 
 
 def _corner_index(spec: GridSpec, level: int, corner_grid: torch.Tensor) -> torch.Tensor:
@@ -144,15 +175,29 @@ def _corner_index(spec: GridSpec, level: int, corner_grid: torch.Tensor) -> torc
 
     Mirrors the uint32 index of ``get_grid_index`` (reference
     gridencoder.cu:66-84) in int64: the running sum is masked to 32 bits
-    after each multiply-add, which is uint32 wraparound.
+    after each multiply-add, which is uint32 wraparound; a hashed level
+    (``GridSpec.hashed``) takes the XOR of ``coord_d * prime_d`` in uint32.
     """
-    size = spec.offsets[level + 1] - spec.offsets[level]
+    size = spec.level_size(level)
     index = torch.zeros(corner_grid.shape[:-1], dtype=torch.int64,
                         device=corner_grid.device)
+    if spec.hashed(level):
+        for d in range(spec.input_dim):
+            index = index ^ ((corner_grid[..., d] * _PRIMES[d]) & _U32_MASK)
+        return index % size
     for d, stride in enumerate(spec.active_strides(level)):
         if stride:
             index = (index + corner_grid[..., d] * stride) & _U32_MASK
     return index % size
+
+
+def _rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table[rows] through ``index_select``, whose gradient is an
+    ``index_add_`` (atomics on the card): ``table[rows]``'s, an
+    ``index_put_`` that sorts its indices, takes about a minute on the card
+    when millions of points share a row (an untrained field's ambient
+    points all fall in one cell)."""
+    return table.index_select(0, rows.reshape(-1)).reshape(*rows.shape, table.shape[-1])
 
 
 def _is_bf16(embeddings: torch.Tensor, table_dtype) -> bool:
@@ -168,11 +213,15 @@ def _bf16_round(v: torch.Tensor) -> torch.Tensor:
 
 def _level_corners(x01: torch.Tensor, spec: GridSpec, level: int):
     """Per corner of each point's cell at ``level``: (table row, float32
-    weight w_0 * ... * w_{D-1} in dim order), and the fractions."""
+    weight w_0 * ... * w_{D-1} in dim order), and the fractions the weights
+    are formed from (under smoothstep ``f * f * (3 - 2 f)`` of the cell
+    fractions f, in JAX's op order)."""
     D = spec.input_dim
-    pos = x01 * spec.level_scale(level) + 0.5
+    pos = x01 * spec.level_scale(level) + spec.shift
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
+    if spec.interpolation == "smoothstep":
+        frac = frac * frac * (3.0 - 2.0 * frac)
     pg = pos_grid.to(torch.int64)
     corners = []
     for corner in range(1 << D):
@@ -219,7 +268,6 @@ def grid_encode_plain(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
     the bf16 policy's encode of the module docstring, with a bf16 result,
     reading the corners from ``packed`` (``pack_table``'s copy) when given.
     """
-    spec.check_supported()
     if x.shape[-1] != spec.input_dim:
         raise ValueError(f"expected last dim {spec.input_dim}, got {tuple(x.shape)}")
     if _is_bf16(embeddings, table_dtype):
@@ -231,7 +279,7 @@ def grid_encode_plain(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
     for level in range(spec.num_levels):
         out = None
         for rows, w in _level_corners(x01, spec, level)[0]:
-            contrib = (inb * w)[..., None] * embeddings[rows]
+            contrib = (inb * w)[..., None] * _rows(embeddings, rows)
             out = contrib if out is None else out + contrib
         outs.append(out)
     return torch.cat(outs, dim=-1)
@@ -243,12 +291,15 @@ _LEVEL_TABLES: dict = {}
 def _level_tables(spec: GridSpec, device: torch.device):
     """Per-level kernel parameters, built once per (spec, device): fp32
     scales [L] from the host-side fp32 chain, and int32 rows
-    [offset, size, stride_0 .. stride_{D-1}] per level."""
+    [offset, size, stride_0 .. stride_{D-1}] per level. A hashed level uses
+    no stride: its row carries zeros there, and the kernels read its
+    dim-0 stride of 0 (a dense level's is 1) as the hash flag."""
     key = (spec, device)
     if key not in _LEVEL_TABLES:
-        L, offs = spec.num_levels, spec.offsets
+        L, offs, D = spec.num_levels, spec.offsets, spec.input_dim
         scales = np.array([spec.level_scale(l) for l in range(L)], np.float32)
-        params = np.array([[offs[l], offs[l + 1] - offs[l], *spec.active_strides(l)]
+        params = np.array([[offs[l], offs[l + 1] - offs[l],
+                            *([0] * D if spec.hashed(l) else spec.active_strides(l))]
                            for l in range(L)], np.int32)
         _LEVEL_TABLES[key] = (torch.from_numpy(scales).to(device),
                               torch.from_numpy(params).to(device))
@@ -262,8 +313,10 @@ def pack_table_plain(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     the strides of the dims where c's bit is set): for a cell whose corner 0
     is row k, its 2^D corner rows in corner order. That is JAX's
     ``build_packed_table(dtype=bfloat16)``'s entry k of level l, corner-major
-    instead of channel-major and without its appended zero row."""
-    spec.check_supported()
+    instead of channel-major and without its appended zero row. A hash
+    grid's index is not additive, so it has no packed copy (as in JAX)."""
+    if spec.gridtype != "tiled":
+        raise ValueError("corner packing requires a tiled grid (hash indices are not additive)")
     table = table.to(torch.bfloat16)
     D, offs = spec.input_dim, spec.offsets
     levels = []
@@ -292,9 +345,9 @@ def pack_table(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     [n_embeddings, 2^D, C] bf16 (2^D x the bf16 table's bytes)."""
     if table.device.type == "cpu":
         return pack_table_plain(table, spec)
-    spec.check_supported()
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    if D not in (2, 3) or C != 2 or L > 32 or table.shape != (spec.n_embeddings, C):
+    _refuse_bf16_kernels(spec, "the packing pass")
+    if D not in (2, 3) or L > 32 or table.shape != (spec.n_embeddings, C):
         raise ValueError(f"the packing pass takes the [n_embeddings, 2] table of a grid of D "
                          f"in (2, 3) and at most 32 levels, got {tuple(table.shape)}, {spec}")
     table = table.to(torch.bfloat16).contiguous()
@@ -307,23 +360,37 @@ def pack_table(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     return packed
 
 
+def _refuse_bf16_kernels(spec: GridSpec, what: str):
+    """The bf16 kernels take RAD-NeRF's grids only: 2 channels, tiled,
+    linear, without align_corners."""
+    if not (spec.level_dim == 2 and spec.gridtype == "tiled"
+            and spec.interpolation == "linear" and not spec.align_corners):
+        raise ValueError(f"{what} takes 2 channels on tiled linear grids without "
+                         f"align_corners only, got {spec} (ROADMAP queue 2 item 4)")
+
+
 def _check_kernel_args(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
     """Raise unless kernels A / A' take these points and this table: D in
-    (2, 3), 2 channels, at most 32 levels, float32 points, a float32 table
-    (aligned to 16 bytes) or a bf16 one (aligned to 8)."""
-    spec.check_supported()
+    (2, 3), C in (1, 2, 4, 8), at most 32 levels, float32 points, a float32
+    table (aligned to its row pair, at most 16 bytes) or a bf16 one (2
+    channels on a tiled linear grid without align_corners, aligned to 8)."""
     D, C = spec.input_dim, spec.level_dim
     if x.shape[-1] != D or D not in (2, 3):
-        raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)}")
-    if C != 2 or spec.num_levels > 32:
-        raise ValueError(f"kernels A and A' take 2 channels and at most 32 levels, got {spec}")
+        raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)} "
+                         "(ROADMAP queue 2 item 4)")
+    if C not in KERNEL_CHANNELS or spec.num_levels > 32:
+        raise ValueError(f"kernels A and A' take {KERNEL_CHANNELS} channels and at most 32 "
+                         f"levels, got {spec} (ROADMAP queue 2 item 4)")
     if table.shape != (spec.n_embeddings, C):
         raise ValueError(f"embeddings {tuple(table.shape)} do not fit {spec}")
     if x.dtype != torch.float32 or table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("kernel A takes float32 points and a float32 or bf16 table")
-    # the kernels read (and A' adds) two adjacent rows at once: 16 B of
-    # float32, 8 B of bf16
-    if table.data_ptr() % (2 * C * table.element_size()):
+    if table.dtype == torch.bfloat16:
+        _refuse_bf16_kernels(spec, "kernel A-bf16 (and A'-bf16)")
+    # the kernels read (and A' adds) two adjacent rows at once where that is
+    # one load of at most 16 B: 8 B of float32 at C = 1, 16 B at C >= 2,
+    # 8 B of bf16
+    if table.data_ptr() % min(16, 2 * C * table.element_size()):
         raise ValueError("kernels A and A' take a table aligned to a row pair")
 
 
@@ -339,6 +406,7 @@ def _grid_encode_kernel(x, table, spec: GridSpec, bound: float, packed=None) -> 
     if N == 0:
         return out
     scales, params = _level_tables(spec, x.device)
+    geometry = (float(bound), float(np.float32(2.0 * bound)))
     if table.dtype == torch.bfloat16:
         packed = pack_table(table, spec) if packed is None else packed
         _check_packed(packed, spec)
@@ -346,10 +414,18 @@ def _grid_encode_kernel(x, table, spec: GridSpec, bound: float, packed=None) -> 
         name, fn, table = "grid_encode_bf16", "grid_encode_fwd_bf16_packed", packed
     else:
         name, fn = "grid_encode", "grid_encode_fwd"
+        geometry = (C, *_variant_args(spec), *geometry)
     KERNELS[name].launch(
         fn, x.device, x.data_ptr(), table.data_ptr(), scales.data_ptr(), params.data_ptr(),
-        out.data_ptr(), N, D, L, float(bound), float(np.float32(2.0 * bound)))
+        out.data_ptr(), N, D, L, *geometry)
     return out
+
+
+def _variant_args(spec: GridSpec):
+    """The float32 entry points' variant arguments: smoothstep (0 or 1),
+    hashed (1 for a hash grid, whose levels may be hashed) and the shift
+    (0.5, or 0 under align_corners)."""
+    return int(spec.interpolation == "smoothstep"), int(spec.gridtype == "hash"), spec.shift
 
 
 def _grid_encode_backward_plain_bf16(x, table, grad_out, spec: GridSpec, bound: float,
@@ -390,7 +466,12 @@ def _grid_encode_backward_plain_bf16(x, table, grad_out, spec: GridSpec, bound: 
                     dw = -dw
                 gpos[d] = gpos[d] + dot * dw
         if need_x:
-            xg = torch.stack(gpos, dim=-1) * spec.level_scale(level) / two_bound
+            xg = torch.stack(gpos, dim=-1)
+            if spec.interpolation == "smoothstep":  # d frac / d pos = 6 f (1 - f)
+                pos = x01 * spec.level_scale(level) + spec.shift
+                f = pos - torch.floor(pos)
+                xg = xg * (6.0 * f * (1.0 - f))
+            xg = xg * spec.level_scale(level) / two_bound
             xg = torch.where(live[..., None], xg, 0.0)
             g_x = xg if g_x is None else g_x + xg
     return g_table, g_x
@@ -442,6 +523,8 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
         raise ValueError(f"grad_out {tuple(grad_out.shape)} {grad_out.dtype} does not fit "
                          f"points {tuple(x.shape)}, a {table.dtype} table and {spec}")
     x, grad_out = x.contiguous(), grad_out.contiguous()
+    if grad_out.data_ptr() % 16:  # read a (point, level) at a time, up to 16 B
+        grad_out = grad_out.clone()
     require_cuda_tensors(x, table, grad_out)
     # the kernel stores every element of grad_x; A' adds into grad_table
     # (zeroed), A'-bf16 into its pair keys (zeroed) and then stores every
@@ -467,8 +550,31 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
                 "grid_encode_bwd_bf16_keyed", x.device, *args,
                 keys.data_ptr() if need_table else None, *outs)
         else:
-            KERNELS["grid_encode_backward"].launch("grid_encode_bwd", x.device, *args, *outs)
+            KERNELS["grid_encode_backward"].launch(
+                "grid_encode_bwd", x.device, *args, *outs[:5], C, *_variant_args(spec),
+                *outs[5:])
     return g_table, g_x
+
+
+def grid_total_variation(x01: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec,
+                         weight: float = 1e-7) -> torch.Tensor:
+    """The scalar total-variation loss of a grid table at sampled points
+    (``radnerf_tpu/ops/grid_encode.py grid_total_variation``; the
+    reference's grad_total_variation, gridencoder.cu:505-644, as a loss):
+    at every level, the squared difference of each point's cell row to its
+    +1 neighbour's in every dim, summed, times ``weight``. x01 [..., D] in
+    [0, 1]; differentiable through autograd (plain PyTorch, no kernel)."""
+    total = None
+    for level in range(spec.num_levels):
+        pos = torch.floor(x01 * spec.level_scale(level) + spec.shift).to(torch.int64)
+        base = embeddings[_corner_index(spec, level, pos) + spec.offsets[level]]
+        for d in range(spec.input_dim):
+            nb = pos.clone()
+            nb[..., d] += 1
+            nbv = embeddings[_corner_index(spec, level, nb) + spec.offsets[level]]
+            term = torch.sum((nbv - base) ** 2)
+            total = term if total is None else total + term
+    return weight * total
 
 
 class _GridEncode(torch.autograd.Function):

@@ -4,17 +4,19 @@ Counterpart of ``radnerf_tpu/ops/marching.py``:
 
 - ``MarchConfig``, ``build_sigma_bytes`` and ``dequant_sigma`` as there;
 - ``march_rays``: the wrapper of kernel B (``csrc/march_rays.cu``), with
-  the plain twin ``march_rays_plain``. It walks the affine orbit
-  ``t_k = t0 + (k0 + k) * dt`` (``dt_min == dt_max``, the shipped config)
-  through the sigma-byte field, restricted to a per-ray ``t_window``, with
-  the transmittance-bound cull, and keeps the first S occupied points.
-  Training perturbs each ray's orbit origin with ``noises``.
+  the plain twin ``march_rays_plain``. It walks the orbit through the
+  sigma-byte field of every cascade, with the transmittance-bound cull,
+  and keeps the first S occupied points. On the affine orbit
+  ``t_k = t0 + (k0 + k) * dt`` (``dt_min == dt_max``, the shipped config,
+  or ``dt_gamma == 0``) it marches the per-ray ``t_window`` only; on the
+  general orbit ``t_{k+1} = t_k + clamp(t_k * dt_gamma, dt_min, dt_max)``
+  it walks K steps from t0 and the window only ends it (JAX's branches).
+  At ``cascade > 1`` each point's level is JAX's ``_mip_level``. Training
+  perturbs each ray's orbit origin with ``noises``.
 - ``composite_rays``: the wrapper of kernel C (``csrc/composite_rays.cu``),
   with the plain twin ``composite_rays_plain``: front-to-back alpha
   compositing with early termination at ``T_thresh``. Its gradient is kernel
   C' (``csrc/composite_rays_backward.cu``, ``composite_rays_backward``).
-
-The non-affine orbit and ``cascade > 1`` are not ported and raise.
 
 The twins run their running sums and products as explicit loops over the
 lattice axis in float32, in the order the kernels run them: PyTorch's CPU
@@ -99,47 +101,83 @@ def dequant_sigma(q: torch.Tensor) -> torch.Tensor:
     return torch.where(q > 0, s, torch.zeros_like(s))
 
 
-def _check_march(cfg: MarchConfig):
-    if not cfg.affine:
-        raise NotImplementedError("only the affine orbit (dt_min == dt_max) is ported")
-    if cfg.cascade != 1:
-        raise NotImplementedError("only cascade == 1 is ported")
-
-
 def _f32(v: float) -> float:
     """A Python float holding exactly the float32 value the JAX path uses for
     the weakly-typed constant ``v``."""
     return float(np.float32(v))
 
 
+def _clamp_dt(t, cfg: MarchConfig):
+    """The general orbit's step ``clip(t * dt_gamma, dt_min, dt_max)`` in
+    float32 (JAX ``_clamp_dt``)."""
+    return torch.clamp(t * _f32(cfg.dt_gamma), _f32(cfg.dt_min), _f32(cfg.dt_max))
+
+
+def _frexp_exponent(v):
+    """frexpf's exponent of float32 v > 0 from its bits (biased exponent -
+    126), 0 for v <= 0 (JAX ``_mip_level``'s ``frexp_exponent``)."""
+    e = ((v.view(torch.int32) >> 23) & 0xFF) - 126
+    return torch.where(v > 0, e, torch.zeros_like(e))
+
+
+def _cells(xyz, dts, cfg: MarchConfig):
+    """Flat sigma-byte cell of each position [..., 3] with step [...]: at
+    cascade 1 its Morton cell in the unit (or bound) box, else JAX's
+    ``_mip_level`` level ``clip(max(e(max|x|), e(dt * H * 0.5)), 0, C - 1)``
+    and the cell ``level * H^3 + morton(floor(0.5 * (x / mip_bound + 1) *
+    H))``, ``mip_bound = min(2^level, bound)``."""
+    H = cfg.grid_size
+    if cfg.cascade == 1:
+        mip_bound, level = _f32(min(1.0, cfg.bound)), None
+    else:
+        level = torch.maximum(_frexp_exponent(xyz.abs().amax(dim=-1)),
+                              _frexp_exponent(dts * float(H) * 0.5))
+        level = torch.clamp(level, 0, cfg.cascade - 1)
+        mip_bound = torch.minimum(torch.exp2(level.float()),
+                                  torch.full_like(dts, _f32(cfg.bound)))[..., None]
+    cell = torch.clamp(torch.floor(0.5 * (xyz / mip_bound + 1.0) * H), 0.0, H - 1)
+    # the int clamp only matters for NaN positions, which ts < t_end masks
+    index = morton3d(cell.to(torch.int64).clamp(0, H - 1))
+    return index if level is None else index + level.to(torch.int64) * H**3
+
+
 def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
                      t_window, cull_T: float = 0.0, noises=None):
     """Plain PyTorch marcher; the arguments and results of ``march_rays``."""
-    _check_march(cfg)
     N, dev = rays_o.shape[0], rays_o.device
-    S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
-    dt = _f32(cfg.dt_min)
+    S, K = cfg.n_sample_slots, cfg.n_march_iters
     t0 = nears
-    if noises is not None:
-        # on the affine orbit the clamped step _clamp_dt(nears) is exactly dt
-        t0 = t0 + torch.full_like(t0, dt) * noises
     t_lo, t_hi = t_window
-    # divide by a tensor: PyTorch's CUDA division by a Python scalar
-    # multiplies by its reciprocal, which is not the IEEE quotient
-    k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
-    k0 = torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
     t_end = torch.minimum(fars, t_hi)
-    k = k0[:, None] + torch.arange(K, dtype=torch.float32, device=dev)[None, :]
-    ts = t0[:, None] + k * dt  # [N, K]
+    if cfg.affine:
+        dt = _f32(cfg.dt_min)
+        if noises is not None:
+            # on the affine orbit the clamped step _clamp_dt(nears) is exactly dt
+            t0 = t0 + torch.full_like(t0, dt) * noises
+        # divide by a tensor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which is not the IEEE quotient
+        k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
+        k0 = torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
+        k = k0[:, None] + torch.arange(K, dtype=torch.float32, device=dev)[None, :]
+        ts = t0[:, None] + k * dt  # [N, K]
+        dts = torch.full_like(ts, dt)
+    else:
+        if noises is not None:
+            t0 = t0 + _clamp_dt(t0, cfg) * noises
+        # the recurrence, K steps from t0, each op rounded in float32
+        ts = torch.empty((N, K), dtype=torch.float32, device=dev)
+        dts = torch.empty_like(ts)
+        t = t0
+        for j in range(K):
+            ts[:, j] = t
+            dts[:, j] = _clamp_dt(t, cfg)
+            t = t + dts[:, j]
     xyz = torch.clamp(rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :],
                       -cfg.bound, cfg.bound)
-    mip_bound = _f32(min(1.0, cfg.bound))
-    cell = torch.clamp(torch.floor(0.5 * (xyz / mip_bound + 1.0) * H), 0.0, H - 1)
-    # the int clamp only matters for NaN positions, which ts < t_end masks
-    byte = sigma_bytes[morton3d(cell.to(torch.int64).clamp(0, H - 1))]
+    byte = sigma_bytes[_cells(xyz, dts, cfg)]
     occ = ((byte & 128) > 0) & (ts < t_end[:, None])
     if cull_T > 0.0:
-        est = torch.where(occ, dequant_sigma(byte & 127) * dt * CULL_SAFETY,
+        est = torch.where(occ, dequant_sigma(byte & 127) * dts * CULL_SAFETY,
                           torch.zeros_like(ts))
         log_cull = _f32(-math.log(cull_T))
         # the JAX path tests cumsum(est) - est; the running sum is float32,
@@ -156,18 +194,26 @@ def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     # first S occupied points into slots 0..S-1; the rest go to column S,
     # which is dropped
     slot = slot.long()
-    k_sel = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
-    k_sel.scatter_(1, slot, k)
     valid = torch.zeros((N, S + 1), dtype=torch.bool, device=dev)
     valid.scatter_(1, slot, torch.ones_like(occ))
-    k_sel, valid = k_sel[:, :S], valid[:, :S]
-    t_out = t0[:, None] + k_sel * dt
+    valid = valid[:, :S]
+    if cfg.affine:
+        k_sel = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
+        k_sel.scatter_(1, slot, k)
+        t_out = t0[:, None] + k_sel[:, :S] * dt
+        dt_out = torch.full_like(t_out, dt)
+    else:
+        t_out = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
+        dt_out = torch.zeros_like(t_out)
+        t_out.scatter_(1, slot, ts)
+        dt_out.scatter_(1, slot, dts)
+        t_out, dt_out = t_out[:, :S], dt_out[:, :S]
     xyz_out = torch.clamp(rays_o[:, None, :] + t_out[..., None] * rays_d[:, None, :],
                           -cfg.bound, cfg.bound)
     zero = torch.zeros_like(t_out)
     return {
         "t": torch.where(valid, t_out, zero),
-        "dt": torch.where(valid, torch.full_like(t_out, dt), zero),
+        "dt": torch.where(valid, dt_out, zero),
         "valid": valid,
         "xyz": torch.where(valid[..., None], xyz_out, torch.zeros_like(xyz_out)),
         "count": occ.sum(dim=1, dtype=torch.int32),
@@ -182,15 +228,18 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     Args:
       rays_o, rays_d: [N, 3] float32 (unit directions).
       nears, fars: [N] from ``near_far_from_aabb``.
-      sigma_bytes: uint8 [H^3] from ``build_sigma_bytes`` (Morton order).
+      sigma_bytes: uint8 [cascade * H^3] from ``build_sigma_bytes`` (Morton
+        order, cascade-major).
       t_window: ([N] t_lo, [N] t_hi): march only this interval (the
         renderer's ``march_window``); the orbit origin stays at ``nears`` so
-        samples stay on the lattice.
+        samples stay on the lattice. On the general orbit the march starts
+        at the origin and only t_hi ends it, as in JAX.
       cull_T: drop occupied points once the running optical-depth bound
         ``sum(CULL_SAFETY * sigma_lo * dt)`` before them exceeds
         ``-ln(cull_T)`` (0 disables).
       noises: optional [N] float32 in [0, 1): the orbit origin moves to
-        ``nears + dt * noises`` (training's perturbation); the window's
+        ``nears + clamp(nears * dt_gamma, dt_min, dt_max) * noises``
+        (training's perturbation; ``dt`` on the affine orbit); the window's
         first step is taken from the moved origin.
 
     Returns dict: t, dt [N, S] (0 where invalid), valid [N, S] bool,
@@ -200,7 +249,6 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     if rays_o.device.type == "cpu":
         return march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg,
                                 t_window, cull_T, noises)
-    _check_march(cfg)
     N = rays_o.shape[0]
     S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
     if S > MAX_SLOTS:
@@ -213,9 +261,9 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     shapes = [(N, 3), (N, 3)] + [(N,)] * (len(ins) - 2)
     if any(v.dtype != torch.float32 or v.shape != shape
            for v, shape in zip(ins, shapes)) \
-            or sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != H**3:
+            or sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != cfg.cascade * H**3:
         raise ValueError("kernel B takes float32 rays [N, 3], intervals and noises "
-                         "[N] and uint8 [H^3] bytes")
+                         "[N] and uint8 [cascade * H^3] bytes")
     require_cuda_tensors(*ins, sigma_bytes)
     dev = rays_o.device
     t = torch.empty((N, S), dtype=torch.float32, device=dev)
@@ -224,13 +272,14 @@ def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
     xyz = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
     count = torch.empty((N,), dtype=torch.int32, device=dev)
     if N > 0:
+        args = (*[v.data_ptr() for v in ins[:6]],
+                ins[6].data_ptr() if noises is not None else None, sigma_bytes.data_ptr(),
+                t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(),
+                count.data_ptr(), N, K, S, H)
+        cull = (int(cull_T > 0.0), _f32(-math.log(cull_T)) if cull_T > 0.0 else 0.0)
         KERNELS["march_rays"].launch(
-            "march_rays_fwd", dev, *[v.data_ptr() for v in ins[:6]],
-            ins[6].data_ptr() if noises is not None else None, sigma_bytes.data_ptr(),
-            t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(),
-            count.data_ptr(), N, K, S, H, _f32(cfg.bound), _f32(min(1.0, cfg.bound)),
-            _f32(cfg.dt_min), int(cull_T > 0.0),
-            _f32(-math.log(cull_T)) if cull_T > 0.0 else 0.0)
+            "march_rays_fwd", dev, *args, cfg.cascade, _f32(cfg.bound), _f32(cfg.dt_gamma),
+            _f32(cfg.dt_min), _f32(cfg.dt_max), int(cfg.affine), *cull)
     return {"t": t, "dt": dt, "valid": valid, "xyz": xyz, "count": count}
 
 

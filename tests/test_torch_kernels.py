@@ -174,6 +174,15 @@ def test_kernel_wrapper_refuses_bad_inputs(dev):
         T.grid_encode(torch.zeros(4, 3, device=dev, dtype=torch.float64), emb, spec)
     with pytest.raises(ValueError):
         T.grid_encode(torch.zeros(4, 3, device=dev), emb.cpu(), spec)
+    # what the kernels do not take: 3 channels, 4-D points, the bf16
+    # kernels at 4 channels or on a hash grid
+    for kw, dtype in ((dict(level_dim=3), None), (dict(input_dim=4), None),
+                      (dict(level_dim=4), torch.bfloat16), (dict(gridtype="hash"), torch.bfloat16)):
+        s = T.GridSpec.create(num_levels=2, base_resolution=4, log2_hashmap_size=8, **kw)
+        with pytest.raises(ValueError):
+            T.grid_encode(torch.zeros(4, s.input_dim, device=dev),
+                          torch.zeros(s.n_embeddings, s.level_dim, device=dev), s,
+                          table_dtype=dtype)
     z = torch.zeros(4, 2, device=dev)
     with pytest.raises(ValueError):  # rgbs [4, 3, 3] do not fit [N, S, 3]
         T.composite_rays(z, torch.zeros(4, 3, 3, device=dev), z, z, z.bool(), z)
@@ -215,7 +224,7 @@ def _busiest_row(x, spec):
     x01 = x01[((x01 >= 0) & (x01 <= 1)).all(dim=-1)]
     counts = torch.zeros(spec.n_embeddings, dtype=torch.int64, device=x.device)
     for level in range(spec.num_levels):
-        pg = torch.floor(x01 * spec.level_scale(level) + 0.5).long()
+        pg = torch.floor(x01 * spec.level_scale(level) + spec.shift).long()
         for corner in range(1 << spec.input_dim):
             bits = torch.tensor([(corner >> d) & 1 for d in range(spec.input_dim)],
                                 device=x.device)
@@ -257,6 +266,93 @@ def test_grid_encode_backward_kernel_matches_plain(dev, layout, input_dim):
     assert k.launches == before + 1
     assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
     assert T.grid_encode_backward(x, emb, g, spec, need_x=False)[1] is None
+
+
+# the variant grids: (name, GridSpec arguments); the hash grid is
+# get_encoder("hashgrid")'s at a smaller table (2^16 rows)
+_VARIANTS = {
+    "hash-2-3": dict(input_dim=3, gridtype="hash"),
+    "smoothstep-2-2": dict(input_dim=2, interpolation="smoothstep"),
+    "align-2-3": dict(input_dim=3, align_corners=True),
+    "tiled-1-3": dict(input_dim=3, level_dim=1),
+    "tiled-4-2": dict(input_dim=2, level_dim=4),
+    "tiled-4-3": dict(input_dim=3, level_dim=4),
+    "tiled-8-3": dict(input_dim=3, level_dim=8),
+    "all-4-3": dict(input_dim=3, level_dim=4, gridtype="hash", interpolation="smoothstep",
+                    align_corners=True),
+}
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_grid_variant_kernels_match_plain(dev, variant):
+    """A and A' on the variant grids (hash grids, smoothstep,
+    align_corners, 1, 4 and 8 channels): A bit for bit with its plain
+    version, A''s table gradient within max(1e-5, 4 sqrt(n_busiest) 2^-24)
+    of its largest value and its x gradient within 1e-5, on 50,000 spread
+    points (a few outside the box) and the autograd path."""
+    kw = dict(num_levels=16, level_dim=2, desired_resolution=2048, log2_hashmap_size=16)
+    kw.update(_VARIANTS[variant])
+    spec = T.GridSpec.create(**kw)
+    D, C = spec.input_dim, spec.level_dim
+    rng = np.random.default_rng(40 + len(variant))
+    emb = _t(rng.normal(size=(spec.n_embeddings, C)).astype(np.float32), dev)
+    x = _t(_grid_points("spread", 50_000, D, rng), dev)
+    g = _t(rng.normal(size=(50_000, spec.output_dim)).astype(np.float32), dev)
+    fwd, bwd = _kernels.KERNELS["grid_encode"], _kernels.KERNELS["grid_encode_backward"]
+    before = fwd.launches
+    got = T.grid_encode(x, emb, spec)
+    assert fwd.launches == before + 1
+    want = T.grid_encode_plain(x, emb, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # bit for bit
+    gt_p, gx_p = T.grid_encode_backward_plain(x, emb, g, spec)
+    table_tol = max(1e-5, 4.0 * math.sqrt(_busiest_row(x, spec)) * 2.0**-24)
+    xr, er = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    before = bwd.launches
+    (T.grid_encode(xr, er, spec) * g).sum().backward()
+    assert bwd.launches == before + 1
+    torch.cuda.synchronize()
+    assert _rel_err(er.grad, gt_p) <= table_tol
+    assert _rel_err(xr.grad, gx_p) <= 1e-5
+    outside = ((x < -1.0) | (x > 1.0)).any(dim=-1)
+    assert bool((xr.grad[outside] == 0).all()) and bool(outside.any())
+
+
+@pytest.mark.parametrize("case", ["cascade2-affine", "cascade1-general", "cascade2-general"])
+@pytest.mark.parametrize("noises", [False, True], ids=["plain", "noises"])
+def test_march_variant_kernel_matches_twin(dev, case, noises):
+    """Kernel B off the shipped orbit bit for bit with its twin: the
+    mip cascade (bound 2: two levels) on the affine orbit, the general orbit
+    (max_steps 256 on grid 64: dt_min < dt_max, dt_gamma 1/64 so the step
+    varies) at cascade 1 and 2, with the 1e-4 cull and a window."""
+    H, N = 64, 20_003
+    bound = 1.0 if case == "cascade1-general" else 2.0
+    general = case.endswith("general")
+    cfg = T.MarchConfig(bound=bound, cascade=1 + int(bound > 1), grid_size=H,
+                        max_steps=256 if general else 32, dt_gamma=1 / 64 if general else 0.0)
+    assert cfg.affine != general
+    rng = np.random.default_rng(60 + 2 * noises + len(case))
+    dens, o, d = _march_scene(N, H, rng)
+    dens = np.concatenate([dens, dens[::-1]])[:cfg.cascade * H**3]
+    o = o * bound
+    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
+    o, d = _t(o, dev), _t(d, dev)
+    aabb = torch.tensor([-bound, -bound / 2, -bound, bound, bound / 2, bound],
+                        dtype=torch.float32, device=dev)
+    nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
+    args = (o, d, nears, fars, sb, cfg, (nears + 0.3, fars - 0.2), 1e-4)
+    kw = {"noises": _t(rng.random(N).astype(np.float32), dev)} if noises else {}
+    k = _kernels.KERNELS["march_rays"]
+    before = k.launches
+    got = T.march_rays(*args, **kw)
+    assert k.launches == before + 1
+    want = T.march_rays_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(want["valid"].sum()) > 10_000
+    for key in ("valid", "count", "t", "dt", "xyz"):
+        assert torch.equal(got[key], want[key]), key
+    if general:
+        assert len(torch.unique(want["dt"][want["valid"]])) > 1
 
 
 @pytest.mark.parametrize("layout,input_dim", _LAYOUTS)

@@ -71,14 +71,6 @@ def test_grid_encode_twin_matches_jax(input_dim):
     np.testing.assert_allclose(got, want_p, rtol=1e-5, atol=1e-6)
 
 
-def test_grid_encode_rejects_unported_specs():
-    x = torch.zeros(4, 3)
-    for kw in (dict(gridtype="hash"), dict(interpolation="smoothstep")):
-        spec = T.GridSpec.create(input_dim=3, num_levels=2, **kw)
-        with pytest.raises(NotImplementedError):
-            T.grid_encode(x, torch.zeros(spec.n_embeddings, 2), spec)
-
-
 def _misaligned(t):
     """t's values in a tensor whose data starts 4 bytes past a 16-byte line."""
     flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
@@ -88,18 +80,22 @@ def _misaligned(t):
     return out
 
 
-@pytest.mark.parametrize("case", ["channels", "levels", "alignment"])
+@pytest.mark.parametrize("case", ["channels", "levels", "alignment", "bf16-channels"])
 def test_grid_kernel_args_refuse_what_the_kernels_cannot_take(case):
-    """Kernels A and A' are built for 2 channels, at most 32 levels and a
-    table whose row pairs are 16-byte aligned: the wrappers' check raises
-    for anything else before a launch."""
+    """Kernels A and A' are built for 1, 2, 4 or 8 channels, at most 32
+    levels and a table whose row pairs are aligned (16 bytes at 2
+    channels); their bf16 variants for 2 channels only: the wrappers' check
+    raises for anything else before a launch."""
     from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args
 
     kw = dict(input_dim=3, num_levels=4, base_resolution=4, log2_hashmap_size=8)
-    kw.update({"channels": dict(level_dim=4), "levels": dict(num_levels=33),
-               "alignment": {}}[case])
+    kw.update({"channels": dict(level_dim=3), "levels": dict(num_levels=33),
+               "alignment": {}, "bf16-channels": dict(level_dim=4)}[case])
     spec = T.GridSpec.create(**kw)
     emb = torch.zeros(spec.n_embeddings, spec.level_dim)
+    if case == "bf16-channels":
+        _check_kernel_args(torch.zeros(4, 3), emb, spec)  # the float32 table passes
+        emb = emb.to(torch.bfloat16)
     x = torch.zeros(4, 3)
     if case == "alignment":
         _check_kernel_args(x, emb, spec)  # an aligned table passes
@@ -246,16 +242,6 @@ def test_march_twin_matches_jax(cull_T, slots):
     for k in ("t", "dt", "xyz"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), atol=1e-5, rtol=0)
     assert int(got["count"].max()) == int(want["max_count"])
-
-
-def test_march_rejects_unported_orbits():
-    z = torch.zeros(2, 3)
-    n = torch.zeros(2)
-    sb = torch.zeros(32**3, dtype=torch.uint8)
-    for cfg in (T.MarchConfig(grid_size=32, max_steps=64, dt_gamma=0.01),
-                T.MarchConfig(grid_size=32, cascade=2, dt_gamma=0.0)):
-        with pytest.raises(NotImplementedError):
-            T.march_rays(z, z, n, n, sb, cfg, (n, n))
 
 
 # --------------------------------------------------------------- composite
