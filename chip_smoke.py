@@ -122,8 +122,25 @@ The bf16 policy (``-O``): the frame and the head step beside their float32
 runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
 packing pass and A'-bf16 against their plain versions on the path's points
 and on spread ones, A'-bf16 beside its reduction floor
-(bf16_kernel_checks), and the README's -O recipe through the CLIs (recipe:
-head, lips finetune, torso, --test, infer).
+(bf16_kernel_checks), the -O policy at other grids (bf16_variants,
+bf16_variant_kernel_checks), and the README's -O recipe through the CLIs
+(recipe: head, lips finetune, torso, --test, infer):
+ bf16_variants: ``radnerf_tpu_torch.main -O --exp_eye --grid_levels 8
+     --grid_ch 4`` on the same directory at full width (the JAX bench's 8x4
+     grid under its bf16 policy; bound 1, max_steps 16), 16 steps, the
+     evaluation, the test split, then ``--test``, ``--torso`` (8 steps, the
+     torso grid at 4 channels too) and ``infer -O --torso``, each with every
+     launch count set to 0 just before and read just after: A-bf16, its
+     packing pass and A'-bf16 launched, the float32 A and A' never; the
+     fixed batch's loss before and after; the head step fenced and profiled
+     beside bf16_train's C = 2 step;
+ bf16_variant_kernel_checks: A-bf16 and its packing pass bit for bit,
+     A'-bf16 per row of the table gradient (x within 1e-5), on that step's
+     recorded 4-channel calls and on 2^20 spread points at 1, 8, 3 and 16
+     channels, smoothstep (D = 2) and align_corners (D = 3); float32 A bit
+     for bit and A' per row at 3 and 16 channels on the same points; each
+     beside its ms, device ms, plain ms and bound, one kernels-line entry
+     per kernel and variant.
 
 Camera offsets, the live path, meshes (each path with the launch counts
 set to 0 just before and read just after):
@@ -309,6 +326,21 @@ VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
     "align_corners": dict(input_dim=3, align_corners=True),
     "c1": dict(input_dim=3, level_dim=1),
     "c8": dict(input_dim=3, level_dim=8),
+}
+# the bf16_variants phase: the -O policy at the JAX bench's 8x4 grid through
+# main's flags (bound 1, max_steps 16 otherwise); the head's steps (2 epochs
+# of the 8 frames), the torso's; the grids its checks hold the bf16 kernels
+# (and, at 3 and 16 channels, the float32 ones) to their plain versions on
+# VARIANT_POINTS spread points
+BF16_VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4"]
+BF16_VARIANT_STEPS, BF16_VARIANT_TORSO_STEPS = 16, 8
+BF16_VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
+    "c1": dict(input_dim=3, level_dim=1),
+    "c8": dict(input_dim=3, level_dim=8),
+    "c3": dict(input_dim=3, level_dim=3),
+    "c16": dict(input_dim=2, level_dim=16),
+    "smoothstep": dict(input_dim=2, interpolation="smoothstep"),
+    "align_corners": dict(input_dim=3, align_corners=True),
 }
 
 
@@ -867,6 +899,12 @@ def main():
         bf16_entries = bf16_kernel_checks(report, frame_calls, step_calls)
         del frame_calls, step_calls
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        step_calls, bf16_variant_launches = bf16_variants_phase(report, out_dir, root)
+        kernels += bf16_variant_kernel_checks(report, step_calls, bf16_variant_launches)
+        bf16_variants_s = time.perf_counter() - t0
+        del step_calls
+        torch.cuda.empty_cache()
         recipe_launches = recipe_phase(report, root)
         for k in bf16_entries:
             k["launches"] = recipe_launches[k["name"]]
@@ -881,6 +919,7 @@ def main():
         kernels.append(preprocess_phase(report, out_dir, dev))
         marks.append(time.perf_counter())
         report["phase_seconds"] = {"since_start": marks[0] - start, "variants": variants_s,
+                                   "bf16_variants": bf16_variants_s,
                                    **{name: b - a for name, a, b in
                                       zip(("camera", "live", "mesh", "preprocess"), marks,
                                           marks[1:])}}
@@ -2023,13 +2062,15 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
             "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
             "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
             "flops": nf})
-    # what the card still refuses raises before a launch: 3 channels, 4-D
-    # points, the bf16 kernels at 4 channels and on a hash grid
+    # what the card still refuses raises before a launch: 17 channels, 33
+    # levels, 4-D points, the bf16 kernels on a hash grid
     refused = {}
-    for what, kw, dtype in (("c3", dict(level_dim=3), None), ("d4", dict(input_dim=4), None),
-                            ("bf16_c4", dict(level_dim=4), torch.bfloat16),
+    for what, kw, dtype in (("c17", dict(level_dim=17), None),
+                            ("l33", dict(num_levels=33), torch.bfloat16),
+                            ("d4", dict(input_dim=4), None),
                             ("bf16_hash", dict(gridtype="hash"), torch.bfloat16)):
-        spec = GridSpec.create(num_levels=4, base_resolution=4, log2_hashmap_size=8, **kw)
+        spec = GridSpec.create(**{"num_levels": 4, "base_resolution": 4,
+                                  "log2_hashmap_size": 8, **kw})
         x = torch.zeros((4, spec.input_dim), device=dev)
         table = torch.zeros((spec.n_embeddings, spec.level_dim), device=dev)
         try:
@@ -2502,6 +2543,346 @@ def bf16_kernel_checks(report, frame_calls, step_calls):
         if "backward" in name:
             entry["reduction_floor_ms"] = sum(r["reduction_floor_ms"] for r in rows)
         entries.append(entry)
+    return entries
+
+
+def bf16_variants_phase(report, out_dir, root):
+    """bf16_variants: the -O policy at the JAX bench's 8x4 grid through the
+    port's entry points on the written directory, each command with launch
+    counts from 0: ``main -O --exp_eye --grid_levels 8 --grid_ch 4`` at the
+    defaults otherwise (bound 1, max_steps 16, 65,536 rays, full-width bf16
+    MLPs; BF16_VARIANT_STEPS steps, the evaluation, the test split), the
+    loss on a fixed batch before (the seeded init on an upkept grid) and
+    after; ``--test`` from its checkpoint; ``--torso`` from its ngp.npz
+    (BF16_VARIANT_TORSO_STEPS steps; the torso's 2-D grid at 4 channels
+    too); ``infer -O --torso`` on INFER_FRAMES audio rows. Every grid at 4
+    channels; A-bf16, its packing pass and A'-bf16 launched, the float32 A
+    and A' never. Then the head trainer's ``Trainer.step`` fenced
+    (VARIANT_TIMED_STEPS, upkeep apart) and a 3-step profile, beside
+    bf16_train's C = 2 step. Returns (one step's recorded A-bf16 and
+    A'-bf16 calls, the phase's summed launches)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    from radnerf_tpu_torch import infer
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.main import build_parser, options_from_args
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import RendererState, mark_untrained_grid, update_density_grid
+    from radnerf_tpu_torch.ops import _kernels
+    from radnerf_tpu_torch.train import Trainer
+
+    ws, ws_t = os.path.join(root, "bf16_variants"), os.path.join(root, "bf16_variants_torso")
+    common = ["-O", "--exp_eye", "--preload", "2", "--ema_update_interval", "1",
+              *BF16_VARIANT_FLAGS]
+    argv = [root, "--workspace", ws, *common, "--ckpt", "scratch",
+            "--iters", str(BF16_VARIANT_STEPS)]
+    opt = options_from_args(build_parser().parse_args(argv))
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    dev = ds.device
+    tr0 = Trainer(opt, device=dev)
+    cfg, rc = tr0.net.cfg, tr0.render_cfg
+    if cfg.table_dtype != torch.bfloat16 or \
+            {cfg.grid_spec.level_dim, cfg.ambient_spec.level_dim} != {4}:
+        raise RuntimeError(f"the flags do not give the -O 8x4 grids: {cfg}")
+    # the fixed batch's loss at the seeded init (main's own draw), on a grid
+    # upkept as the first upkeep does
+    fixed = tr0.next_batch(ds, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(124),
+                              device=dev)
+    with torch.no_grad():
+        probe = update_density_grid(
+            tr0.net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev),
+                                             ds.poses, ds.intrinsics),
+            tr0.net.encode_audio(ds.audio_window(0)), fixed["eye"],
+            generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr0.loss(fixed, fixed_noises, 0, state=probe)[0])
+    del tr0, probe
+    torch.cuda.empty_cache()
+
+    runs = {}
+
+    def run(name, fn, args):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(args)
+        torch.cuda.synchronize()
+        runs[name] = {"argv": args, "seconds": time.perf_counter() - t0,
+                      "launches": _kernels.launches()}
+        return out
+
+    tr = run("head", port_main, argv)
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    runs["head"].update(steps=tr.global_step, step_losses=tr.stats["step_loss"],
+                        eval_psnr=tr.stats["results"],
+                        checkpoints=sorted(os.listdir(tr.ckpt_path)),
+                        validation=len(os.listdir(os.path.join(ws, "validation"))))
+    test = run("test", port_main, [root, "--workspace", ws, *common, "--test"])
+    runs["test"].update(eval_psnr=test.stats["results"],
+                        results=sorted(os.listdir(os.path.join(ws, "results"))))
+    del test
+    torso = run("torso", port_main, [root, "--workspace", ws_t, *common, "--torso",
+                                     "--head_ckpt", os.path.join(ws, "checkpoints", "ngp.npz"),
+                                     "--ckpt", "scratch",
+                                     "--iters", str(BF16_VARIANT_TORSO_STEPS)])
+    torso_c = torso.net.cfg.torso_spec.level_dim
+    runs["torso"].update(steps=torso.global_step, step_losses=torso.stats["step_loss"],
+                         eval_psnr=torso.stats["results"], torso_grid_channels=torso_c,
+                         checkpoints=sorted(os.listdir(torso.ckpt_path)))
+    del torso
+    out = os.path.join(root, "bf16_variants_infer")
+    fps = run("infer", infer.main, ["--pose", os.path.join(root, "pose.json"), "--aud",
+                                    os.path.join(root, "novel.npy"), "--workspace", out,
+                                    "-O", "--exp_eye", "--torso", *BF16_VARIANT_FLAGS, "--ckpt",
+                                    os.path.join(ws_t, "checkpoints", "ngp.npz")])
+    runs["infer"].update(fps=fps, files=len(os.listdir(os.path.join(out, "results"))))
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in _kernels.KERNELS}
+
+    # the head step, fenced (upkeep steps apart) and profiled; one more
+    # step's grid calls recorded
+    interval, order = opt.update_extra_interval, ds.epoch_indices()
+    step_ms, upkeep_step_ms = [], []
+    for n in range(VARIANT_TIMED_STEPS):
+        upkeep = tr.global_step % interval == 0
+        (upkeep_step_ms if upkeep else step_ms).extend(
+            fenced_ms(lambda i: tr.step(ds, order[n % len(order)]), 1))
+    if any((tr.global_step + i) % interval == 0 for i in range(PROFILED_STEPS + 1)):
+        raise RuntimeError("a profiled or recorded -O 8x4 step would run the upkeep")
+    prof, events = device_profile(lambda i: tr.step(ds, order[i % len(order)]), PROFILED_STEPS)
+    with open(os.path.join(out_dir, "chip_smoke_bf16_variants_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    busy_ms = sum(e.self_device_time_total for e in events) / PROFILED_STEPS / 1e3
+    grid_mod = sys.modules["radnerf_tpu_torch.ops.grid_encode"]
+    with recorded_calls([(network_mod, "grid_encode"),
+                         (grid_mod, "grid_encode_backward")]) as step_calls:
+        tr.step(ds, order[0])
+    torch.cuda.synchronize()
+    med = float(np.median(step_ms))
+    c2 = report["bf16_train"]
+    bv = {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "step_losses"}
+                   for k, v in runs.items()},
+          "launches": launches, "grids": {"spatial": str(cfg.grid_spec),
+                                           "ambient": str(cfg.ambient_spec)},
+          "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+          "train_step_ms_median": med, "train_step_ms": step_ms,
+          "upkeep_step_ms": upkeep_step_ms,
+          "profile": {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy_ms,
+                      "device_busy_share": busy_ms / med,
+                      "ms_per_step_by_class": ms_by_class(events, PROFILED_STEPS),
+                      "grid_encode_ms": kernel_class_ms(events, PROFILED_STEPS,
+                                                        "grid_encode_kernel"),
+                      "grid_encode_backward_ms": kernel_class_ms(events, PROFILED_STEPS,
+                                                                 "grid_encode_bwd"),
+                      "pack_ms": kernel_class_ms(events, PROFILED_STEPS, "pack_kernel")},
+          "c2_train_step_ms_median": c2["train_step_ms_median"],
+          "c2_device_busy_ms_per_step": c2["profile"]["device_busy_ms_per_step"],
+          "c2_device_busy_share": c2["profile"]["device_busy_share"],
+          "model": "NetworkConfig(torso=False, exp_eye=True, compute_dtype='bfloat16') full "
+                   "width, grids 8x4 (3-D and 2-D), the CLI's defaults otherwise"}
+    report["bf16_variants"] = {**bv, "step_losses": {k: runs[k].get("step_losses")
+                                                     for k in runs}}
+    emit({"phase": "bf16_variants", **{k: v for k, v in bv.items() if k != "train_step_ms"}})
+
+    problems = []
+    for name, need in (("head", BF16_KERNELS + ("march_rays", "composite_rays",
+                                                "composite_rays_backward")),
+                       ("test", ("grid_encode_bf16", "grid_pack_bf16")),
+                       ("torso", BF16_KERNELS + ("march_rays", "composite_rays")),
+                       ("infer", ("grid_encode_bf16", "grid_pack_bf16", "march_rays",
+                                  "composite_rays"))):
+        la = runs[name]["launches"]
+        if any(la[k] <= 0 for k in need) or la["grid_encode"] or la["grid_encode_backward"]:
+            problems.append(f"{name} launches {la}")
+    for name, steps in (("head", BF16_VARIANT_STEPS), ("torso", BF16_VARIANT_TORSO_STEPS)):
+        r = runs[name]
+        if r["steps"] != steps or len(r["step_losses"]) != steps or \
+                not all(math.isfinite(float(v)) for v in r["step_losses"]) or \
+                not r["eval_psnr"] or not all(math.isfinite(v) for v in r["eval_psnr"]):
+            problems.append(f"{name}: {r['steps']} steps, losses {r['step_losses']}, "
+                            f"eval {r['eval_psnr']}")
+        if "ngp.npz" not in r["checkpoints"]:
+            problems.append(f"{name} wrote {r['checkpoints']}")
+    if not loss_end < loss_0:
+        problems.append(f"the fixed batch's loss did not fall: {loss_0} -> {loss_end}")
+    if torso_c != 4:
+        problems.append(f"the torso grid has {torso_c} channels")
+    if runs["head"]["validation"] != 2 * VAL_FRAMES or not runs["test"]["results"] or \
+            runs["infer"]["files"] not in (1, INFER_FRAMES) or not runs["infer"]["fps"] > 0:
+        problems.append(f"files: {runs}")
+    if [n for n, _, _ in step_calls] != ["grid_encode", "grid_encode",
+                                         "grid_encode_backward", "grid_encode_backward"]:
+        problems.append(f"the step's calls {[n for n, _, _ in step_calls]}")
+    if problems:
+        raise RuntimeError(f"bf16_variants: {problems}")
+    del tr, ds, prof, events
+    torch.cuda.empty_cache()
+    return step_calls, launches
+
+
+def bf16_variant_kernel_checks(report, step_calls, launches):
+    """bf16_variant_kernel_checks: the bf16 kernels at the grids the -O
+    policy now takes, against their plain versions on the card, on the
+    bf16_variants step's recorded 4-channel calls and on VARIANT_POINTS
+    seeded points (a few outside the box, a seeded bf16 upstream gradient)
+    on BF16_VARIANT_GRIDS (1, 8, 3 and 16 channels, smoothstep at D = 2,
+    align_corners at D = 3): A-bf16 (packing in the call, as the step does)
+    and its packing pass bit for bit, A'-bf16 with the table gradient per
+    row within 2 (n - 1) 2^-24 of its sum of |terms| and x within 1e-5 of
+    the largest; float32 A bit for bit and A' per row (variant_kernel_checks'
+    bound) at 3 and 16 channels on the same points. Each beside its ms,
+    device ms, plain ms and bound (bf16 bytes). Returns the kernels line's
+    entries, one per kernel and variant: the step's carry the bf16_variants
+    phase's launches, the others their check's."""
+    from radnerf_tpu_torch.ops import (
+        GridSpec, grid_encode, grid_encode_backward, grid_encode_backward_plain,
+        grid_encode_plain, pack_table, pack_table_plain,
+    )
+
+    bf16 = torch.bfloat16
+    dev = step_calls[0][1][0].device
+    gen = torch.Generator(dev).manual_seed(41)
+    fwd, bwd = [], []
+    for name, args, kw in step_calls:
+        if name == "grid_encode":
+            x, table, spec, bound = args
+            fwd.append(("c4_path", x, table.to(bf16), spec, bound))
+        else:
+            x, table, go, spec, bound = args
+            bwd.append(("c4_path", x, table.to(bf16), go, spec, bound, kw["need_x"]))
+    f32 = []
+    for variant, kw in BF16_VARIANT_GRIDS.items():
+        spec = GridSpec.create(num_levels=16, desired_resolution=2048, **kw)
+        D, C = spec.input_dim, spec.level_dim
+        x = torch.rand((VARIANT_POINTS, D), generator=gen, device=dev) * 2.04 - 1.02
+        table = torch.randn((spec.n_embeddings, C), generator=gen, device=dev)
+        go = torch.randn((VARIANT_POINTS, spec.output_dim), generator=gen, device=dev)
+        fwd.append((variant, x, table.to(bf16), spec, 1.0))
+        bwd.append((variant, x, table.to(bf16), go.to(bf16), spec, 1.0, True))
+        if C in (3, 16):
+            f32.append((variant, x, table, go, spec))
+
+    rows = {"grid_encode_bf16": [], "grid_pack_bf16": [], "grid_encode_backward_bf16": [],
+            "grid_encode": [], "grid_encode_backward": []}
+    packed_specs = set()
+    for variant, x, tb, spec, bound in fwd:
+        def call(x=x, tb=tb, spec=spec, bound=bound):
+            return grid_encode(x, tb, spec, bound)
+        def plain(x=x, tb=tb, spec=spec, bound=bound):
+            return grid_encode_plain(x, tb, spec, bound)
+        got, n_launch = counted("grid_encode_bf16", call)
+        want = plain()
+        torch.cuda.synchronize()
+        nb, nf = grid_work(x, spec, bound, elem=2)
+        bms, by = bound_ms(nb, nf)
+        rows["grid_encode_bf16"].append({
+            "variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
+            "check_launches": n_launch, "packs_in_call": True,
+            "bit_for_bit": bool(torch.equal(got.view(torch.int16), want.view(torch.int16))),
+            "elements_differing": int((got != want).sum()),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
+            "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
+            "flops": nf})
+        if (variant, str(spec)) in packed_specs:
+            continue
+        packed_specs.add((variant, str(spec)))
+        pk, n_launch = counted("grid_pack_bf16", lambda: pack_table(tb, spec))
+        pp = pack_table_plain(tb, spec)
+        torch.cuda.synchronize()
+        # the bf16 table read, the packed copy (2^D rows of it) written
+        nb = tb.numel() * 2 * (1 + (1 << spec.input_dim))
+        rows["grid_pack_bf16"].append({
+            "variant": variant, "spec": str(spec), "rows": int(tb.shape[0]),
+            "check_launches": n_launch,
+            "bit_for_bit": bool(torch.equal(pk.view(torch.int16), pp.view(torch.int16))),
+            "max_abs_err": float((pk.float() - pp.float()).abs().max()),
+            "ms": cuda_ms(lambda: pack_table(tb, spec), 20),
+            "device_ms": device_ms(lambda: pack_table(tb, spec), 20),
+            "plain_ms": cuda_ms(lambda: pack_table_plain(tb, spec), 3),
+            "bound_ms": bound_ms(nb, 0)[0], "bound_by": "bytes", "bytes": nb, "flops": 0})
+
+    def backward_row(name, variant, x, table, go, spec, bound, need_x, elem):
+        def call():
+            return grid_encode_backward(x, table, go, spec, bound, need_x=need_x)
+        def plain():
+            return grid_encode_backward_plain(x, table, go, spec, bound, need_x=need_x)
+        gk, n_launch = counted(name, call)
+        gp = plain()
+        # two orders of a row's float32 sum of n terms: within 2 (n - 1)
+        # 2^-24 of its sum of |terms| (bf16_kernel_checks)
+        counts = row_counts(x, spec, bound)[0]
+        abs_rows = grid_encode_backward_plain(x, table, go.abs(), spec, bound,
+                                              need_x=False)[0]
+        row_bound = 2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 \
+            * abs_rows.double()
+        torch.cuda.synchronize()
+        nb, nf = grid_backward_work(x, spec, bound, need_x, elem=elem)
+        bms, by = bound_ms(nb, nf)
+        row = {"variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
+               "x_grad": need_x, "check_launches": n_launch,
+               "busiest_row_contributions": int(counts.max()),
+               "table_err_over_row_bound": float(((gk[0] - gp[0]).abs().double()
+                                                  / row_bound.clamp_min(1e-300)).max()),
+               "table_rel_err": rel_err(gk[0], gp[0]),
+               "max_abs_err": float((gk[0] - gp[0]).abs().max()),
+               "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
+               "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
+               "flops": nf}
+        if need_x:
+            row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
+                       max_abs_err=max(row["max_abs_err"], float((gk[1] - gp[1]).abs().max())))
+        rows[name].append(row)
+
+    for variant, x, tb, go, spec, bound, need_x in bwd:
+        backward_row("grid_encode_backward_bf16", variant, x, tb, go, spec, bound, need_x, 2)
+    for variant, x, table, go, spec in f32:
+        def call(x=x, table=table, spec=spec):
+            return grid_encode(x, table, spec)
+        def plain(x=x, table=table, spec=spec):
+            return grid_encode_plain(x, table, spec)
+        got, n_launch = counted("grid_encode", call)
+        want = plain()
+        torch.cuda.synchronize()
+        nb, nf = grid_work(x, spec, 1.0)
+        bms, by = bound_ms(nb, nf)
+        rows["grid_encode"].append({
+            "variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
+            "check_launches": n_launch, "bit_for_bit": bool(torch.equal(got, want)),
+            "max_abs_err": float((got - want).abs().max()), "ms": cuda_ms(call, 20),
+            "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3), "bound_ms": bms,
+            "bound_by": by, "bytes": nb, "flops": nf})
+        backward_row("grid_encode_backward", variant, x, table, go, spec, 1.0, True, 4)
+    report["bf16_variant_kernel_checks"] = rows
+    emit({"phase": "bf16_variant_kernel_checks", **rows})
+    bad = [r for name in ("grid_encode_bf16", "grid_pack_bf16", "grid_encode")
+           for r in rows[name] if not r["bit_for_bit"]]
+    bad += [r for name in ("grid_encode_backward_bf16", "grid_encode_backward")
+            for r in rows[name] if not (r["table_err_over_row_bound"] <= 1.0
+                                        and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL)]
+    if bad:
+        raise RuntimeError(f"the -O variant kernels differ from their plain versions: {bad}")
+    if [r["variant"] for r in rows["grid_encode_bf16"]].count("c4_path") != 2 or \
+            [r["variant"] for r in rows["grid_encode_backward_bf16"]].count("c4_path") != 2:
+        raise RuntimeError("the -O 8x4 step made other grid calls than A-bf16 x 2, A' x 2")
+
+    entries = []
+    for name, kernel_rows in rows.items():
+        source = "grid_encode_backward.cu" if "backward" in name else "grid_encode.cu"
+        for variant in dict.fromkeys(r["variant"] for r in kernel_rows):
+            mine = [r for r in kernel_rows if r["variant"] == variant]
+            bms, by = bound_ms(sum(r["bytes"] for r in mine), sum(r["flops"] for r in mine))
+            on_path = variant == "c4_path"
+            entries.append({
+                "name": f"{name}:{variant}", "route": "cuda",
+                "source": f"radnerf_tpu_torch/csrc/{source}", "replaces": REPLACES[name],
+                "launches": launches[name] if on_path else sum(r["check_launches"]
+                                                               for r in mine),
+                "launches_in": "the bf16_variants run" if on_path else "its check only",
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": sum(r["ms"] for r in mine),
+                "device_ms": sum(r["device_ms"] for r in mine),
+                "plain_ms": sum(r["plain_ms"] for r in mine), "bound_ms": bms,
+                "bound_by": by, "library_ms": None, "calls": mine})
     return entries
 
 

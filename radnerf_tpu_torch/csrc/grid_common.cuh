@@ -17,7 +17,9 @@
 // Float32 tables take every grid the JAX package does
 // (radnerf_tpu/ops/grid_encode.py _corner_index :142, grid_encode01 :168):
 // C in {1, 2, 4, 8} channels as a template argument, so a row is one 4- to
-// 16-byte load (two at C = 8); hashed levels (:160); per call the shift
+// 16-byte load (two at C = 8), and any other C up to kMaxChannels as a
+// run-time argument, a row then read in units of the widest load that
+// divides it (unit_floats); hashed levels (:160); per call the shift
 // (0.5, or 0 under align_corners, :190) and smoothstep (:194). A level's
 // row is [offset, size, stride_0 .. stride_{D-1}]; a hashed level uses no
 // stride, so its row carries stride 0 in dim 0, where a dense level's is
@@ -25,14 +27,17 @@
 //
 // The bf16 policy of -O (radnerf_tpu/ops/grid_encode.py
 // build_packed_table(dtype=bfloat16) + grid_encode01_packed :395-400)
-// takes C = 2 tiled linear grids only. A bf16 row is one 32-bit word and a
-// row pair 8 bytes; values are widened to float exactly (a bf16 is the high
-// half of a float32) and each corner weight, computed in float32, is
-// rounded to bf16. The bf16 forward (grid_encode.cu, on corner-packed rows)
-// forms its corner terms with bf16_terms below: each weight x value
-// product rounded to bf16, the products summed in float32 and the sum
-// rounded to bf16 once: where XLA rounds when JAX runs the lerp op by op
-// (ops/grid_encode.py _grid_encode_plain_bf16 is the twin).
+// takes the same C, shift and smoothstep on tiled grids (a hash grid has
+// no packed rows). A bf16 row of C channels is C/2 32-bit words (channel
+// 2j in the low half of word j); values are widened to float exactly (a
+// bf16 is the high half of a float32) and each corner weight, computed in
+// float32, is rounded to bf16. The bf16 forward (grid_encode.cu, on
+// corner-packed rows) forms its corner terms with bf16_terms below where C
+// is even, and as scalar products round_bf16(bf16(w) * e) where it is odd:
+// each weight x value product rounded to bf16, the products summed in
+// float32 and the sum rounded to bf16 once: where XLA rounds when JAX runs
+// the lerp op by op (ops/grid_encode.py _grid_encode_plain_bf16 is the
+// twin).
 //
 // What bounds the -O kernels on an H100 80GB HBM3 (700 W; PERF.md §6):
 // A-bf16 was bound by its scattered corner gathers, not by bytes or its
@@ -73,7 +78,103 @@ struct Bf16 {
   }
 };
 
-constexpr int kMaxLevels = 32;  // blockDim.y = L; 32 * L threads at most 1024
+// The most levels and channels the kernels take, set by the build from
+// ops/_kernels.py (GRID_MAX_LEVELS, GRID_MAX_CHANNELS), which the wrappers
+// check before a launch. A block is 32 points x L levels.
+#if !defined(GRID_MAX_LEVELS) || !defined(GRID_MAX_CHANNELS)
+#error "build with ops/_kernels.py NVCC_FLAGS (-DGRID_MAX_LEVELS, -DGRID_MAX_CHANNELS)"
+#endif
+constexpr int kMaxLevels = GRID_MAX_LEVELS;
+constexpr int kMaxChannels = GRID_MAX_CHANNELS;
+static_assert(32 * kMaxLevels <= 1024, "a block of 32 points x L levels");
+
+// True unless the kernels take D-dimensional points on L levels of C
+// channels; every entry point refuses such a call with
+// cudaErrorInvalidValue.
+inline bool bad_shape(int D, int L, int C) {
+  return (D != 2 && D != 3) || L < 1 || L > kMaxLevels || C < 1 || C > kMaxChannels;
+}
+
+// The widest unit of at most 16 bytes (in floats: 4, 2 or 1) that divides a
+// float32 row of C channels, for the run-time-C kernels.
+__host__ __device__ constexpr int unit_floats(int C) {
+  return C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
+}
+
+// W float32 values at p (aligned to 4W bytes) as one load.
+template <int W>
+__device__ __forceinline__ void load_unit(const float* __restrict__ p, float e[W]) {
+  if constexpr (W == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    e[0] = v.x;
+    e[1] = v.y;
+    e[2] = v.z;
+    e[3] = v.w;
+  } else if constexpr (W == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    e[0] = v.x;
+    e[1] = v.y;
+  } else {
+    e[0] = __ldg(p);
+  }
+}
+
+// bf16 <-> its 16 bits: widened exactly, rounded to nearest even.
+__device__ __forceinline__ float bf16_bits_float(uint32_t b) { return __uint_as_float(b << 16); }
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// The C bf16 values of a (point, level) output element: one 2-, 4-, 8- or
+// 16-byte store at C = 1, 2, 4, 8.
+template <int C> struct Bf16Elem;
+template <> struct Bf16Elem<1> { using T = unsigned short; };
+template <> struct Bf16Elem<2> { using T = uint32_t; };
+template <> struct Bf16Elem<4> { using T = uint2; };
+template <> struct Bf16Elem<8> { using T = uint4; };
+
+// C float32 values rounded to bf16 as one output element.
+template <int C>
+__device__ __forceinline__ typename Bf16Elem<C>::T pack_bf16(const float v[C]) {
+  if constexpr (C == 1) {
+    return (unsigned short)bf16_bits(v[0]);
+  } else {
+    uint32_t w[C / 2];
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) w[j] = Bf16::store(make_float2(v[2 * j], v[2 * j + 1]));
+    if constexpr (C == 2) {
+      return w[0];
+    } else if constexpr (C == 4) {
+      return make_uint2(w[0], w[1]);
+    } else {
+      static_assert(C == 8, "bf16 output elements of 1, 2, 4 or 8 channels");
+      return make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// kWords 32-bit words at p in the widest loads they allow: 16-byte loads
+// where kWords is a multiple of 4, else one 8- or 4-byte load.
+template <int kWords>
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, uint32_t e[kWords]) {
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kWords / 4; ++q) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+      e[4 * q] = v.x;
+      e[4 * q + 1] = v.y;
+      e[4 * q + 2] = v.z;
+      e[4 * q + 3] = v.w;
+    }
+  } else if constexpr (kWords == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    e[0] = v.x;
+    e[1] = v.y;
+  } else {
+    static_assert(kWords == 1, "a packed cell is 1, 2 or 4k words");
+    e[0] = __ldg(p);
+  }
+}
 
 // the spatial hash's prime of dim d (reference gridencoder.cu:50-63)
 __device__ __forceinline__ constexpr uint32_t hash_prime(int d) {
@@ -264,19 +365,45 @@ __device__ __forceinline__ void load_pair_bf16(const uint32_t* __restrict__ emb,
   }
 }
 
-// The bf16 terms bf16(bf16(w0) * e0) and bf16(bf16(w1) * e1) of two corner
-// rows e0, e1 (bf16x2 words: channel 0 in the low half), widened to float2,
-// in bf16x2 arithmetic: one cvt rounds both weights, one fma.rn.bf16x2 a
-// corner's two channels. The exact product of two bf16s fits a float32, so
-// that single rounding equals the plain twin's round_bf16(bf16(w) * e),
-// subnormals included (float32 keeps 16 more bits than bf16 at every
-// exponent, so rounding its exact product again rounds as once); the
-// addend -0 is __hmul2's, which keeps a zero product's sign.
-__device__ __forceinline__ void bf16_terms(uint32_t e0, uint32_t e1, float w0, float w1,
-                                           float2& a, float2& b) {
-  constexpr uint32_t kMinusZeros = 0x80008000u;
-  uint32_t w, p0, p1;  // w: bf16(w0) in the low half, bf16(w1) in the high
+// C bf16 values at p (aligned to 2C bytes), widened: one 2-, 4-, 8- or
+// 16-byte load at C = 1, 2, 4, 8.
+template <int C>
+__device__ __forceinline__ void load_bf16(const unsigned short* __restrict__ p, float e[C]) {
+  if constexpr (C == 1) {
+    e[0] = bf16_bits_float(__ldg(p));
+  } else {
+    uint32_t w[C / 2];
+    load_words<C / 2>(reinterpret_cast<const uint32_t*>(p), w);
+#pragma unroll
+    for (int j = 0; j < C / 2; ++j) {
+      const float2 v = Bf16::widen(w[j]);
+      e[2 * j] = v.x;
+      e[2 * j + 1] = v.y;
+    }
+  }
+}
+
+// bf16(w0) in the low half, bf16(w1) in the high: one cvt rounds both
+// weights of a corner pair.
+__device__ __forceinline__ uint32_t bf16x2_weights(float w0, float w1) {
+  uint32_t w;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(w1), "f"(w0));
+  return w;
+}
+
+// The bf16 terms bf16(bf16(w0) * e0) and bf16(bf16(w1) * e1) of two corner
+// rows' channel pairs e0, e1 (bf16x2 words: the even channel in the low
+// half), widened to float2, in bf16x2 arithmetic: w the pair's weights
+// (bf16x2_weights), one fma.rn.bf16x2 a corner's two channels. The exact
+// product of two bf16s fits a float32, so that single rounding equals the
+// plain twin's round_bf16(bf16(w) * e), subnormals included (float32 keeps
+// 16 more bits than bf16 at every exponent, so rounding its exact product
+// again rounds as once); the addend -0 is __hmul2's, which keeps a zero
+// product's sign.
+__device__ __forceinline__ void bf16_terms(uint32_t e0, uint32_t e1, uint32_t w, float2& a,
+                                           float2& b) {
+  constexpr uint32_t kMinusZeros = 0x80008000u;
+  uint32_t p0, p1;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;"
       : "=r"(p0)
       : "r"(__byte_perm(w, 0, 0x1010)), "r"(e0), "r"(kMinusZeros));

@@ -7,8 +7,8 @@
 // gather costs per row. For float32 none of that carries over: a Hopper
 // thread reads the 2^D corner rows straight from the [n_emb, C] fp32 table
 // (the bf16 variant below does pack its rows, for another reason). It takes
-// every grid the JAX package does (grid_common.cuh): C in {1, 2, 4, 8}
-// channels, hashed levels, smoothstep and align_corners.
+// every grid the JAX package does (grid_common.cuh): 1 to 16 channels,
+// hashed levels, smoothstep and align_corners.
 //
 // What bounds it on an H100: bytes. Per (point, level) it reads 2^D rows of
 // 4C B and writes 4C B, against ~10 flops per corner. The tables on the
@@ -24,7 +24,14 @@
 // shared-memory tile [32][L + 1] (the +1 keeps a warp's stores on distinct
 // banks), and the block writes its 32 output rows, one contiguous run of
 // out, with coalesced stores of one element a thread. Index math is 32-bit
-// and divides by nothing but a level's size, and only past it.
+// and divides by nothing but a level's size, and only past it. C in {1, 2,
+// 4, 8} is a template argument (RAD-NeRF's C = 2 among them); any other C
+// up to 16 runs grid_encode_kernel_any, where C is a run-time argument and
+// the channels a loop over units of the widest load that divides a row
+// (4, 2 or 1 floats), staged as single floats through a tile [32][L C +
+// 1]: 65.7 KB at C = 16 and 32 levels, so the launch opts in to more than
+// the 48 KB of dynamic shared memory a block gets by default
+// (cudaFuncSetAttribute); a block stays 32 points x L levels.
 //
 // Arithmetic mirrors the plain twin (ops/grid_encode.py grid_encode_plain)
 // in the same order (grid_common.cuh): corners 0..2^D-1, the weight's
@@ -36,10 +43,14 @@
 // lerp at :395-400) reads corner-packed rows, JAX's own -O formulation
 // made for Hopper: pack_kernel (grid_pack_bf16, its own launch count)
 // writes, for each cell key k of each level (corner 0's row), the 2^D
-// corner rows (k + delta_c) mod T of the bf16 table [n_emb, 2] side by side
-// -- 2^D bf16x2 words, 16 bytes at D = 2 and one 32-byte sector at D = 3 --
-// so a (point, level) makes one or two 16-byte loads from one sector
-// instead of 2^(D-1) scattered row-pair loads. What bounded the row layout
+// corner rows (k + delta_c) mod T of the bf16 table [n_emb, C] side by
+// side -- 2^D x C bf16s: at C = 2 16 bytes at D = 2 and one 32-byte sector
+// at D = 3 -- so a (point, level) reads one packed row in the widest loads
+// it allows instead of 2^(D-1) scattered row-pair loads: one 8-byte load
+// at C = 1, D = 2, one or two 16-byte loads at C = 2, up to eight at C = 8,
+// D = 3 (four 32-byte sectors). The pass copies each corner's C values in
+// the widest unit that divides them (2 bytes at C = 1 up to 16 at C = 8,
+// two 16-byte units at C = 16). What bounded the row layout
 // on an H100 80GB HBM3 (700 W; studies/grid_bf16.py, PERF.md §6) was
 // the scattered gathers, not bytes or bf16 arithmetic: reading every corner
 // from one fixed row cut the -O step's D = 3 call from 0.299 to 0.222 ms
@@ -47,11 +58,18 @@
 // while the rounding hooks set to the identity left the D = 3 call as it
 // was (and cut the D = 2 call 11%). The packed rows took the D = 3 call to
 // 0.146 ms, 0.168 with the packing pass, and the spread points' to 0.198
-// with it. The corner terms are formed two at a time in bf16x2 arithmetic
-// (grid_common.cuh bf16_terms), bit for bit with the plain twin; the output
-// is bf16 [N, 2L]. The packed copy is 2^D times the bf16 table (28.9 MB for
-// the 3-D head grid, 8.9 MB a 2-D grid); the wrapper builds it once per
-// table version (a train step's encode packs its freshly cast table).
+// with it. A-bf16 is templated on C in {1, 2, 4, 8} and smoothstep, the
+// shift (align_corners) a run-time argument as in A. Where C is even the
+// corner terms are formed two channels at a time in bf16x2 arithmetic
+// (grid_common.cuh bf16_terms, one weight conversion a corner pair), at C =
+// 1 as scalar products, bit for bit with the plain twin either way; the
+// output is bf16 [N, L C], staged through a static tile of one C-element
+// unit a (point, level) (16.9 KB at C = 8). Any other C up to 16 runs
+// grid_encode_kernel_bf16_any: C a run-time argument, scalar products, the
+// packed row read 2 bytes at a time. The packed copy is 2^D times the bf16
+// table (28.9 MB for the 3-D head grid at C = 2, 8.9 MB a 2-D grid); the
+// wrapper builds it once per table version (a train step's encode packs
+// its freshly cast table).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,47 +126,120 @@ __global__ void __launch_bounds__(1024) grid_encode_kernel(
   if (n0 + q < N) out[(size_t)n0 * L + t] = tile[q * row + (t - q * L)];
 }
 
-// Corner-packed bf16 rows [n_emb, 2^D] bf16x2 -> bf16 out [N, L] bf16x2
-// (A-bf16; C = 2 tiled linear grids).
-template <int D>
-__global__ void __launch_bounds__(1024) grid_encode_kernel_bf16(
-    const float* __restrict__ x, const uint4* __restrict__ packed,
+// Float32 table rows [n_emb, C] -> float32 out [N, L * C] for any C up to
+// kMaxChannels (kernel A outside C in {1, 2, 4, 8}): C at run time, each
+// row read in units of W = unit_floats(C) floats, the channels of a
+// (point, level) staged as single floats through a tile [32][L C + 1]
+// (the + 1 spreads a warp's stores over the banks).
+template <int D, int W, bool kSmooth, bool kHash>
+__global__ void __launch_bounds__(1024) grid_encode_kernel_any(
+    const float* __restrict__ x, const float* __restrict__ emb,
     const float* __restrict__ scales, const int* __restrict__ level_params,
-    uint32_t* __restrict__ out, int N, int L, float bound, float two_bound) {
-  __shared__ uint32_t tile[32 * (grid::kMaxLevels + 1)];
+    float* __restrict__ out, int N, int L, int C, float shift, float bound, float two_bound) {
+  extern __shared__ float4 smem[];
+  float* const tile = reinterpret_cast<float*>(smem);  // [32][L * C + 1]
   const int lane = threadIdx.x, l = threadIdx.y;
-  const int row = L + 1;  // tile row stride in output elements
+  const int LC = L * C, row = LC + 1;
   const int n0 = blockIdx.x * 32;
   const int n = n0 + lane;
+  float* const mine = tile + lane * row + l * C;
 
-  float2 acc = make_float2(0.0f, 0.0f);  // outside the box: exactly zero
   float p[D];
   if (n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p)) {
     const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
     uint32_t pg[D];
     float frac[D], slope[D];
-    grid::cell<D, false>(p, lv.scale, 0.5f, pg, frac, slope);
-    // the cell's 2^D corner rows: one or two 16-byte loads from one sector
-    const uint4* cell = packed + (size_t)grid::corner_row<D, false>(lv, pg, 0) * ((1 << D) / 4);
-    uint32_t e[1 << D];
+    grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+    uint32_t rows[1 << D];
+    float w[1 << D];
 #pragma unroll
-    for (int q = 0; q < (1 << D) / 4; ++q) {
-      const uint4 v = __ldg(cell + q);
-      e[4 * q] = v.x;
-      e[4 * q + 1] = v.y;
-      e[4 * q + 2] = v.z;
-      e[4 * q + 3] = v.w;
+    for (int k = 0; k < (1 << D); ++k) {
+      rows[k] = grid::corner_row<D, kHash>(lv, pg, k);
+      w[k] = grid::corner_weight<D>(frac, k);
     }
+    for (int u = 0; u < C; u += W) {
+      float acc[W];
 #pragma unroll
-    for (int c0 = 0; c0 < (1 << D); c0 += 2) {
-      float2 a, b;
-      grid::bf16_terms(e[c0], e[c0 + 1], grid::corner_weight<D>(frac, c0),
-                       grid::corner_weight<D>(frac, c0 + 1), a, b);
-      acc = c0 == 0 ? a : make_float2(acc.x + a.x, acc.y + a.y);
-      acc = make_float2(acc.x + b.x, acc.y + b.y);
+      for (int k = 0; k < (1 << D); ++k) {  // corners in order, as the twin sums them
+        float e[W];
+        grid::load_unit<W>(emb + (size_t)rows[k] * C + u, e);
+#pragma unroll
+        for (int i = 0; i < W; ++i) acc[i] = k == 0 ? w[k] * e[i] : acc[i] + w[k] * e[i];
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) mine[u + i] = acc[i];
+    }
+  } else {
+    for (int c = 0; c < C; ++c) mine[c] = 0.0f;  // outside the box: exactly zero
+  }
+  __syncthreads();
+
+  // the block's rows [n0, n0 + 32) are one run of out: thread t writes its
+  // elements t, t + 32 L, ... (32 L C of them)
+  for (int t = l * 32 + lane; t < 32 * LC; t += 32 * L) {
+    const int q = t / LC;
+    if (n0 + q < N) out[(size_t)n0 * LC + t] = tile[q * row + (t - q * LC)];
+  }
+}
+
+// Corner-packed bf16 rows [n_emb, 2^D, C] -> bf16 out [N, L * C] (A-bf16;
+// C in {1, 2, 4, 8}, tiled grids). kSmooth: smoothstep interpolation; the
+// shift is 0.5, or 0 under align_corners.
+template <int D, int C, bool kSmooth>
+__global__ void __launch_bounds__(1024) grid_encode_kernel_bf16(
+    const float* __restrict__ x, const uint32_t* __restrict__ packed,
+    const float* __restrict__ scales, const int* __restrict__ level_params,
+    typename grid::Bf16Elem<C>::T* __restrict__ out, int N, int L, float shift, float bound,
+    float two_bound) {
+  using Elem = typename grid::Bf16Elem<C>::T;
+  constexpr int kWords = (1 << D) * C / 2;  // 32-bit words in a packed row
+  __shared__ Elem tile[32 * (grid::kMaxLevels + 1)];
+  const int lane = threadIdx.x, l = threadIdx.y;
+  const int row = L + 1;  // tile row stride in output elements
+  const int n0 = blockIdx.x * 32;
+  const int n = n0 + lane;
+
+  float acc[C];  // outside the box: exactly zero
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  float p[D];
+  if (n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p)) {
+    const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+    uint32_t pg[D];
+    float frac[D], slope[D];
+    grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+    // the cell's 2^D corner rows in the widest loads they allow
+    uint32_t e[kWords];
+    grid::load_words<kWords>(packed + (size_t)grid::corner_row<D, false>(lv, pg, 0) * kWords,
+                             e);
+    if constexpr (C % 2 == 0) {
+      // word j of corner k holds its channels 2j, 2j + 1
+#pragma unroll
+      for (int c0 = 0; c0 < (1 << D); c0 += 2) {
+        const uint32_t w = grid::bf16x2_weights(grid::corner_weight<D>(frac, c0),
+                                                grid::corner_weight<D>(frac, c0 + 1));
+#pragma unroll
+        for (int j = 0; j < C / 2; ++j) {
+          float2 a, b;
+          grid::bf16_terms(e[c0 * (C / 2) + j], e[(c0 + 1) * (C / 2) + j], w, a, b);
+          acc[2 * j] = c0 == 0 ? a.x : acc[2 * j] + a.x;
+          acc[2 * j + 1] = c0 == 0 ? a.y : acc[2 * j + 1] + a.y;
+          acc[2 * j] = acc[2 * j] + b.x;
+          acc[2 * j + 1] = acc[2 * j + 1] + b.y;
+        }
+      }
+    } else {
+      // C = 1: corners 2q and 2q + 1 share word q; scalar products
+#pragma unroll
+      for (int k = 0; k < (1 << D); ++k) {
+        const uint32_t v = (k & 1) ? e[k / 2] >> 16 : e[k / 2];
+        const float t = grid::round_bf16(grid::round_bf16(grid::corner_weight<D>(frac, k)) *
+                                         grid::bf16_bits_float(v & 0xffffu));
+        acc[0] = k == 0 ? t : acc[0] + t;
+      }
     }
   }
-  tile[lane * row + l] = grid::Bf16::store(acc);
+  tile[lane * row + l] = grid::pack_bf16<C>(acc);
   __syncthreads();
 
   // the block's rows [n0, n0 + 32) are one run of out: thread t writes its
@@ -158,13 +249,64 @@ __global__ void __launch_bounds__(1024) grid_encode_kernel_bf16(
   if (n0 + q < N) out[(size_t)n0 * L + t] = tile[q * row + (t - q * L)];
 }
 
+// Corner-packed bf16 rows [n_emb, 2^D, C] -> bf16 out [N, L * C] for any
+// other C up to kMaxChannels (A-bf16): C at run time, scalar products in
+// corner order a channel, the packed row read 2 bytes at a time, staged
+// through a tile [32][L C + 1] of bf16s.
+template <int D, bool kSmooth>
+__global__ void __launch_bounds__(1024) grid_encode_kernel_bf16_any(
+    const float* __restrict__ x, const unsigned short* __restrict__ packed,
+    const float* __restrict__ scales, const int* __restrict__ level_params,
+    unsigned short* __restrict__ out, int N, int L, int C, float shift, float bound,
+    float two_bound) {
+  extern __shared__ float4 smem[];
+  unsigned short* const tile = reinterpret_cast<unsigned short*>(smem);  // [32][L * C + 1]
+  const int lane = threadIdx.x, l = threadIdx.y;
+  const int LC = L * C, row = LC + 1;
+  const int n0 = blockIdx.x * 32;
+  const int n = n0 + lane;
+  unsigned short* const mine = tile + lane * row + l * C;
+
+  float p[D];
+  if (n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p)) {
+    const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+    uint32_t pg[D];
+    float frac[D], slope[D];
+    grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+    const unsigned short* cell =
+        packed + (size_t)grid::corner_row<D, false>(lv, pg, 0) * ((1 << D) * C);
+    float w[1 << D];
+#pragma unroll
+    for (int k = 0; k < (1 << D); ++k) w[k] = grid::round_bf16(grid::corner_weight<D>(frac, k));
+    for (int c = 0; c < C; ++c) {
+      float acc;
+#pragma unroll
+      for (int k = 0; k < (1 << D); ++k) {
+        const float t = grid::round_bf16(w[k] * grid::bf16_bits_float(__ldg(cell + k * C + c)));
+        acc = k == 0 ? t : acc + t;
+      }
+      mine[c] = (unsigned short)grid::bf16_bits(acc);
+    }
+  } else {
+    for (int c = 0; c < C; ++c) mine[c] = 0;  // outside the box: exactly zero
+  }
+  __syncthreads();
+
+  for (int t = l * 32 + lane; t < 32 * LC; t += 32 * L) {
+    const int q = t / LC;
+    if (n0 + q < N) out[(size_t)n0 * LC + t] = tile[q * row + (t - q * LC)];
+  }
+}
+
 // packed[(offset_l + k) * 2^D + c] = emb[offset_l + (k + delta_c) mod T_l]
-// for every row k of level l = blockIdx.y, delta_c the corner's sum of
-// strides: corner c's row as corner_row forms it (uint32 sums wrap at 2^32,
-// which a power-of-two T divides; a dense level never wraps)
-template <int D>
-__global__ void pack_kernel(const uint32_t* __restrict__ emb, const int* __restrict__ params,
-                            uint32_t* __restrict__ packed) {
+// (a row of C bf16s each) for every row k of level l = blockIdx.y, delta_c
+// the corner's sum of strides: corner c's row as corner_row forms it
+// (uint32 sums wrap at 2^32, which a power-of-two T divides; a dense level
+// never wraps). A row is kWords units U (kWords 0: `words` at run time).
+template <int D, typename U, int kWords>
+__global__ void pack_kernel(const U* __restrict__ emb, const int* __restrict__ params,
+                            U* __restrict__ packed, int words) {
+  const int nw = kWords > 0 ? kWords : words;
   const int* p = params + blockIdx.y * (2 + D);
   const uint32_t offset = (uint32_t)p[0], size = (uint32_t)p[1];
   const long long n = (long long)size << D;
@@ -176,7 +318,14 @@ __global__ void pack_kernel(const uint32_t* __restrict__ emb, const int* __restr
 #pragma unroll
     for (int d = 0; d < D; ++d) idx += ((c >> d) & 1) ? (uint32_t)p[2 + d] : 0u;
     if (idx >= size) idx = (size & (size - 1)) ? idx % size : idx & (size - 1);
-    packed[(size_t)(offset + k) * (1 << D) + c] = __ldg(emb + offset + idx);
+    const U* src = emb + (size_t)(offset + idx) * nw;
+    U* dst = packed + ((size_t)(offset + k) * (1 << D) + c) * nw;
+    if constexpr (kWords > 0) {
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) dst[w] = __ldg(src + w);
+    } else {
+      for (int w = 0; w < words; ++w) dst[w] = __ldg(src + w);
+    }
   }
 }
 
@@ -187,6 +336,28 @@ int launch(const void* x, const void* emb, const void* scales, const void* param
   grid_encode_kernel<D, C, kSmooth, kHash><<<(N + 31) / 32, dim3(32, L), smem, s>>>(
       (const float*)x, (const float*)emb, (const float*)scales, (const int*)params,
       (grid::Channels<C>*)out, N, L, shift, bound, two_bound);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int W, bool kSmooth, bool kHash>
+int launch_any(const void* x, const void* emb, const void* scales, const void* params,
+               void* out, int N, int L, int C, float shift, float bound, float two_bound,
+               cudaStream_t s) {
+  constexpr size_t kMaxSmem =
+      sizeof(float) * 32 * (grid::kMaxLevels * grid::kMaxChannels + 1);
+  const size_t smem = sizeof(float) * 32 * ((size_t)L * C + 1);  // at most 65.7 KB
+  auto kernel = grid_encode_kernel_any<D, W, kSmooth, kHash>;
+  // above the default 48 KB of dynamic shared memory, opt in to the most any
+  // call of it takes, at every such launch: the attribute is the current
+  // device's, and setting it costs a host call
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != 0) return err;
+  }
+  kernel<<<(N + 31) / 32, dim3(32, L), smem, s>>>(
+      (const float*)x, (const float*)emb, (const float*)scales, (const int*)params,
+      (float*)out, N, L, C, shift, bound, two_bound);
   return (int)cudaGetLastError();
 }
 
@@ -201,6 +372,18 @@ int launch(const void* x, const void* emb, const void* scales, const void* param
 #undef GRID_FWD
 }
 
+template <int D, int W>
+int launch_any(const void* x, const void* emb, const void* scales, const void* params,
+               void* out, int N, int L, int C, int smoothstep, int hashed, float shift,
+               float bound, float two_bound, cudaStream_t s) {
+#define GRID_FWD(SMOOTH, HASH)                                                                 \
+  launch_any<D, W, SMOOTH, HASH>(x, emb, scales, params, out, N, L, C, shift, bound,          \
+                                 two_bound, s)
+  if (smoothstep) return hashed ? GRID_FWD(true, true) : GRID_FWD(true, false);
+  return hashed ? GRID_FWD(false, true) : GRID_FWD(false, false);
+#undef GRID_FWD
+}
+
 template <int D>
 int launch(const void* x, const void* emb, const void* scales, const void* params, void* out,
            int N, int L, int C, int smoothstep, int hashed, float shift, float bound,
@@ -208,30 +391,104 @@ int launch(const void* x, const void* emb, const void* scales, const void* param
 #define GRID_FWD(CH)                                                                     \
   launch<D, CH>(x, emb, scales, params, out, N, L, smoothstep, hashed, shift, bound,     \
                 two_bound, s)
+#define GRID_FWD_ANY(W)                                                                  \
+  launch_any<D, W>(x, emb, scales, params, out, N, L, C, smoothstep, hashed, shift,      \
+                   bound, two_bound, s)
   switch (C) {
     case 1: return GRID_FWD(1);
     case 2: return GRID_FWD(2);
     case 4: return GRID_FWD(4);
     case 8: return GRID_FWD(8);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      switch (grid::unit_floats(C)) {
+        case 4: return GRID_FWD_ANY(4);
+        case 2: return GRID_FWD_ANY(2);
+        default: return GRID_FWD_ANY(1);
+      }
   }
 #undef GRID_FWD
+#undef GRID_FWD_ANY
 }
 
-bool bad_shape(long long N, int D, int L) {
-  return (D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 0 || N > 0x7fffffffLL;
+template <int D, int C, bool kSmooth>
+void launch_bf16_fixed(const void* x, const void* packed, const void* scales,
+                       const void* params, void* out, int N, int L, float shift, float bound,
+                       float two_bound, cudaStream_t s) {
+  grid_encode_kernel_bf16<D, C, kSmooth><<<(N + 31) / 32, dim3(32, L), 0, s>>>(
+      (const float*)x, (const uint32_t*)packed, (const float*)scales, (const int*)params,
+      (typename grid::Bf16Elem<C>::T*)out, N, L, shift, bound, two_bound);
+}
+
+template <int D, bool kSmooth>
+void launch_bf16_any(const void* x, const void* packed, const void* scales,
+                     const void* params, void* out, int N, int L, int C, float shift,
+                     float bound, float two_bound, cudaStream_t s) {
+  const size_t smem = sizeof(unsigned short) * 32 * ((size_t)L * C + 1);  // at most 32.8 KB
+  grid_encode_kernel_bf16_any<D, kSmooth><<<(N + 31) / 32, dim3(32, L), smem, s>>>(
+      (const float*)x, (const unsigned short*)packed, (const float*)scales,
+      (const int*)params, (unsigned short*)out, N, L, C, shift, bound, two_bound);
+}
+
+template <int D, bool kSmooth>
+void launch_bf16(const void* x, const void* packed, const void* scales, const void* params,
+                 void* out, int N, int L, int C, float shift, float bound, float two_bound,
+                 cudaStream_t s) {
+#define GRID_FWD_BF16(CH)                                                                   \
+  launch_bf16_fixed<D, CH, kSmooth>(x, packed, scales, params, out, N, L, shift, bound,     \
+                                    two_bound, s)
+  switch (C) {
+    case 1: GRID_FWD_BF16(1); break;
+    case 2: GRID_FWD_BF16(2); break;
+    case 4: GRID_FWD_BF16(4); break;
+    case 8: GRID_FWD_BF16(8); break;
+    default:
+      launch_bf16_any<D, kSmooth>(x, packed, scales, params, out, N, L, C, shift, bound,
+                                  two_bound, s);
+  }
+#undef GRID_FWD_BF16
+}
+
+template <int D, typename U, int kWords>
+void launch_pack_units(const void* emb, const void* params, void* packed, int L, int words,
+                       cudaStream_t s) {
+  const dim3 grid(264, L);  // 2 blocks an SM for each level
+  pack_kernel<D, U, kWords><<<grid, 256, 0, s>>>((const U*)emb, (const int*)params, (U*)packed,
+                                                 words);
+}
+
+// a row of C bf16s (2C bytes) in the widest unit that divides it
+template <int D>
+void launch_pack(const void* emb, const void* params, void* packed, int L, int C,
+                 cudaStream_t s) {
+#define PACK(U, K, WORDS) launch_pack_units<D, U, K>(emb, params, packed, L, WORDS, s)
+  switch (C) {
+    case 1: return PACK(unsigned short, 1, 1);
+    case 2: return PACK(uint32_t, 1, 1);
+    case 4: return PACK(uint2, 1, 1);
+    case 8: return PACK(uint4, 1, 1);
+    case 16: return PACK(uint4, 2, 2);
+    default:
+      if (C % 4 == 0) return PACK(uint2, 0, C / 4);
+      if (C % 2 == 0) return PACK(uint32_t, 0, C / 2);
+      return PACK(unsigned short, 0, C);
+  }
+#undef PACK
+}
+
+bool bad_shape(long long N, int D, int L, int C) {
+  return grid::bad_shape(D, L, C) || N < 0 || N > 0x7fffffffLL;
 }
 
 }  // namespace
 
-// kernel A: a float32 table [n_emb, C], C in {1, 2, 4, 8}, the level rows,
+// kernel A: a float32 table [n_emb, C], C in 1..16, the level rows,
 // smoothstep 0 or 1, hashed 1 where a level may be hashed (a hash grid),
 // the shift (0.5, or 0 under align_corners); float32 out [N, L * C]
 extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scales,
                                const void* level_params, void* out, long long N, int D, int L,
                                int C, int smoothstep, int hashed, float shift, float bound,
                                float two_bound, void* stream) {
-  if (bad_shape(N, D, L)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(N, D, L, C)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   return D == 3 ? launch<3>(x, emb, scales, level_params, out, (int)N, L, C, smoothstep, hashed,
@@ -240,40 +497,38 @@ extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scale
                             shift, bound, two_bound, s);
 }
 
-// bf16 table [n_emb, 2] -> its corner-packed rows [n_emb, 2^D] (bf16x2 words)
+// bf16 table [n_emb, C] -> its corner-packed rows [n_emb, 2^D, C]
 extern "C" int grid_pack_bf16(const void* emb, const void* level_params, void* packed, int D,
-                              int L, void* stream) {
-  if ((D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels) return (int)cudaErrorInvalidValue;
-  const dim3 grid(264, L);  // 2 blocks an SM for each level
+                              int L, int C, void* stream) {
+  if (bad_shape(0, D, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 3) {
-    pack_kernel<3><<<grid, 256, 0, s>>>((const uint32_t*)emb, (const int*)level_params,
-                                        (uint32_t*)packed);
+    launch_pack<3>(emb, level_params, packed, L, C, s);
   } else {
-    pack_kernel<2><<<grid, 256, 0, s>>>((const uint32_t*)emb, (const int*)level_params,
-                                        (uint32_t*)packed);
+    launch_pack<2>(emb, level_params, packed, L, C, s);
   }
   return (int)cudaGetLastError();
 }
 
-// A-bf16: the packed bf16 table [n_emb, 2^D] and bf16 out [N, 2L]
+// A-bf16: the packed bf16 table [n_emb, 2^D, C], C in 1..16, smoothstep 0
+// or 1, the shift (0.5, or 0 under align_corners); bf16 out [N, L * C]
 extern "C" int grid_encode_fwd_bf16_packed(const void* x, const void* packed,
                                            const void* scales, const void* level_params,
-                                           void* out, long long N, int D, int L, float bound,
+                                           void* out, long long N, int D, int L, int C,
+                                           int smoothstep, float shift, float bound,
                                            float two_bound, void* stream) {
-  if (bad_shape(N, D, L)) return (int)cudaErrorInvalidValue;
-  const dim3 block(32, L);
-  const unsigned blocks = (unsigned)((N + 31) / 32);
-  if (blocks == 0) return 0;
+  if (bad_shape(N, D, L, C)) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)N;
+#define GRID_FWD_BF16(DIM, SMOOTH)                                                         \
+  launch_bf16<DIM, SMOOTH>(x, packed, scales, level_params, out, n, L, C, shift, bound,   \
+                           two_bound, s)
   if (D == 3) {
-    grid_encode_kernel_bf16<3><<<blocks, block, 0, s>>>(
-        (const float*)x, (const uint4*)packed, (const float*)scales, (const int*)level_params,
-        (uint32_t*)out, (int)N, L, bound, two_bound);
+    if (smoothstep) GRID_FWD_BF16(3, true); else GRID_FWD_BF16(3, false);
   } else {
-    grid_encode_kernel_bf16<2><<<blocks, block, 0, s>>>(
-        (const float*)x, (const uint4*)packed, (const float*)scales, (const int*)level_params,
-        (uint32_t*)out, (int)N, L, bound, two_bound);
+    if (smoothstep) GRID_FWD_BF16(2, true); else GRID_FWD_BF16(2, false);
   }
+#undef GRID_FWD_BF16
   return (int)cudaGetLastError();
 }

@@ -28,18 +28,22 @@
 // compute capability 9.x): at C = 1 and 2 the two rows as one float2 or
 // float4 when they are an aligned pair, else a float or float2 each; at C
 // = 4 and 8 one or two float4s a row. One float reduction a channel was
-// 3.9x slower at C = 4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md). Every
+// 3.9x slower at C = 4 (NVIDIA H100 80GB HBM3, 700 W; PERF.md). C in {1,
+// 2, 4, 8} is a template argument (RAD-NeRF's C = 2 among them); any other
+// C up to 16 runs grid_encode_bwd_kernel_any, C at run time and the
+// channels a loop over units of the widest load that divides a row (float4
+// at C = 12 and 16, float2 at even C, a float at odd C), each unit merged
+// over the run and added as one reduction a row. Every
 // level adds into global memory: on the step's own points a per-block sum
 // of the coarse levels in shared memory is slower (PERF.md). Under smoothstep the x gradient takes
 // d frac / d pos = 6 f (1 - f) of each dim's cell fraction f.
 //
-// The x gradient needs no atomics: each level's share goes through shared
-// memory, and the point's level-0 thread sums them in level order and
-// stores grad_x (exact 0 outside the box), so the wrapper need not zero it.
+// The x gradient needs no atomics (store_x_grad).
 //
 // The bf16 variant (grid_encode_bwd_bf16_keyed, the gradient of the -O
-// policy's bf16 encode; C = 2 tiled linear grids) takes a bf16 table and a
-// bf16 grad_out [N, 2L] (4 bytes a (point, level) instead of 8); it writes
+// policy's bf16 encode; tiled grids, C up to 16, smoothstep and
+// align_corners) takes a bf16 table and a bf16 grad_out [N, L C] (2C bytes
+// a (point, level) instead of 4C); it writes
 // float32 gradients, the table's through float32 atomics. Its corner
 // weights are rounded to bf16 as in the forward, so each added term
 // bf16(w) * g is exact in float32; the x gradient treats that rounding as
@@ -61,9 +65,15 @@
 // odd). So A'-bf16 adds each corner pair whole, one float4 a run of lanes
 // whatever r0's parity, into a pair-keyed buffer keys[r0] (16 bytes a row,
 // zeroed by the wrapper; r1 = r0 + 1 mod the level's size, as dim 0's
-// stride is 1), and grid_encode_bwd_finish_kernel stores row r's gradient
-// keys[r].xy + keys[r - 1].zw: 53.7M reductions and 0.684 ms on that call,
-// 0.317 ms against 0.532 on the D = 2 one (the x gradient 0.216 of it).
+// stride is 1), and a finish pass stores row r's gradient keys[r].xy +
+// keys[r - 1].zw: 53.7M reductions and 0.684 ms on that call, 0.317 ms
+// against 0.532 on the D = 2 one (the x gradient 0.216 of it). At every C
+// a key is 2C floats in units of two channels (one channel at odd C), one
+// vector reduction a unit (add_key_unit: float2 at C = 1, one float4 at C
+// = 2, two at C = 4, four at C = 8), and grid_encode_bwd_finish_kernel
+// forms each row unit by unit; A'-bf16 is templated on C in {1, 2, 4, 8}
+// and smoothstep (the shift at run time), and any other C up to 16 runs
+// grid_encode_bwd_kernel_bf16_any, C at run time.
 
 // The atomic order varies from run to run, so the table gradient is not
 // bit-exact between runs or with the plain version; it agrees to the
@@ -105,6 +115,45 @@ __device__ __forceinline__ bool merge_runs(uint32_t r0, uint32_t r1, float (&v)[
     }
   }
   return head;
+}
+
+// The x gradient's terms of corners c0 and c0 + 1: each corner's dot of
+// the upstream gradient with its row times d weight / d frac, added into
+// gpos in corner order.
+template <int D>
+__device__ __forceinline__ void add_pair_x_grad(float (&gpos)[D], const float frac[D], int c0,
+                                                float dot0, float dot1) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    gpos[d] = gpos[d] + dot0 * grid::corner_weight_grad<D>(frac, c0, d);
+    gpos[d] = gpos[d] + dot1 * grid::corner_weight_grad<D>(frac, c0 + 1, d);
+  }
+}
+
+// A point's x gradient: each level's share (gpos times d frac / d pos and
+// d pos / d x = scale / (2 bound)) goes through shared memory xg [L][P][D],
+// and the point's level-0 thread sums the shares in level order and stores
+// grad_x (exact 0 outside the box), so the wrapper need not zero it. Every
+// thread of the block calls it.
+template <int D>
+__device__ __forceinline__ void store_x_grad(float* __restrict__ xg, const float gpos[D],
+                                             const float slope[D], float scale,
+                                             float two_bound, bool live, int n, int N, int L,
+                                             float* __restrict__ grad_x) {
+  const int P = blockDim.x, l = threadIdx.y;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    xg[(l * P + threadIdx.x) * D + d] = live ? gpos[d] * slope[d] * scale / two_bound : 0.0f;
+  }
+  __syncthreads();
+  if (l == 0 && n < N) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      float s = 0.0f;
+      for (int k = 0; k < L; ++k) s = s + xg[(k * P + threadIdx.x) * D + d];
+      grad_x[(size_t)n * D + d] = s;
+    }
+  }
 }
 
 // Adds the C values at v into table row r (float32 [n_emb, C]).
@@ -203,52 +252,40 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel(
           dot0 = dot0 + g[c] * e0[c];
           dot1 = dot1 + g[c] * e1[c];
         }
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          gpos[d] = gpos[d] + dot0 * grid::corner_weight_grad<D>(frac, c0, d);
-          gpos[d] = gpos[d] + dot1 * grid::corner_weight_grad<D>(frac, c0 + 1, d);
-        }
+        add_pair_x_grad<D>(gpos, frac, c0, dot0, dot1);
       }
     }
     if (grad_table != nullptr) add_row_pair<C>(grad_table, r0, r1, v, lane);
   }
 
-  if (kNeedX) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      xg[(l * P + threadIdx.x) * D + d] =
-          live ? gpos[d] * slope[d] * lv.scale / two_bound : 0.0f;
-    }
-    __syncthreads();
-    if (l == 0 && n < N) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float s = 0.0f;
-        for (int k = 0; k < L; ++k) s = s + xg[(k * P + threadIdx.x) * D + d];
-        grad_x[(size_t)n * D + d] = s;
-      }
-    }
+  if (kNeedX) store_x_grad<D>(xg, gpos, slope, lv.scale, two_bound, live, n, N, L, grad_x);
+}
+
+// Adds W float32 values at v into dst (aligned to 4W bytes) as one
+// reduction.
+template <int W>
+__device__ __forceinline__ void add_unit(float* __restrict__ dst, const float* v) {
+  if constexpr (W == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (W == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(dst, v[0]);
   }
 }
 
-// The pair-keyed form (A'-bf16): v, the terms of rows r0 and r1 = r0 + 1
-// (mod the level's size), goes whole into keys[r0], one float4 atomic a run
-// of lanes with the same r0 whatever r0's parity; the finish kernel then
-// forms row r's gradient from keys[r].xy and keys[r - 1].zw.
-__device__ __forceinline__ void add_keyed(float4* __restrict__ keys, uint32_t r0,
-                                          float (&v)[4], unsigned lane) {
-  if (!merge_runs<4>(r0, r0, v, lane) || r0 == kNoRow) return;
-  atomicAdd(keys + r0, make_float4(v[0], v[1], v[2], v[3]));
-}
-
-// Kernel A'-bf16: a bf16 table [n_emb] bf16x2 and grad_out [N, L] bf16x2;
-// the table gradient into the pair keys [n_emb] float4.
-template <int D, bool kNeedX>
-__global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16(
-    const float* __restrict__ x, const uint32_t* __restrict__ emb,
-    const uint32_t* __restrict__ grad_out, const float* __restrict__ scales,
-    const int* __restrict__ level_params, float4* __restrict__ keys,
-    float* __restrict__ grad_x, int N, int L, float bound, float two_bound) {
+// Kernel A' for any C up to kMaxChannels outside {1, 2, 4, 8}: C at run
+// time, the channels a loop over units of W = unit_floats(C) floats; per
+// corner pair and unit, the run's first lane adds each row's W values as
+// one reduction (float4 at C = 12 or 16, float2 at C = 6, 10, 14, a float
+// at odd C).
+template <int D, int W, bool kSmooth, bool kHash, bool kNeedX>
+__global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_any(
+    const float* __restrict__ x, const float* __restrict__ emb,
+    const float* __restrict__ grad_out, const float* __restrict__ scales,
+    const int* __restrict__ level_params, float* __restrict__ grad_table,
+    float* __restrict__ grad_x, int N, int L, int C, float shift, float bound,
+    float two_bound) {
   __shared__ float xg[kNeedX ? 1024 * D : 1];  // [L][P][D], P * L <= 1024
   const int P = blockDim.x, l = threadIdx.y;
   const unsigned lane = threadIdx.x & 31u;
@@ -259,10 +296,100 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16(
   const bool live = n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p);
   uint32_t pg[D];
   float frac[D], slope[D];
-  float2 g = make_float2(0.0f, 0.0f);
+  if (live) grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+  const float* g_row = grad_out + ((size_t)n * L + l) * C;
+  float gpos[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) gpos[d] = 0.0f;
+
+#pragma unroll
+  for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
+    uint32_t r0 = kNoRow, r1 = kNoRow;
+    float w0 = 0.0f, w1 = 0.0f, dot0 = 0.0f, dot1 = 0.0f;
+    if (live) {
+      r0 = grid::corner_row<D, kHash>(lv, pg, c0);
+      r1 = grid::corner_row<D, kHash>(lv, pg, c0 + 1);
+      w0 = grid::corner_weight<D>(frac, c0);
+      w1 = grid::corner_weight<D>(frac, c0 + 1);
+    }
+    for (int u = 0; u < C; u += W) {  // warp-uniform: every lane merges
+      float g[W], v[2 * W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) g[i] = 0.0f;
+      if (live) grid::load_unit<W>(g_row + u, g);
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        v[i] = w0 * g[i];
+        v[W + i] = w1 * g[i];
+      }
+      if (kNeedX && live) {
+        float e0[W], e1[W];
+        grid::load_unit<W>(emb + (size_t)r0 * C + u, e0);
+        grid::load_unit<W>(emb + (size_t)r1 * C + u, e1);
+#pragma unroll
+        for (int i = 0; i < W; ++i) {  // channels in order, as the twin sums them
+          dot0 = u + i == 0 ? g[i] * e0[i] : dot0 + g[i] * e0[i];
+          dot1 = u + i == 0 ? g[i] * e1[i] : dot1 + g[i] * e1[i];
+        }
+      }
+      if (grad_table != nullptr && merge_runs<2 * W>(r0, r1, v, lane) && r0 != kNoRow) {
+        add_unit<W>(grad_table + (size_t)r0 * C + u, v);
+        add_unit<W>(grad_table + (size_t)r1 * C + u, v + W);
+      }
+    }
+    if (kNeedX && live) {
+      add_pair_x_grad<D>(gpos, frac, c0, dot0, dot1);
+    }
+  }
+
+  if (kNeedX) store_x_grad<D>(xg, gpos, slope, lv.scale, two_bound, live, n, N, L, grad_x);
+}
+
+// The pair-keyed form (A'-bf16). A key holds the terms of a corner pair's
+// rows r0 and r1 = r0 + 1 (mod the level's size) in units of W channels (W
+// = 2 where C is even, 1 where it is odd): unit j is r0's W values of
+// channels W j .. W j + W - 1, then r1's, so a key is 2C floats and a unit
+// one float4 (W = 2) or float2 (W = 1) reduction: C = 1 one float2, C = 2
+// one float4 (one a pair, whatever r0's parity), C = 4 two, C = 8 four.
+// One float reduction a channel measured 3.9x slower than float4s in A' at
+// C = 4 (PERF.md). The finish kernel then forms row r's gradient from key
+// r's first halves and key r - 1's second halves.
+template <int W>
+__device__ __forceinline__ void add_key_unit(float* __restrict__ key, const float* v) {
+  if constexpr (W == 2) {
+    atomicAdd(reinterpret_cast<float4*>(key), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(key), make_float2(v[0], v[1]));
+  }
+}
+
+// Kernel A'-bf16: a bf16 table [n_emb, C] and grad_out [N, L * C] (C in
+// {1, 2, 4, 8}); the table gradient into the pair keys [n_emb, 2C] float32.
+// kSmooth: smoothstep interpolation; the shift is 0.5, or 0 under
+// align_corners.
+template <int D, int C, bool kSmooth, bool kNeedX>
+__global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16(
+    const float* __restrict__ x, const uint32_t* __restrict__ emb,
+    const unsigned short* __restrict__ grad_out, const float* __restrict__ scales,
+    const int* __restrict__ level_params, float* __restrict__ keys,
+    float* __restrict__ grad_x, int N, int L, float shift, float bound, float two_bound) {
+  constexpr int W = C % 2 == 0 ? 2 : 1;  // channels a key unit
+  __shared__ float xg[kNeedX ? 1024 * D : 1];  // [L][P][D], P * L <= 1024
+  const int P = blockDim.x, l = threadIdx.y;
+  const unsigned lane = threadIdx.x & 31u;
+  const int n = blockIdx.x * P + threadIdx.x;
+
+  const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+  float p[D];
+  const bool live = n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p);
+  uint32_t pg[D];
+  float frac[D], slope[D];
+  float g[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g[c] = 0.0f;
   if (live) {
-    grid::cell<D, false>(p, lv.scale, 0.5f, pg, frac, slope);
-    g = grid::Bf16::load(grad_out + (size_t)n * L + l);
+    grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+    grid::load_bf16<C>(grad_out + ((size_t)n * L + l) * C, g);
   }
   float gpos[D];
 #pragma unroll
@@ -271,62 +398,148 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16(
 #pragma unroll
   for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
     uint32_t r0 = kNoRow, r1 = kNoRow;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float v[2 * C];  // in key order
+#pragma unroll
+    for (int i = 0; i < 2 * C; ++i) v[i] = 0.0f;
     if (live) {
       r0 = grid::corner_row<D, false>(lv, pg, c0);
       r1 = grid::corner_row<D, false>(lv, pg, c0 + 1);
       const float w0 = grid::round_bf16(grid::corner_weight<D>(frac, c0));
       const float w1 = grid::round_bf16(grid::corner_weight<D>(frac, c0 + 1));
-      v[0] = w0 * g.x;
-      v[1] = w0 * g.y;
-      v[2] = w1 * g.x;
-      v[3] = w1 * g.y;
-      if (kNeedX) {
-        float2 e0, e1;
-        grid::load_pair_bf16(emb, r0, r1, e0, e1);
-        const float dot0 = g.x * e0.x + g.y * e0.y;
-        const float dot1 = g.x * e1.x + g.y * e1.y;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-          gpos[d] = gpos[d] + dot0 * grid::corner_weight_grad<D>(frac, c0, d);
-          gpos[d] = gpos[d] + dot1 * grid::corner_weight_grad<D>(frac, c0 + 1, d);
+      for (int j = 0; j < C / W; ++j) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          v[2 * W * j + i] = w0 * g[W * j + i];
+          v[2 * W * j + W + i] = w1 * g[W * j + i];
         }
       }
-    }
-    if (keys != nullptr) add_keyed(keys, r0, v, lane);
-  }
-
-  if (kNeedX) {
+      if (kNeedX) {
+        float e0[C], e1[C];
+        if constexpr (C == 2) {
+          float2 a, b;
+          grid::load_pair_bf16(emb, r0, r1, a, b);
+          e0[0] = a.x, e0[1] = a.y, e1[0] = b.x, e1[1] = b.y;
+        } else {
+          const unsigned short* rows = reinterpret_cast<const unsigned short*>(emb);
+          grid::load_bf16<C>(rows + (size_t)r0 * C, e0);
+          grid::load_bf16<C>(rows + (size_t)r1 * C, e1);
+        }
+        float dot0 = g[0] * e0[0], dot1 = g[0] * e1[0];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      xg[(l * P + threadIdx.x) * D + d] = live ? gpos[d] * lv.scale / two_bound : 0.0f;
+        for (int c = 1; c < C; ++c) {
+          dot0 = dot0 + g[c] * e0[c];
+          dot1 = dot1 + g[c] * e1[c];
+        }
+        add_pair_x_grad<D>(gpos, frac, c0, dot0, dot1);
+      }
     }
-    __syncthreads();
-    if (l == 0 && n < N) {
+    if (keys != nullptr && merge_runs<2 * C>(r0, r0, v, lane) && r0 != kNoRow) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float s = 0.0f;
-        for (int k = 0; k < L; ++k) s = s + xg[(k * P + threadIdx.x) * D + d];
-        grad_x[(size_t)n * D + d] = s;
+      for (int j = 0; j < C / W; ++j) {
+        add_key_unit<W>(keys + (size_t)r0 * (2 * C) + 2 * W * j, v + 2 * W * j);
       }
     }
   }
+
+  if (kNeedX) store_x_grad<D>(xg, gpos, slope, lv.scale, two_bound, live, n, N, L, grad_x);
 }
 
-// grad_table[offset + r] = keys[offset + r].xy + keys[offset + (r - 1) mod
-// size].zw for every row r of level l = blockIdx.y: row r is corner 2q's row
-// of the pair keyed r and corner 2q + 1's of the pair keyed r - 1 (a dense
-// level's last key is never written, so its row 0 adds a zero)
-__global__ void grid_encode_bwd_finish_kernel(const float4* __restrict__ keys,
+// Kernel A'-bf16 for any other C up to kMaxChannels: C at run time, the
+// channels a loop over key units of W (2 where C is even, 1 where odd),
+// each merged over the run and added as one reduction.
+template <int D, int W, bool kSmooth, bool kNeedX>
+__global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16_any(
+    const float* __restrict__ x, const unsigned short* __restrict__ emb,
+    const unsigned short* __restrict__ grad_out, const float* __restrict__ scales,
+    const int* __restrict__ level_params, float* __restrict__ keys,
+    float* __restrict__ grad_x, int N, int L, int C, float shift, float bound,
+    float two_bound) {
+  __shared__ float xg[kNeedX ? 1024 * D : 1];  // [L][P][D], P * L <= 1024
+  const int P = blockDim.x, l = threadIdx.y;
+  const unsigned lane = threadIdx.x & 31u;
+  const int n = blockIdx.x * P + threadIdx.x;
+
+  const grid::Level<D> lv = grid::load_level<D>(scales, level_params, l);
+  float p[D];
+  const bool live = n < N && grid::unit_position<D>(x + (size_t)n * D, bound, two_bound, p);
+  uint32_t pg[D];
+  float frac[D], slope[D];
+  if (live) grid::cell<D, kSmooth>(p, lv.scale, shift, pg, frac, slope);
+  const unsigned short* g_row = grad_out + ((size_t)n * L + l) * C;
+  float gpos[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) gpos[d] = 0.0f;
+
+#pragma unroll
+  for (int c0 = 0; c0 < (1 << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
+    uint32_t r0 = kNoRow, r1 = kNoRow;
+    float w0 = 0.0f, w1 = 0.0f, dot0 = 0.0f, dot1 = 0.0f;
+    if (live) {
+      r0 = grid::corner_row<D, false>(lv, pg, c0);
+      r1 = grid::corner_row<D, false>(lv, pg, c0 + 1);
+      w0 = grid::round_bf16(grid::corner_weight<D>(frac, c0));
+      w1 = grid::round_bf16(grid::corner_weight<D>(frac, c0 + 1));
+    }
+    for (int u = 0; u < C; u += W) {  // warp-uniform: every lane merges
+      float g[W], v[2 * W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) g[i] = 0.0f;
+      if (live) grid::load_bf16<W>(g_row + u, g);
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        v[i] = w0 * g[i];
+        v[W + i] = w1 * g[i];
+      }
+      if (kNeedX && live) {
+        float e0[W], e1[W];
+        grid::load_bf16<W>(emb + (size_t)r0 * C + u, e0);
+        grid::load_bf16<W>(emb + (size_t)r1 * C + u, e1);
+#pragma unroll
+        for (int i = 0; i < W; ++i) {  // channels in order, as the twin sums them
+          dot0 = u + i == 0 ? g[i] * e0[i] : dot0 + g[i] * e0[i];
+          dot1 = u + i == 0 ? g[i] * e1[i] : dot1 + g[i] * e1[i];
+        }
+      }
+      if (keys != nullptr && merge_runs<2 * W>(r0, r0, v, lane) && r0 != kNoRow) {
+        add_key_unit<W>(keys + (size_t)r0 * (2 * C) + 2 * u, v);
+      }
+    }
+    if (kNeedX && live) {
+      add_pair_x_grad<D>(gpos, frac, c0, dot0, dot1);
+    }
+  }
+
+  if (kNeedX) store_x_grad<D>(xg, gpos, slope, lv.scale, two_bound, live, n, N, L, grad_x);
+}
+
+// grad_table[offset + r] for every row r of level l = blockIdx.y: row r's
+// unit j (W channels) is key r's unit j first half (corner 2q's row of the
+// pair keyed r) plus key r - 1's unit j second half (corner 2q + 1's of the
+// pair keyed r - 1, mod the level's size; a dense level's last key is never
+// written, so its row 0 adds a zero); a thread forms one (row, unit).
+template <int W>
+__global__ void grid_encode_bwd_finish_kernel(const float* __restrict__ keys,
                                               const int* __restrict__ params, int param_stride,
-                                              float2* __restrict__ grad_table) {
+                                              int C, float* __restrict__ grad_table) {
   const int* p = params + blockIdx.y * param_stride;
   const uint32_t offset = (uint32_t)p[0], size = (uint32_t)p[1];
-  for (uint32_t r = blockIdx.x * blockDim.x + threadIdx.x; r < size;
-       r += gridDim.x * blockDim.x) {
-    const float4 a = keys[offset + r];
-    const float4 b = keys[offset + (r == 0 ? size - 1 : r - 1)];
-    grad_table[offset + r] = make_float2(a.x + b.z, a.y + b.w);
+  const uint32_t units = (uint32_t)(C / W);
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < size * units;
+       i += gridDim.x * blockDim.x) {
+    const uint32_t r = i / units, j = i - r * units;
+    const float* a = keys + (size_t)(offset + r) * (2 * C) + 2 * W * j;
+    const float* b = keys + (size_t)(offset + (r == 0 ? size - 1 : r - 1)) * (2 * C) + 2 * W * j;
+    float* dst = grad_table + (size_t)(offset + r) * C + W * j;
+    if constexpr (W == 2) {
+      const float4 ka = *reinterpret_cast<const float4*>(a);
+      const float4 kb = *reinterpret_cast<const float4*>(b);
+      *reinterpret_cast<float2*>(dst) = make_float2(ka.x + kb.z, ka.y + kb.w);
+    } else {
+      const float2 ka = *reinterpret_cast<const float2*>(a);
+      const float2 kb = *reinterpret_cast<const float2*>(b);
+      dst[0] = ka.x + kb.y;
+    }
   }
 }
 
@@ -363,6 +576,35 @@ int launch(const void* x, const void* emb, const void* grad_out, const void* sca
 #undef GRID_BWD
 }
 
+template <int D, int W, bool kSmooth, bool kHash>
+int launch_any(const void* x, const void* emb, const void* grad_out, const void* scales,
+               const void* params, void* grad_table, void* grad_x, int N, int L, int C,
+               float shift, float bound, float two_bound, cudaStream_t s) {
+  const int P = points_a_block(L);
+  const dim3 blocks((N + P - 1) / P), block(P, L);
+#define GRID_BWD_ANY(NEED_X)                                                                \
+  grid_encode_bwd_kernel_any<D, W, kSmooth, kHash, NEED_X><<<blocks, block, 0, s>>>(        \
+      (const float*)x, (const float*)emb, (const float*)grad_out, (const float*)scales,     \
+      (const int*)params, (float*)grad_table, (float*)grad_x, N, L, C, shift, bound,        \
+      two_bound)
+  if (grad_x != nullptr) GRID_BWD_ANY(true); else GRID_BWD_ANY(false);
+#undef GRID_BWD_ANY
+  return (int)cudaGetLastError();
+}
+
+template <int D, int W>
+int launch_any(const void* x, const void* emb, const void* grad_out, const void* scales,
+               const void* params, void* grad_table, void* grad_x, int N, int L, int C,
+               int smoothstep, int hashed, float shift, float bound, float two_bound,
+               cudaStream_t s) {
+#define GRID_BWD(SMOOTH, HASH)                                                              \
+  launch_any<D, W, SMOOTH, HASH>(x, emb, grad_out, scales, params, grad_table, grad_x, N, L, \
+                                 C, shift, bound, two_bound, s)
+  if (smoothstep) return hashed ? GRID_BWD(true, true) : GRID_BWD(true, false);
+  return hashed ? GRID_BWD(false, true) : GRID_BWD(false, false);
+#undef GRID_BWD
+}
+
 template <int D>
 int backward(const void* x, const void* emb, const void* grad_out, const void* scales,
              const void* params, void* grad_table, void* grad_x, int N, int L, int C,
@@ -371,42 +613,84 @@ int backward(const void* x, const void* emb, const void* grad_out, const void* s
 #define GRID_BWD(CH)                                                                        \
   launch<D, CH>(x, emb, grad_out, scales, params, grad_table, grad_x, N, L, smoothstep,    \
                 hashed, shift, bound, two_bound, s)
+#define GRID_BWD_ANY(W)                                                                     \
+  launch_any<D, W>(x, emb, grad_out, scales, params, grad_table, grad_x, N, L, C,          \
+                   smoothstep, hashed, shift, bound, two_bound, s)
   switch (C) {
     case 1: return GRID_BWD(1);
     case 2: return GRID_BWD(2);
     case 4: return GRID_BWD(4);
     case 8: return GRID_BWD(8);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      switch (grid::unit_floats(C)) {
+        case 4: return GRID_BWD_ANY(4);
+        case 2: return GRID_BWD_ANY(2);
+        default: return GRID_BWD_ANY(1);
+      }
   }
 #undef GRID_BWD
+#undef GRID_BWD_ANY
 }
 
-template <int D, bool kNeedX>
+template <int D, bool kSmooth, bool kNeedX>
 void launch_bf16(const void* x, const void* emb, const void* grad_out, const void* scales,
-                 const void* params, void* keys, void* grad_x, int N, int L, float bound,
-                 float two_bound, cudaStream_t s) {
+                 const void* params, void* keys, void* grad_x, int N, int L, int C, float shift,
+                 float bound, float two_bound, cudaStream_t s) {
   const int P = points_a_block(L);
-  grid_encode_bwd_kernel_bf16<D, kNeedX><<<(N + P - 1) / P, dim3(P, L), 0, s>>>(
-      (const float*)x, (const uint32_t*)emb, (const uint32_t*)grad_out, (const float*)scales,
-      (const int*)params, (float4*)keys, (float*)grad_x, N, L, bound, two_bound);
+  const dim3 blocks((N + P - 1) / P), block(P, L);
+#define GRID_BWD_BF16(CH)                                                                    \
+  grid_encode_bwd_kernel_bf16<D, CH, kSmooth, kNeedX><<<blocks, block, 0, s>>>(              \
+      (const float*)x, (const uint32_t*)emb, (const unsigned short*)grad_out,                \
+      (const float*)scales, (const int*)params, (float*)keys, (float*)grad_x, N, L, shift,   \
+      bound, two_bound)
+#define GRID_BWD_BF16_ANY(W)                                                                 \
+  grid_encode_bwd_kernel_bf16_any<D, W, kSmooth, kNeedX><<<blocks, block, 0, s>>>(           \
+      (const float*)x, (const unsigned short*)emb, (const unsigned short*)grad_out,          \
+      (const float*)scales, (const int*)params, (float*)keys, (float*)grad_x, N, L, C,       \
+      shift, bound, two_bound)
+  switch (C) {
+    case 1: GRID_BWD_BF16(1); break;
+    case 2: GRID_BWD_BF16(2); break;
+    case 4: GRID_BWD_BF16(4); break;
+    case 8: GRID_BWD_BF16(8); break;
+    default:
+      if (C % 2 == 0) GRID_BWD_BF16_ANY(2); else GRID_BWD_BF16_ANY(1);
+  }
+#undef GRID_BWD_BF16
+#undef GRID_BWD_BF16_ANY
 }
 
-bool bad_shape(long long N, int D, int L) {
-  return (D != 2 && D != 3) || L < 1 || L > grid::kMaxLevels || N < 1 || N > 0x7fffffffLL;
+template <int D>
+void launch_bf16(const void* x, const void* emb, const void* grad_out, const void* scales,
+                 const void* params, void* keys, void* grad_x, int N, int L, int C,
+                 int smoothstep, float shift, float bound, float two_bound, cudaStream_t s) {
+#define GRID_BWD_BF16(SMOOTH, NEED_X)                                                        \
+  launch_bf16<D, SMOOTH, NEED_X>(x, emb, grad_out, scales, params, keys, grad_x, N, L, C,    \
+                                 shift, bound, two_bound, s)
+  if (smoothstep) {
+    if (grad_x != nullptr) GRID_BWD_BF16(true, true); else GRID_BWD_BF16(true, false);
+  } else {
+    if (grad_x != nullptr) GRID_BWD_BF16(false, true); else GRID_BWD_BF16(false, false);
+  }
+#undef GRID_BWD_BF16
+}
+
+bool bad_shape(long long N, int D, int L, int C) {
+  return grid::bad_shape(D, L, C) || N < 1 || N > 0x7fffffffLL;
 }
 
 }  // namespace
 
-// kernel A': a float32 table [n_emb, C] and grad_out [N, L * C], C in {1,
-// 2, 4, 8}, the level rows, smoothstep 0 or 1, hashed 1 where a level may
-// be hashed (a hash grid), the shift (0.5, or 0 under align_corners);
-// grad_table (zeroed by the caller) or grad_x may be null
+// kernel A': a float32 table [n_emb, C] and grad_out [N, L * C], C in 1..16,
+// the level rows, smoothstep 0 or 1, hashed 1 where a level may be hashed
+// (a hash grid), the shift (0.5, or 0 under align_corners); grad_table
+// (zeroed by the caller) or grad_x may be null
 extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_out,
                                const void* scales, const void* level_params, void* grad_table,
                                void* grad_x, long long N, int D, int L, int C, int smoothstep,
                                int hashed, float shift, float bound, float two_bound,
                                void* stream) {
-  if (bad_shape(N, D, L)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(N, D, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return D == 3 ? backward<3>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
                               (int)N, L, C, smoothstep, hashed, shift, bound, two_bound, s)
@@ -414,32 +698,37 @@ extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_
                               (int)N, L, C, smoothstep, hashed, shift, bound, two_bound, s);
 }
 
-// A'-bf16: bf16 table [n_emb, 2] and bf16 grad_out [N, 2L]; float32
-// gradients. The table gradient goes through keys [n_emb] float4, zeroed by
-// the caller; grad_table (and keys) may be null when that gradient is not
-// needed.
+// A'-bf16: bf16 table [n_emb, C] and bf16 grad_out [N, L * C], C in 1..16,
+// smoothstep 0 or 1, the shift (0.5, or 0 under align_corners); float32
+// gradients. The table gradient goes through keys [n_emb, 2C] float32,
+// zeroed by the caller; grad_table (and keys) may be null when that
+// gradient is not needed.
 extern "C" int grid_encode_bwd_bf16_keyed(const void* x, const void* emb, const void* grad_out,
                                           const void* scales, const void* level_params,
                                           void* keys, void* grad_table, void* grad_x,
-                                          long long N, int D, int L, float bound,
-                                          float two_bound, void* stream) {
-  if ((keys == nullptr) != (grad_table == nullptr) || bad_shape(N, D, L)) {
+                                          long long N, int D, int L, int C, int smoothstep,
+                                          float shift, float bound, float two_bound,
+                                          void* stream) {
+  if ((keys == nullptr) != (grad_table == nullptr) || bad_shape(N, D, L, C)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const int n = (int)N;
-#define GRID_BWD_BF16(DIM, NEED_X)                                                          \
-  launch_bf16<DIM, NEED_X>(x, emb, grad_out, scales, level_params, keys, grad_x, n, L,     \
-                           bound, two_bound, s)
   if (D == 3) {
-    if (grad_x != nullptr) GRID_BWD_BF16(3, true); else GRID_BWD_BF16(3, false);
+    launch_bf16<3>(x, emb, grad_out, scales, level_params, keys, grad_x, (int)N, L, C,
+                   smoothstep, shift, bound, two_bound, s);
   } else {
-    if (grad_x != nullptr) GRID_BWD_BF16(2, true); else GRID_BWD_BF16(2, false);
+    launch_bf16<2>(x, emb, grad_out, scales, level_params, keys, grad_x, (int)N, L, C,
+                   smoothstep, shift, bound, two_bound, s);
   }
-#undef GRID_BWD_BF16
   int err = (int)cudaGetLastError();
   if (err != 0 || grad_table == nullptr) return err;
-  grid_encode_bwd_finish_kernel<<<dim3(264, L), 256, 0, s>>>(
-      (const float4*)keys, (const int*)level_params, 2 + D, (float2*)grad_table);
+  const dim3 grid(264, L);
+  if (C % 2 == 0) {
+    grid_encode_bwd_finish_kernel<2><<<grid, 256, 0, s>>>(
+        (const float*)keys, (const int*)level_params, 2 + D, C, (float*)grad_table);
+  } else {
+    grid_encode_bwd_finish_kernel<1><<<grid, 256, 0, s>>>(
+        (const float*)keys, (const int*)level_params, 2 + D, C, (float*)grad_table);
+  }
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` is compiled on first use by one ``nvcc`` into its
 own shared library with a plain C interface, and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -fmad=false
+         -DGRID_MAX_CHANNELS=16 -DGRID_MAX_LEVELS=32
          -shared -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
 ``-fmad=false`` keeps every ``a*b+c`` rounded twice, as PyTorch's separate
@@ -40,9 +41,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# the most channels (level_dim) and levels kernels A, A' and their bf16
+# variants take (grid_common.cuh kMaxChannels / kMaxLevels are built from
+# these): a block is 32 points x L levels, and kernel A stages 32 x (L * C +
+# 1) outputs in shared memory
+GRID_MAX_CHANNELS, GRID_MAX_LEVELS = 16, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", f"-DGRID_MAX_CHANNELS={GRID_MAX_CHANNELS}",
+              f"-DGRID_MAX_LEVELS={GRID_MAX_LEVELS}")
 
 
 def _nvcc() -> str:
@@ -144,18 +151,19 @@ KERNELS = {
     # the bf16 policy's variants: A-bf16 on the corner-packed bf16 table
     # (bf16 output), its packing pass, A'-bf16 on the bf16 table and grad_out
     "grid_encode_bf16": Kernel("grid_encode_bf16", {
-        # x, packed, scales, level_params, out, N, D, L, bound, two_bound, stream
-        "grid_encode_fwd_bf16_packed": [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+        # x, packed, scales, level_params, out, N, D, L, C, smoothstep, shift,
+        # bound, two_bound, stream
+        "grid_encode_fwd_bf16_packed": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F,
+                                        _P],
     }, source="grid_encode"),
     "grid_pack_bf16": Kernel("grid_pack_bf16", {
-        # emb, level_params, packed, D, L, stream
-        "grid_pack_bf16": [_P, _P, _P, _I, _I, _P],
+        # emb, level_params, packed, D, L, C, stream
+        "grid_pack_bf16": [_P, _P, _P, _I, _I, _I, _P],
     }, source="grid_encode"),
     "grid_encode_backward_bf16": Kernel("grid_encode_backward_bf16", {
         # x, emb, grad_out, scales, level_params, keys, grad_table, grad_x, N,
-        # D, L, bound, two_bound, stream
-        "grid_encode_bwd_bf16_keyed": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F,
-                                       _P],
+        # D, L, C, smoothstep, shift, bound, two_bound, stream
+        "grid_encode_bwd_bf16_keyed": [_P] * 8 + [_L, _I, _I, _I, _I, _F, _F, _F, _P],
     }, source="grid_encode_backward"),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,

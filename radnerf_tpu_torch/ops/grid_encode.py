@@ -37,10 +37,12 @@ Every ``GridSpec`` the JAX package takes is encoded: tiled and hash grids
 (a level whose dense index overflows its table hashes its corners, the
 XOR of ``coord_d * prime_d`` in uint32), linear and smoothstep
 interpolation, ``align_corners``, any ``level_dim``. Kernels A and A' take
-D in (2, 3), C in (1, 2, 4, 8) and at most 32 levels; the bf16 kernels
-(and the packing pass) take C = 2 on tiled linear grids without
-``align_corners`` only. ``grid_total_variation`` is the JAX package's TV
-loss at sampled points.
+D in (2, 3), 1 to 16 channels and at most 32 levels, on every grid; the
+bf16 kernels (and the packing pass) the same on tiled grids, linear or
+smoothstep, with or without ``align_corners``. A hash grid has no packed
+copy (its index is not additive; JAX's ``build_packed_table`` refuses it
+too), so the bf16 kernels refuse it; the plain versions take it.
+``grid_total_variation`` is the JAX package's TV loss at sampled points.
 """
 
 from __future__ import annotations
@@ -53,14 +55,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ._kernels import KERNELS, require_cuda_tensors
+from ._kernels import GRID_MAX_CHANNELS, GRID_MAX_LEVELS, KERNELS, require_cuda_tensors
 
 _U32 = 1 << 32
 _U32_MASK = _U32 - 1
 # the spatial hash's primes, one per dim (reference gridencoder.cu:50-63)
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
-# kernels A / A' channel counts (the upstream gridencoder's set)
-KERNEL_CHANNELS = (1, 2, 4, 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,51 +346,60 @@ def pack_table(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     if table.device.type == "cpu":
         return pack_table_plain(table, spec)
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    _refuse_bf16_kernels(spec, "the packing pass")
-    if D not in (2, 3) or L > 32 or table.shape != (spec.n_embeddings, C):
-        raise ValueError(f"the packing pass takes the [n_embeddings, 2] table of a grid of D "
-                         f"in (2, 3) and at most 32 levels, got {tuple(table.shape)}, {spec}")
     table = table.to(torch.bfloat16).contiguous()
+    _check_pack_args(table, spec)
     require_cuda_tensors(table)
     packed = torch.empty((spec.n_embeddings, 1 << D, C), dtype=torch.bfloat16,
                          device=table.device)
     params = _level_tables(spec, table.device)[1]
     KERNELS["grid_pack_bf16"].launch("grid_pack_bf16", table.device, table.data_ptr(),
-                                     params.data_ptr(), packed.data_ptr(), D, L)
+                                     params.data_ptr(), packed.data_ptr(), D, L, C)
     return packed
 
 
-def _refuse_bf16_kernels(spec: GridSpec, what: str):
-    """The bf16 kernels take RAD-NeRF's grids only: 2 channels, tiled,
-    linear, without align_corners."""
-    if not (spec.level_dim == 2 and spec.gridtype == "tiled"
-            and spec.interpolation == "linear" and not spec.align_corners):
-        raise ValueError(f"{what} takes 2 channels on tiled linear grids without "
-                         f"align_corners only, got {spec} (ROADMAP queue 2 item 4)")
+def _refuse_kernel_spec(spec: GridSpec, bf16: bool):
+    """Raise unless the kernels take this grid: D in (2, 3), 1 to 16
+    channels, at most 32 levels; under the bf16 policy a tiled grid (a
+    hash grid has no packed copy)."""
+    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
+    if D not in (2, 3) or not 1 <= C <= GRID_MAX_CHANNELS or L > GRID_MAX_LEVELS:
+        raise ValueError(f"kernels A and A' take D in (2, 3), 1 to {GRID_MAX_CHANNELS} "
+                         f"channels and at most {GRID_MAX_LEVELS} levels, got {spec} "
+                         "(ROADMAP queue 2 item 4)")
+    if bf16 and spec.gridtype != "tiled":
+        raise ValueError(f"the bf16 kernels read corner-packed rows, which a hash grid does "
+                         f"not have, got {spec} (ROADMAP queue 2 item 4)")
+
+
+def _check_pack_args(table: torch.Tensor, spec: GridSpec):
+    """Raise unless the packing pass takes this bf16 table: a grid the bf16
+    kernels take (``_refuse_kernel_spec``), [n_embeddings, C], aligned to
+    the widest unit of at most 16 bytes that divides a row (the pass copies
+    each row in that unit)."""
+    C = spec.level_dim
+    _refuse_kernel_spec(spec, bf16=True)
+    if table.shape != (spec.n_embeddings, C) or table.dtype != torch.bfloat16:
+        raise ValueError(f"the packing pass takes the [n_embeddings, {C}] bf16 table of "
+                         f"{spec}, got {tuple(table.shape)} {table.dtype}")
+    if table.data_ptr() % math.gcd(16, 2 * C):
+        raise ValueError("the packing pass takes a table aligned to its row unit")
 
 
 def _check_kernel_args(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
-    """Raise unless kernels A / A' take these points and this table: D in
-    (2, 3), C in (1, 2, 4, 8), at most 32 levels, float32 points, a float32
-    table (aligned to its row pair, at most 16 bytes) or a bf16 one (2
-    channels on a tiled linear grid without align_corners, aligned to 8)."""
+    """Raise unless kernels A / A' take these points and this table
+    (``_refuse_kernel_spec``): float32 points, a float32 or (tiled grids)
+    bf16 table aligned to the widest load of a row pair."""
     D, C = spec.input_dim, spec.level_dim
-    if x.shape[-1] != D or D not in (2, 3):
-        raise ValueError(f"kernel A takes D in (2, 3) points, got {tuple(x.shape)} "
-                         "(ROADMAP queue 2 item 4)")
-    if C not in KERNEL_CHANNELS or spec.num_levels > 32:
-        raise ValueError(f"kernels A and A' take {KERNEL_CHANNELS} channels and at most 32 "
-                         f"levels, got {spec} (ROADMAP queue 2 item 4)")
+    if x.shape[-1] != D:
+        raise ValueError(f"kernel A takes [..., {D}] points for {spec}, got {tuple(x.shape)}")
+    _refuse_kernel_spec(spec, bf16=table.dtype == torch.bfloat16)
     if table.shape != (spec.n_embeddings, C):
         raise ValueError(f"embeddings {tuple(table.shape)} do not fit {spec}")
     if x.dtype != torch.float32 or table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("kernel A takes float32 points and a float32 or bf16 table")
-    if table.dtype == torch.bfloat16:
-        _refuse_bf16_kernels(spec, "kernel A-bf16 (and A'-bf16)")
-    # the kernels read (and A' adds) two adjacent rows at once where that is
-    # one load of at most 16 B: 8 B of float32 at C = 1, 16 B at C >= 2,
-    # 8 B of bf16
-    if table.data_ptr() % min(16, 2 * C * table.element_size()):
+    # the kernels read (and A' adds) a row, or two adjacent rows, in the
+    # widest unit of at most 16 bytes that divides a row pair
+    if table.data_ptr() % math.gcd(16, 2 * C * table.element_size()):
         raise ValueError("kernels A and A' take a table aligned to a row pair")
 
 
@@ -406,25 +415,26 @@ def _grid_encode_kernel(x, table, spec: GridSpec, bound: float, packed=None) -> 
     if N == 0:
         return out
     scales, params = _level_tables(spec, x.device)
-    geometry = (float(bound), float(np.float32(2.0 * bound)))
+    smooth, hashed, shift = _variant_args(spec)
     if table.dtype == torch.bfloat16:
         packed = pack_table(table, spec) if packed is None else packed
         _check_packed(packed, spec)
         require_cuda_tensors(x, packed)
         name, fn, table = "grid_encode_bf16", "grid_encode_fwd_bf16_packed", packed
+        variant = (C, smooth, shift)
     else:
-        name, fn = "grid_encode", "grid_encode_fwd"
-        geometry = (C, *_variant_args(spec), *geometry)
+        name, fn, variant = "grid_encode", "grid_encode_fwd", (C, smooth, hashed, shift)
     KERNELS[name].launch(
         fn, x.device, x.data_ptr(), table.data_ptr(), scales.data_ptr(), params.data_ptr(),
-        out.data_ptr(), N, D, L, *geometry)
+        out.data_ptr(), N, D, L, *variant, float(bound), float(np.float32(2.0 * bound)))
     return out
 
 
 def _variant_args(spec: GridSpec):
-    """The float32 entry points' variant arguments: smoothstep (0 or 1),
-    hashed (1 for a hash grid, whose levels may be hashed) and the shift
-    (0.5, or 0 under align_corners)."""
+    """The entry points' variant arguments: smoothstep (0 or 1), hashed (1
+    for a hash grid, whose levels may be hashed; the bf16 entry points, on
+    tiled grids only, do not take it) and the shift (0.5, or 0 under
+    align_corners)."""
     return int(spec.interpolation == "smoothstep"), int(spec.gridtype == "hash"), spec.shift
 
 
@@ -504,9 +514,9 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
     ``table_dtype=torch.bfloat16`` with the float32 master) grad_out is the
     bf16 upstream gradient, the weights are rounded to bf16 as in the
     forward, and kernel A'-bf16 runs (its table gradient summed through a
-    pair-keyed float32 buffer [n_embeddings, 4] made here: each corner pair
-    one float4 atomic into the key of its first row, then every row formed
-    from two keys; csrc/grid_encode_backward.cu).
+    pair-keyed float32 buffer [n_embeddings, 2C] made here: each corner pair
+    added whole into the key of its first row, then every row formed from
+    two keys; csrc/grid_encode_backward.cu).
 
     Returns (grad_table [n_embeddings, C] float32 or None, grad_x [..., D]
     float32 or None).
@@ -541,18 +551,18 @@ def grid_encode_backward(x, embeddings, grad_out, spec: GridSpec, bound: float =
         args = (x.data_ptr(), table.data_ptr(), grad_out.data_ptr(), scales.data_ptr(),
                 params.data_ptr())
         outs = (g_table.data_ptr() if need_table else None,
-                g_x.data_ptr() if need_x else None, N, D, L, float(bound),
-                float(np.float32(2.0 * bound)))
+                g_x.data_ptr() if need_x else None, N, D, L, C)
+        smooth, hashed, shift = _variant_args(spec)
+        geometry = (float(bound), float(np.float32(2.0 * bound)))
         if bf16:
-            keys = (torch.zeros((spec.n_embeddings, 4), dtype=torch.float32, device=x.device)
-                    if need_table else None)
+            keys = (torch.zeros((spec.n_embeddings, 2 * C), dtype=torch.float32,
+                                device=x.device) if need_table else None)
             KERNELS["grid_encode_backward_bf16"].launch(
                 "grid_encode_bwd_bf16_keyed", x.device, *args,
-                keys.data_ptr() if need_table else None, *outs)
+                keys.data_ptr() if need_table else None, *outs, smooth, shift, *geometry)
         else:
             KERNELS["grid_encode_backward"].launch(
-                "grid_encode_bwd", x.device, *args, *outs[:5], C, *_variant_args(spec),
-                *outs[5:])
+                "grid_encode_bwd", x.device, *args, *outs, smooth, hashed, shift, *geometry)
     return g_table, g_x
 
 

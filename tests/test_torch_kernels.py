@@ -174,11 +174,12 @@ def test_kernel_wrapper_refuses_bad_inputs(dev):
         T.grid_encode(torch.zeros(4, 3, device=dev, dtype=torch.float64), emb, spec)
     with pytest.raises(ValueError):
         T.grid_encode(torch.zeros(4, 3, device=dev), emb.cpu(), spec)
-    # what the kernels do not take: 3 channels, 4-D points, the bf16
-    # kernels at 4 channels or on a hash grid
-    for kw, dtype in ((dict(level_dim=3), None), (dict(input_dim=4), None),
-                      (dict(level_dim=4), torch.bfloat16), (dict(gridtype="hash"), torch.bfloat16)):
-        s = T.GridSpec.create(num_levels=2, base_resolution=4, log2_hashmap_size=8, **kw)
+    # what the kernels do not take: 17 channels, 33 levels, 4-D points, the
+    # bf16 kernels on a hash grid
+    for kw, dtype in ((dict(level_dim=17), None), (dict(num_levels=33), torch.bfloat16),
+                      (dict(input_dim=4), None), (dict(gridtype="hash"), torch.bfloat16)):
+        s = T.GridSpec.create(**{"num_levels": 2, "base_resolution": 4,
+                                 "log2_hashmap_size": 8, **kw})
         with pytest.raises(ValueError):
             T.grid_encode(torch.zeros(4, s.input_dim, device=dev),
                           torch.zeros(s.n_embeddings, s.level_dim, device=dev), s,
@@ -280,6 +281,12 @@ _VARIANTS = {
     "tiled-8-3": dict(input_dim=3, level_dim=8),
     "all-4-3": dict(input_dim=3, level_dim=4, gridtype="hash", interpolation="smoothstep",
                     align_corners=True),
+    # the channel counts the kernels take at run time
+    "tiled-3-3": dict(input_dim=3, level_dim=3),
+    "tiled-3-2": dict(input_dim=2, level_dim=3),
+    "tiled-16-3": dict(input_dim=3, level_dim=16),
+    "all-16-2": dict(input_dim=2, level_dim=16, gridtype="hash", interpolation="smoothstep",
+                     align_corners=True),
 }
 
 
@@ -397,6 +404,108 @@ def test_grid_encode_bf16_kernels_match_plain(dev, layout, input_dim):
     (out.float() * g.float()).sum().backward()
     assert bwd.launches == before + 1 and er.grad.dtype == torch.float32
     assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
+
+
+# the bf16 policy's grids: (name, GridSpec arguments), tiled grids of 16
+# levels to 2048 at 2^16 rows
+_BF16_VARIANTS = {
+    "tiled-1-3": dict(input_dim=3, level_dim=1),
+    "tiled-1-2": dict(input_dim=2, level_dim=1),
+    "tiled-4-3": dict(input_dim=3, level_dim=4),
+    "tiled-4-2": dict(input_dim=2, level_dim=4),
+    "tiled-8-3": dict(input_dim=3, level_dim=8),
+    "smoothstep-2-2": dict(input_dim=2, interpolation="smoothstep"),
+    "align-2-3": dict(input_dim=3, align_corners=True),
+    "tiled-3-3": dict(input_dim=3, level_dim=3),
+    "tiled-16-2": dict(input_dim=2, level_dim=16),
+    "all-4-3": dict(input_dim=3, level_dim=4, interpolation="smoothstep",
+                    align_corners=True),
+    "all-3-2": dict(input_dim=2, level_dim=3, interpolation="smoothstep",
+                    align_corners=True),
+}
+
+
+@pytest.mark.parametrize("variant", list(_BF16_VARIANTS))
+def test_grid_bf16_variant_kernels_match_plain(dev, variant):
+    """The bf16 kernels on the -O policy's other grids (1, 3, 4, 8 and 16
+    channels, smoothstep, align_corners): the packing pass and A-bf16 bit
+    for bit with their plain versions, each with its own launch count;
+    A'-bf16's table gradient within max(1e-5, 4 sqrt(n_busiest) 2^-24) and
+    its x gradient within 1e-5 of the plain version's largest value, also
+    through autograd, on 50,000 spread points (a few outside the box)."""
+    kw = dict(num_levels=16, level_dim=2, desired_resolution=2048, log2_hashmap_size=16)
+    kw.update(_BF16_VARIANTS[variant])
+    spec = T.GridSpec.create(**kw)
+    D, C = spec.input_dim, spec.level_dim
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(70 + len(variant))
+    emb = _t(rng.uniform(-4, 4, (spec.n_embeddings, C)).astype(np.float32), dev)
+    tb = emb.to(bf16)
+    x = _t(_grid_points("spread", 50_000, D, rng), dev)
+    g = _t(rng.normal(size=(50_000, spec.output_dim)).astype(np.float32), dev).to(bf16)
+    pack, fwd = _kernels.KERNELS["grid_pack_bf16"], _kernels.KERNELS["grid_encode_bf16"]
+    bwd = _kernels.KERNELS["grid_encode_backward_bf16"]
+    before = pack.launches
+    packed = T.pack_table(tb, spec)
+    assert pack.launches == before + 1
+    want_packed = T.pack_table_plain(tb, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.view(torch.int16), want_packed.view(torch.int16))
+    before = fwd.launches
+    got = T.grid_encode(x, tb, spec, packed=packed)
+    assert fwd.launches == before + 1
+    want = T.grid_encode_plain(x, tb, spec)
+    torch.cuda.synchronize()
+    assert got.dtype == bf16 and torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+    table_tol = max(1e-5, 4.0 * math.sqrt(_busiest_row(x, spec)) * 2.0**-24)
+    gt_p, gx_p = T.grid_encode_backward_plain(x, tb, g, spec)
+    before = bwd.launches
+    gt_k, gx_k = T.grid_encode_backward(x, tb, g, spec)
+    assert bwd.launches == before + 1
+    torch.cuda.synchronize()
+    assert _rel_err(gt_k, gt_p) <= table_tol and _rel_err(gx_k, gx_p) <= 1e-5
+    outside = ((x < -1.0) | (x > 1.0)).any(dim=-1)
+    assert bool((gx_k[outside] == 0).all()) and bool(outside.any())
+    xr, er = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    (T.grid_encode(xr, er, spec, table_dtype=bf16).float() * g.float()).sum().backward()
+    assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
+
+
+def test_grid_kernels_take_every_channel_count(dev):
+    """Every tiled linear grid of 1 to 16 channels at 32 levels runs in
+    float32 and under the bf16 policy (each run-time-C unit width among
+    them: float4, float2 and float units, and the packing pass's 2-, 4-, 8-
+    and 16-byte units): A equal to its plain version, A-bf16 and the
+    packing pass bit for bit, A' and A'-bf16 within max(1e-5, 4
+    sqrt(n_busiest) 2^-24) (table) and 1e-5 (x) of the largest, on 4,096
+    spread points."""
+    bf16 = torch.bfloat16
+    for C in range(1, 17):
+        D = 2 + C % 2
+        spec = T.GridSpec.create(input_dim=D, num_levels=32, level_dim=C,
+                                 base_resolution=4, per_level_scale=1.1,
+                                 log2_hashmap_size=12)
+        rng = np.random.default_rng(90 + C)
+        emb = _t(rng.uniform(-4, 4, (spec.n_embeddings, C)).astype(np.float32), dev)
+        x = _t(_grid_points("spread", 4096, D, rng), dev)
+        g = _t(rng.normal(size=(4096, spec.output_dim)).astype(np.float32), dev)
+        table_tol = max(1e-5, 4.0 * math.sqrt(_busiest_row(x, spec)) * 2.0**-24)
+        for table, go in ((emb, g), (emb.to(bf16), g.to(bf16))):
+            got = T.grid_encode(x, table, spec)
+            want = T.grid_encode_plain(x, table, spec)
+            torch.cuda.synchronize()
+            # float32: equal values (outside the box the plain version's
+            # 0 * w * e sums may carry the sign of zero, the kernel stores +0)
+            assert torch.equal(got, want) if table.dtype == torch.float32 else \
+                torch.equal(got.view(torch.int16), want.view(torch.int16)), (C, table.dtype)
+            gt_k, gx_k = T.grid_encode_backward(x, table, go, spec)
+            gt_p, gx_p = T.grid_encode_backward_plain(x, table, go, spec)
+            torch.cuda.synchronize()
+            assert _rel_err(gt_k, gt_p) <= table_tol and _rel_err(gx_k, gx_p) <= 1e-5, C
+        packed = T.pack_table(emb, spec)
+        assert torch.equal(packed.view(torch.int16),
+                           T.pack_table_plain(emb, spec).view(torch.int16)), C
 
 
 @pytest.mark.parametrize("input_dim", [2, 3])

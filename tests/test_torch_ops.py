@@ -74,27 +74,41 @@ def test_grid_encode_twin_matches_jax(input_dim):
 def _misaligned(t):
     """t's values in a tensor whose data starts 4 bytes past a 16-byte line."""
     flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
-    start = next(i for i in range(4) if (flat.data_ptr() + 4 * i) % 16 == 4)
+    start = next(i for i in range(4) if (flat.data_ptr() + t.element_size() * i) % 16 == 4)
     out = flat[start:start + t.numel()].view(t.shape)
     out.copy_(t)
     return out
 
 
-@pytest.mark.parametrize("case", ["channels", "levels", "alignment", "bf16-channels"])
+@pytest.mark.parametrize("case", ["channels", "levels", "alignment", "bf16-channels",
+                                  "pack-alignment"])
 def test_grid_kernel_args_refuse_what_the_kernels_cannot_take(case):
-    """Kernels A and A' are built for 1, 2, 4 or 8 channels, at most 32
-    levels and a table whose row pairs are aligned (16 bytes at 2
-    channels); their bf16 variants for 2 channels only: the wrappers' check
-    raises for anything else before a launch."""
-    from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args
+    """Kernels A and A' and their bf16 variants are built for 1 to 16
+    channels, at most 32 levels and a table whose row pairs are aligned (16
+    bytes at 2 channels): the wrappers' check raises for anything else
+    before a launch (17 channels in float32, and in bf16 after 16 passed).
+    The packing pass reads a bf16 table's rows in their widest unit (16
+    bytes at 8 channels): its check raises for a table off that unit."""
+    from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args, _check_pack_args
+
+    if case == "pack-alignment":
+        spec = T.GridSpec.create(input_dim=3, num_levels=4, level_dim=8, base_resolution=4,
+                                 log2_hashmap_size=8)
+        table = torch.zeros(spec.n_embeddings, 8, dtype=torch.bfloat16)
+        _check_pack_args(table, spec)  # an aligned table passes
+        with pytest.raises(ValueError):
+            _check_pack_args(_misaligned(table), spec)
+        return
 
     kw = dict(input_dim=3, num_levels=4, base_resolution=4, log2_hashmap_size=8)
-    kw.update({"channels": dict(level_dim=3), "levels": dict(num_levels=33),
-               "alignment": {}, "bf16-channels": dict(level_dim=4)}[case])
+    kw.update({"channels": dict(level_dim=17), "levels": dict(num_levels=33),
+               "alignment": {}, "bf16-channels": dict(level_dim=17)}[case])
     spec = T.GridSpec.create(**kw)
     emb = torch.zeros(spec.n_embeddings, spec.level_dim)
     if case == "bf16-channels":
-        _check_kernel_args(torch.zeros(4, 3), emb, spec)  # the float32 table passes
+        ok = T.GridSpec.create(**{**kw, "level_dim": 16})
+        _check_kernel_args(torch.zeros(4, 3), torch.zeros(ok.n_embeddings, 16,
+                                                          dtype=torch.bfloat16), ok)
         emb = emb.to(torch.bfloat16)
     x = torch.zeros(4, 3)
     if case == "alignment":

@@ -50,10 +50,15 @@ def _specs(gridtype, interpolation, align_corners, level_dim, input_dim):
 
 GRID_CASES = [(gt, it, ac, c, d) for gt in ("tiled", "hash") for it in ("linear", "smoothstep")
               for ac in (False, True) for c in (1, 4, 8) for d in (2, 3)]
+# the channel counts the kernels take at run time (3, 16): a tiled linear
+# grid and a hash grid with smoothstep and align_corners
+CHANNEL_CASES = [(gt, it, ac, c, d) for gt, it, ac in (("tiled", "linear", False),
+                                                        ("hash", "smoothstep", True))
+                 for c in (3, 16) for d in (2, 3)]
 
 
 @pytest.mark.parametrize("gridtype,interpolation,align_corners,level_dim,input_dim",
-                         GRID_CASES, ids=lambda v: str(v))
+                         GRID_CASES + CHANNEL_CASES, ids=lambda v: str(v))
 def test_grid_variant_matches_jax(gridtype, interpolation, align_corners, level_dim,
                                   input_dim):
     """The plain encode against JAX grid_encode01 (op by op) on every
@@ -126,24 +131,32 @@ def test_grid_total_variation_matches_jax(gridtype):
 
 
 def test_kernel_refusals_of_the_variants():
-    """On the card kernels A / A' take C in (1, 2, 4, 8) on tiled and hash
-    grids, linear or smoothstep, with or without align_corners; the bf16
-    kernels and the packing pass refuse anything but C = 2 on a tiled linear
-    grid without align_corners; the packing of a hash grid raises on the CPU
-    too, as JAX's build_packed_table does."""
-    from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args
+    """On the card kernels A / A' take 1 to 16 channels on tiled and hash
+    grids, linear or smoothstep, with or without align_corners, and so do
+    the bf16 kernels and the packing pass on tiled grids; what still raises,
+    naming ROADMAP: the bf16 kernels (and the packing pass) on a hash grid,
+    17 channels, 33 levels, 4-D points. The packing of a hash grid raises
+    on the CPU too, as JAX's build_packed_table does."""
+    from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args, _refuse_kernel_spec
 
-    x = torch.zeros(4, 3)
-    for gt, it, ac, c, d in GRID_CASES:
-        if d == 3:
-            spec = _specs(gt, it, ac, c, d)[1]
-            _check_kernel_args(x, torch.zeros(spec.n_embeddings, c), spec)
-    for kw in (dict(gridtype="hash"), dict(interpolation="smoothstep"),
-               dict(align_corners=True)):
-        spec = T.GridSpec.create(input_dim=3, num_levels=4, base_resolution=8,
-                                 log2_hashmap_size=8, **kw)
+    for gt, it, ac, c, d in GRID_CASES + CHANNEL_CASES:
+        spec = _specs(gt, it, ac, c, d)[1]
+        x = torch.zeros(4, d)
+        _check_kernel_args(x, torch.zeros(spec.n_embeddings, c), spec)
+        if gt == "tiled":
+            _check_kernel_args(x, torch.zeros(spec.n_embeddings, c, dtype=torch.bfloat16),
+                               spec)
+    base = dict(input_dim=3, num_levels=4, base_resolution=8, log2_hashmap_size=8)
+    for kw, bf16 in ((dict(gridtype="hash"), True), (dict(level_dim=17), False),
+                     (dict(level_dim=17), True), (dict(num_levels=33), False),
+                     (dict(num_levels=33), True), (dict(input_dim=4), False)):
+        spec = T.GridSpec.create(**{**base, **kw})
         with pytest.raises(ValueError, match="ROADMAP"):
-            _check_kernel_args(x, torch.zeros(spec.n_embeddings, 2, dtype=torch.bfloat16),
+            _refuse_kernel_spec(spec, bf16)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        with pytest.raises(ValueError, match="ROADMAP"):
+            _check_kernel_args(torch.zeros(4, spec.input_dim),
+                               torch.zeros(spec.n_embeddings, spec.level_dim, dtype=dtype),
                                spec)
     hashed = T.GridSpec.create(input_dim=3, num_levels=4, gridtype="hash")
     with pytest.raises(ValueError):
