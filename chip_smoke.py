@@ -118,6 +118,20 @@ The grid and march variants (``variants_phase``, ``variant_kernel_checks``):
      each beside its ms, plain ms and bound, one kernels-line entry per
      kernel and variant.
 
+The two-level march and the bitfield march (``march_variants_phase``):
+ march_variants: B-grouped and B-bitfield, B's variants. The sparse
+     two-blob scene (``scene.build_sparse_scene``) and the portrait bench
+     scene at 512x512, K = the frame's n_k_span rounded up to even, at most
+     96: the frame with march_group off and on bit for bit, B-grouped
+     launched once by the grouped frame (counts from 0) and bit for bit
+     with its twin on the frame's rays (every kept group marched, and
+     group_slots = n_group_max - 1), B and B-grouped in turns; 8 head steps
+     with march_group on (counts from 0: B-grouped each step, B never),
+     the fixed batch's loss falling, a step's march held to the twin;
+     B-bitfield bit for bit with its twin, without and with the float-grid
+     cull, on the bench frame's rays and the variants eval frame's
+     (cascade 2, the general orbit), in turns with B.
+
 The bf16 policy (``-O``): the frame and the head step beside their float32
 runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
 packing pass and A'-bf16 against their plain versions on the path's points
@@ -255,6 +269,10 @@ REPLACES = {
     "grid_encode": "radnerf_tpu/ops/grid_encode.py:168",
     "grid_encode_backward": "radnerf_tpu/ops/grid_encode.py:168",
     "march_rays": "radnerf_tpu/ops/marching.py:374",
+    # the bitfield branch (:466-470, occupancy_lookup_wide :188) and the
+    # float-grid cull (:490-509) of march_rays; march_rays_grouped
+    "march_rays_bitfield": "radnerf_tpu/ops/marching.py:374",
+    "march_rays_grouped": "radnerf_tpu/ops/marching.py:523",
     "composite_rays": "radnerf_tpu/ops/marching.py:731",
     "composite_rays_backward": "radnerf_tpu/ops/marching.py:731",
     "row_gather": "scripts/bench_gather.py:79",
@@ -332,6 +350,10 @@ VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
 # of the 8 frames), the torso's; the grids its checks hold the bf16 kernels
 # (and, at 3 and 16 channels, the float32 ones) to their plain versions on
 # VARIANT_POINTS spread points
+# the march_variants phase: the two-level march's K cap (24 groups of 4
+# steps, the most it takes), the head steps it trains with march_group on,
+# the float-grid cull's transmittance for B-bitfield's checks
+MARCH_K_CAP, MARCH_GROUP_STEPS, BITFIELD_CULL_T = 96, 8, 1e-4
 BF16_VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4"]
 BF16_VARIANT_STEPS, BF16_VARIANT_TORSO_STEPS = 16, 8
 BF16_VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
@@ -498,16 +520,17 @@ def grid_backward_work(x, spec, bound, need_x, elem=4):
     return n_bytes, n_flops
 
 
-def march_work(rays_o, rays_d, nears, fars, window, mcfg, noises=None):
+def march_work(rays_o, rays_d, nears, fars, window, mcfg, noises=None, bits=False):
     """Bytes and flops the march needs: the ray geometry, window and noises,
-    the distinct sigma bytes its steps look up, the [N, S] outputs; ~20
-    flops per step walked (position, clamp, cell), ~6 more on the general
-    orbit (its step) and ~12 more at cascade > 1 (the level). The walk is
-    the kernel's: on the affine orbit from the window's first step of the
-    orbit from ``nears + dt * noises``, on the general orbit every step from
-    ``nears + clamp(nears * dt_gamma, dt_min, dt_max) * noises``, until the
-    window's end or K steps; a cell is the plain version's (the cascade's
-    level, ``floor(0.5 * (p / mip_bound + 1) * H)``)."""
+    the distinct sigma bytes its steps look up (with ``bits``, the distinct
+    bitfield bytes: a cell's bit is in byte cell >> 3), the [N, S] outputs;
+    ~20 flops per step walked (position, clamp, cell), ~6 more on the
+    general orbit (its step) and ~12 more at cascade > 1 (the level). The
+    walk is the kernel's: on the affine orbit from the window's first step
+    of the orbit from ``nears + dt * noises``, on the general orbit every
+    step from ``nears + clamp(nears * dt_gamma, dt_min, dt_max) * noises``,
+    until the window's end or K steps; a cell is the plain version's (the
+    cascade's level, ``floor(0.5 * (p / mip_bound + 1) * H)``)."""
     from radnerf_tpu_torch.ops.marching import _cells, _clamp_dt
 
     N, S, K = rays_o.shape[0], mcfg.n_sample_slots, mcfg.n_march_iters
@@ -532,12 +555,49 @@ def march_work(rays_o, rays_d, nears, fars, window, mcfg, noises=None):
             break
         steps += int(walk.sum())
         p = torch.clamp(rays_o[walk] + t[walk, None] * rays_d[walk], -mcfg.bound, mcfg.bound)
-        cells.append(_cells(p, step[walk], mcfg))
+        c = _cells(p, step[walk], mcfg)
+        cells.append(c >> 3 if bits else c)
     n_cells = int(torch.unique(torch.cat(cells)).numel()) if cells else 0
     n_in = 24 + 16 + (4 if noises is not None else 0)
     n_bytes = N * n_in + n_cells + N * S * (4 + 4 + 1 + 12) + N * 4
     per_step = 20 + (0 if mcfg.affine else 6) + (12 if mcfg.cascade > 1 else 0)
     return n_bytes, per_step * steps
+
+
+def grid_cull_work(out, mcfg):
+    """Bytes and flops the float-grid cull adds on the march's selected
+    samples ``out`` (the bitfield march's result without the cull): the
+    distinct float32 grid cells they read, ~26 flops a sample (its cell,
+    the clamp, scale and product, the running sum and the test)."""
+    from radnerf_tpu_torch.ops.marching import _cells
+
+    valid = out["valid"]
+    cells = _cells(out["xyz"][valid], out["dt"][valid], mcfg)
+    return 4 * int(torch.unique(cells).numel()), 26 * int(valid.sum())
+
+
+def march_grouped_work(args, group_slots, cull_T, noises=None):
+    """Bytes and flops the two-level march needs on ``args`` (rays_o,
+    rays_d, nears, fars, sigma bytes, coarse bytes, MarchConfig, window):
+    the ray geometry, window and noises, the distinct coarse bytes its
+    walked groups look up and the distinct sigma bytes its fine steps look
+    up (the twin's plan: the groups from the window's first step while they
+    start inside it, the fine steps of the first ``group_slots`` kept groups
+    before K and the window's end), the [N, S] outputs and two counts a
+    ray; ~20 flops a lookup (position, clamp, cell), ~6 more each with the
+    cull."""
+    from radnerf_tpu_torch.ops.marching import _grouped_fine, _grouped_plan
+
+    o, d, nears, fars, sb, cb, cfg, window = args
+    plan = _grouped_plan(o, d, nears, fars, cb, cfg, window, group_slots, cull_T, noises)
+    fine = _grouped_fine(o, d, sb, cfg, plan)
+    N, S = o.shape[0], cfg.n_sample_slots
+    lookups = plan["cells_c"].numel() + int(fine["looked"].sum())
+    n_cells = int(torch.unique(plan["cells_c"]).numel()) + \
+        int(torch.unique(fine["cells"][fine["looked"]]).numel())
+    n_in = 24 + 16 + (4 if noises is not None else 0)
+    n_bytes = N * n_in + n_cells + N * S * (4 + 4 + 1 + 12) + N * 8
+    return n_bytes, (20 + (6 if cull_T > 0.0 else 0)) * lookups
 
 
 def composite_steps(sig, dts, valid, T_thresh):
@@ -649,7 +709,9 @@ def main():
     logs = _kernels.build_all()
     report["build"] = {
         "seconds": time.perf_counter() - t0,
-        "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
+        # each kernel's registers and spills, under the name of its function
+        "ptxas": {k: [l.strip() for l in v.splitlines()
+                      if "registers" in l or "spill" in l or "Function properties" in l]
                   for k, v in logs.items()},
     }
     emit({"phase": "build", **report["build"]})
@@ -889,10 +951,15 @@ def main():
         del entry_trainer
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        step_calls, eval_calls, variant_launches = variants_phase(report, out_dir, root)
+        step_calls, eval_calls, variant_launches, variant_state = variants_phase(
+            report, out_dir, root)
         kernels += variant_kernel_checks(report, step_calls, eval_calls, variant_launches)
         variants_s = time.perf_counter() - t0
-        del step_calls, eval_calls
+        t0 = time.perf_counter()
+        variant_eval = next((a, kw) for name, a, kw in eval_calls if name == "march_rays")
+        kernels += march_variants_phase(report, root, variant_eval, variant_state)
+        march_variants_s = time.perf_counter() - t0
+        del step_calls, eval_calls, variant_eval, variant_state
         torch.cuda.empty_cache()
         frame_calls = bf16_frame_phase(report, out_dir, (net, rc, state, b), auds)
         step_calls = bf16_train_phase(report, out_dir, root)
@@ -919,6 +986,7 @@ def main():
         kernels.append(preprocess_phase(report, out_dir, dev))
         marks.append(time.perf_counter())
         report["phase_seconds"] = {"since_start": marks[0] - start, "variants": variants_s,
+                                   "march_variants": march_variants_s,
                                    "bf16_variants": bf16_variants_s,
                                    **{name: b - a for name, a, b in
                                       zip(("camera", "live", "mesh", "preprocess"), marks,
@@ -1778,7 +1846,7 @@ def variants_phase(report, out_dir, root):
     ``Trainer.step`` fenced (upkeep steps apart) and a 3-step profile, an
     eval frame fenced and profiled with its samples, and infer from the
     run's ngp.npz. Returns (one step's recorded A, A' and B calls, one eval
-    frame's A and B calls, the run's launches)."""
+    frame's A and B calls, the run's launches, its renderer state)."""
     import radnerf_tpu_torch.models.network as network_mod
     import radnerf_tpu_torch.models.renderer as renderer_mod
     from radnerf_tpu_torch import infer
@@ -1939,9 +2007,10 @@ def variants_phase(report, out_dir, root):
         problems.append("the eval frame marched no sample")
     if problems:
         raise RuntimeError(f"variants: {problems}")
+    state = tr.state
     del tr, ds, val, prof, events
     torch.cuda.empty_cache()
-    return step_calls, eval_calls, launches
+    return step_calls, eval_calls, launches, state
 
 
 def variant_kernel_checks(report, step_calls, eval_calls, launches):
@@ -2118,6 +2187,273 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
                 "device_ms": sum(r["device_ms"] for r in timed),
                 "plain_ms": sum(r["plain_ms"] for r in timed), "bound_ms": bms,
                 "bound_by": by, "library_ms": None, "calls": mine})
+    return entries
+
+
+def march_variants_phase(report, root, variant_eval, variant_state):
+    """march_variants: kernels B-grouped and B-bitfield, the two variants of
+    B in csrc/march_rays.cu.
+
+    On the sparse two-blob scene (``scene.build_sparse_scene``, the JAX
+    package's two-level-march benchmark) and on the portrait bench scene
+    (``scene.build_scene``), each at 512x512 with K = its frame's n_k_span
+    rounded up to even, at most MARCH_K_CAP: the frame with march_group off
+    and on, launch counts from 0 around the grouped one (B-grouped once, B
+    never), image, weights_sum and depth bit for bit; B-grouped against
+    its twin on the frame's rays bit for bit (t, dt, valid, xyz, count and
+    the kept groups, whose sum and max are the frame's n_groups_needed and
+    n_group_max), every kept group marched and group_slots = n_group_max -
+    1; B and B-grouped timed in turns on those rays, each beside its bound.
+    Then MARCH_GROUP_STEPS head steps with march_group on (the written
+    dataset, Options defaults, K the portrait frame's), launch counts from
+    0: B-grouped at every step, B never; the fixed batch's loss falls; one
+    more step's recorded march held to the twin bit for bit. B-bitfield
+    against its twin bit for bit on the bench frame's rays (cascade 1,
+    affine) and on the variants eval frame's (``variant_eval``: cascade 2,
+    the general orbit; ``variant_state``: that run's bitfield and density
+    grid), without and with the float-grid cull (BITFIELD_CULL_T), timed in
+    turns with B on the same rays. Returns the kernels line's two entries."""
+    import radnerf_tpu_torch.models.renderer as renderer_mod
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.models import (
+        RenderConfig, RendererState, mark_untrained_grid, render_rays, update_density_grid,
+    )
+    from radnerf_tpu_torch.models.renderer import march_window
+    from radnerf_tpu_torch.ops import (
+        _kernels, march_rays, march_rays_grouped, march_rays_grouped_plain, march_rays_plain,
+        near_far_from_aabb,
+    )
+    from radnerf_tpu_torch.ops.marching import MARCH_GROUP
+    from radnerf_tpu_torch.scene import build_scene, build_sparse_scene
+    from radnerf_tpu_torch.train import Trainer
+
+    t_start = time.perf_counter()
+    keys = ("valid", "t", "dt", "xyz", "count")
+    scenes, grouped_rows, bitfield_rows, problems = {}, [], [], []
+    path_launches = {"march_rays_grouped": 0, "march_rays": 0}
+
+    def compare(got, want, names):
+        differing = [k for k in names if not torch.equal(got[k], want[k])]
+        err = max(float((got[k] - want[k]).abs().max()) for k in ("t", "dt", "xyz"))
+        return differing, err
+
+    def bitfield_rows_on(where, args, kw, mcfg, bits, grid):
+        """B-bitfield against its twin and in turns with B on one call's rays."""
+        o, d, nears, fars, sb = args[:5]
+        window, cull = kw["t_window"], kw.get("cull_T", 0.0)
+        noises = kw.get("noises")
+        b_call = lambda: march_rays(o, d, nears, fars, sb, mcfg, window, cull, noises)
+        for grid_cull in (False, True):
+            bkw = dict(bitfield=bits, sigma_grid=grid if grid_cull else None, noises=noises)
+            c = BITFIELD_CULL_T if grid_cull else 0.0
+            call = lambda bkw=bkw, c=c: march_rays(o, d, nears, fars, None, mcfg, window, c,
+                                                   **bkw)
+            plain = lambda bkw=bkw, c=c: march_rays_plain(o, d, nears, fars, None, mcfg,
+                                                          window, c, **bkw)
+            got, check_launches = counted("march_rays_bitfield", call)
+            want = plain()
+            torch.cuda.synchronize()
+            differing, err = compare(got, want, keys)
+            nb, nf = march_work(o, d, nears, fars, window, mcfg, noises, bits=True)
+            if grid_cull:
+                nb_c, nf_c = grid_cull_work(march_rays_plain(
+                    o, d, nears, fars, None, mcfg, window, 0.0, noises, bitfield=bits), mcfg)
+                nb, nf = nb + nb_c, nf + nf_c
+            bms, by = bound_ms(nb, nf)
+            selected = int(want["count"].clamp(max=mcfg.n_sample_slots).sum())
+            turns = in_turns({"march_rays": b_call, "march_rays_bitfield": call})
+            bitfield_rows.append({
+                "where": where, "grid_cull": grid_cull, "cull_T": c,
+                "cascade": mcfg.cascade, "affine": mcfg.affine, "n_rays": int(o.shape[0]),
+                "K": mcfg.n_march_iters, "S": mcfg.n_sample_slots,
+                "check_launches": check_launches, "bit_for_bit": not differing,
+                "differing": differing, "max_abs_err": err,
+                "n_samples": int(want["valid"].sum()), "dropped_by_grid_cull":
+                    selected - int(want["valid"].sum()),
+                "ms": cuda_ms(call, 20), "device_ms": turns["march_rays_bitfield"],
+                "march_rays_device_ms_in_turns": turns["march_rays"],
+                "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by,
+                "bytes": nb, "flops": nf})
+
+    for name, build in (("sparse", build_sparse_scene), ("portrait", build_scene)):
+        net, rc, state, b, auds = build(TRAIN_SIZE, TRAIN_SIZE, device="cuda")
+
+        def frame(rc_):
+            return render_rays(net, rc_, state, b["rays_o"], b["rays_d"], auds[0],
+                               b["bg_coords"], b["poses"], b["eye"], b["index"],
+                               b["bg_color"])[0]
+
+        span = int(frame(rc)["n_k_span"])
+        K = min(MARCH_K_CAP, span + span % 2)
+        rc_d = dataclasses.replace(rc, march_iters=K)
+        rc_g = dataclasses.replace(rc_d, march_group=True)
+        dense = frame(rc_d)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        grouped = frame(rc_g)
+        torch.cuda.synchronize()
+        launches = _kernels.launches()
+        for k in path_launches:
+            path_launches[k] += launches[k]
+        tel = {k: int(v) for k, v in grouped.items() if k.startswith("n_")}
+        equal = {k: bool(torch.equal(dense[k], grouped[k]))
+                 for k in ("image", "weights_sum", "depth")}
+
+        mcfg = rc_g.march_config()
+        o, d = b["rays_o"], b["rays_d"]
+        nears, fars = near_far_from_aabb(o, d, o.new_tensor(rc.aabb), rc.min_near)
+        window = march_window(state, o, d, nears, fars)
+        Kg = -(-K // MARCH_GROUP)
+        g_args = (o, d, nears, fars, state.sigma_bytes, state.coarse_bytes, mcfg, window)
+        for slots in (Kg, max(tel["n_group_max"] - 1, 0)):
+            call = lambda slots=slots: march_rays_grouped(*g_args, slots, rc.cull_T)
+            plain = lambda slots=slots: march_rays_grouped_plain(*g_args, slots, rc.cull_T)
+            got, check_launches = counted("march_rays_grouped", call)
+            want = plain()
+            torch.cuda.synchronize()
+            differing, err = compare(got, want, keys + ("groups",))
+            row = {"scene": name, "group_slots": slots, "K": K, "groups": Kg,
+                   "check_launches": check_launches, "bit_for_bit": not differing,
+                   "differing": differing, "max_abs_err": err,
+                   "n_samples": int(got["valid"].sum()),
+                   "n_groups_needed": int(got["groups"].sum()),
+                   "n_group_max": int(got["groups"].max()),
+                   "twin_n_groups_needed": int(want["groups"].sum()),
+                   "twin_n_group_max": int(want["groups"].max())}
+            if slots == Kg:  # the frame's own call: timed in turns with B
+                b_call = lambda: march_rays(o, d, nears, fars, state.sigma_bytes, mcfg,
+                                            window, rc.cull_T)
+                turns = in_turns({"march_rays": b_call, "march_rays_grouped": call})
+                nb, nf = march_grouped_work(g_args, slots, rc.cull_T)
+                bms, by = bound_ms(nb, nf)
+                nb_b, nf_b = march_work(o, d, nears, fars, window, mcfg)
+                row.update(ms=cuda_ms(call, 20), device_ms=turns["march_rays_grouped"],
+                           march_rays_device_ms_in_turns=turns["march_rays"],
+                           march_rays_bound_ms=bound_ms(nb_b, nf_b)[0],
+                           plain_ms=cuda_ms(plain, 3), bound_ms=bms, bound_by=by,
+                           bytes=nb, flops=nf)
+            else:
+                row["truncated_rays"] = int((want["groups"] > slots).sum())
+            grouped_rows.append(row)
+        full = grouped_rows[-2]
+        scenes[name] = {"K": K, "n_k_span": span, "groups": Kg, "frame_bit_for_bit": equal,
+                        "launches": {k: launches[k] for k in path_launches},
+                        "telemetry": tel, "samples_dense": int(dense["n_samples_needed"])}
+        emit({"phase": "march_variants_scene", "scene": name, **scenes[name]})
+        if not all(equal.values()):
+            problems.append(f"{name}: the grouped frame differs from the dense one: {equal}")
+        if launches["march_rays_grouped"] != 1 or launches["march_rays"] != 0:
+            problems.append(f"{name}: the grouped frame launched {launches}")
+        if (full["n_groups_needed"], full["n_group_max"]) != \
+                (tel["n_groups_needed"], tel["n_group_max"]) or tel["n_groups_needed"] == 0:
+            problems.append(f"{name}: groups {full} against the frame's telemetry {tel}")
+        if grouped_rows[-1]["truncated_rays"] == 0:
+            problems.append(f"{name}: group_slots {grouped_rows[-1]['group_slots']} truncates "
+                            "no ray")
+        if name == "portrait":  # B-bitfield on the bench frame's rays
+            bitfield_rows_on("bench_frame", (o, d, nears, fars, state.sigma_bytes),
+                             {"t_window": window, "cull_T": rc.cull_T}, rc.march_config(),
+                             state.density_bitfield, state.density_grid)
+            portrait_K = K
+        del net, state, b, auds, dense, grouped
+        torch.cuda.empty_cache()
+
+    # B-bitfield at cascade 2 on the general orbit: the variants eval frame
+    m_args, m_kw = variant_eval
+    bitfield_rows_on("variants_eval", m_args, m_kw, m_args[5],
+                     variant_state.density_bitfield, variant_state.density_grid)
+
+    # the head steps with march_group on
+    opt = Options(path=root, exp_eye=True, preload=2)
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    dev = ds.device
+    rc = dataclasses.replace(RenderConfig.from_options(opt), march_group=True,
+                             march_iters=portrait_K)
+    tr = Trainer(opt, render_cfg=rc, device=dev)
+    fixed = tr.next_batch(ds, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(123),
+                              device=dev)
+    with torch.no_grad():
+        probe = update_density_grid(
+            tr.net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev), ds.poses,
+                                            ds.intrinsics),
+            tr.net.encode_audio(ds.audio_window(0)), fixed["eye"],
+            generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr.loss(fixed, fixed_noises, 0, state=probe)[0])
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    tr.train(ds, max_epochs=MARCH_GROUP_STEPS // len(ds))
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    for k in path_launches:
+        path_launches[k] += launches[k]
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    losses, n_steps = list(tr.stats["step_loss"]), tr.global_step
+    tel = {k: int(v) for k, v in tr.telemetry.items()}
+    with recorded_calls([(renderer_mod, "march_rays_grouped")]) as calls:
+        tr.step(ds, ds.epoch_indices()[0])
+    torch.cuda.synchronize()
+    (_, s_args, s_kw), = calls
+    got, step_check_launches = counted("march_rays_grouped",
+                                       lambda: march_rays_grouped(*s_args, **s_kw))
+    want = march_rays_grouped_plain(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    differing, err = compare(got, want, keys + ("groups",))
+    steps = {"steps": n_steps, "K": portrait_K, "launches": launches,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+             "telemetry_last_step": tel,
+             "step_march": {"n_rays": int(s_args[0].shape[0]),
+                            "noises": s_args[10] is not None,
+                            "group_slots": s_args[8], "check_launches": step_check_launches,
+                            "bit_for_bit": not differing, "differing": differing,
+                            "max_abs_err": err, "n_samples": int(got["valid"].sum())}}
+    if launches["march_rays_grouped"] != MARCH_GROUP_STEPS or launches["march_rays"] != 0:
+        problems.append(f"the grouped head steps launched {launches}")
+    if n_steps != MARCH_GROUP_STEPS or len(losses) != MARCH_GROUP_STEPS or \
+            not all(math.isfinite(v) for v in losses):
+        problems.append(f"the grouped head steps' losses {losses}")
+    if not loss_end < loss_0:
+        problems.append(f"the fixed batch's loss did not fall: {loss_0} -> {loss_end}")
+    if differing or s_args[10] is None or not tel.get("n_groups_needed"):
+        problems.append(f"the grouped step's march {steps['step_march']}, telemetry {tel}")
+    del tr, ds
+    torch.cuda.empty_cache()
+
+    bad = [r for r in grouped_rows + bitfield_rows if not r["bit_for_bit"]]
+    bad += [r for r in grouped_rows if r["n_samples"] == 0]
+    bad += [r for r in bitfield_rows if r["n_samples"] == 0 or
+            (r["where"] == "bench_frame" and r["grid_cull"] and r["dropped_by_grid_cull"] == 0)]
+    mv = {"scenes": scenes, "grouped": grouped_rows, "bitfield": bitfield_rows,
+          "grouped_head_steps": steps, "path_launches": path_launches,
+          "seconds": time.perf_counter() - t_start}
+    report["march_variants"] = {**mv, "grouped_head_steps": {**steps, "step_losses": losses}}
+    emit({"phase": "march_variants", **mv})
+    if bad:
+        problems.append(f"kernels differ from their twins or marched nothing: {bad}")
+    if problems:
+        raise RuntimeError(f"march_variants: {problems}")
+
+    entries = []
+    for name, rows, launches_in in (
+            ("march_rays_grouped", [r for r in grouped_rows if "device_ms" in r],
+             "the march_variants frames and head steps"),
+            ("march_rays_bitfield", [r for r in bitfield_rows if r["grid_cull"]],
+             "its check only")):
+        every = grouped_rows if name == "march_rays_grouped" else bitfield_rows
+        bms, by = bound_ms(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
+        entries.append({
+            "name": name, "route": "cuda", "source": "radnerf_tpu_torch/csrc/march_rays.cu",
+            "replaces": REPLACES[name],
+            "launches": (path_launches[name] if name == "march_rays_grouped"
+                         else sum(r["check_launches"] for r in every)),
+            "launches_in": launches_in,
+            "max_abs_err": max(r["max_abs_err"] for r in every),
+            "ms": sum(r["ms"] for r in rows), "device_ms": sum(r["device_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "calls": rows})
     return entries
 
 

@@ -8,10 +8,12 @@ evaluation with markers and wide-row return trips becomes
 ``[N, S]``; row gathers become plain indexing. The port never drops work,
 so the static capacities of the JAX config (``sample_capacity_mult``,
 ``ray_capacity_frac``, ``torso_capacity_frac``) have nothing to size; the
-result equals the JAX one at exhaustive capacities. ``march_iters`` (K) and
-``sample_slots`` (S) truncate the march and are honoured.
+result equals the JAX one at exhaustive capacities. ``march_iters`` (K),
+``sample_slots`` (S) and ``march_group_slots`` truncate the march and are
+honoured.
 
-The march (kernel B), the three grid encodes (kernel A, or its bf16 variant
+The march (kernel B, or with ``march_group`` the two-level march B-grouped
+where the config qualifies), the three grid encodes (kernel A, or its bf16 variant
 under the bf16 policy) and the compositor (kernel C) run as hand-written
 CUDA kernels on the card. Under the bf16 policy the field's outputs come
 back to the [N, S] lattice through bf16, as the JAX compacted return trip
@@ -45,15 +47,19 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import (
     MarchConfig,
+    build_coarse_bytes,
     build_sigma_bytes,
     composite_rays,
+    grouped_march_qualifies,
     march_rays,
+    march_rays_grouped,
     morton3d,
     morton3d_invert,
     morton_dilate,
     near_far_from_aabb,
     packbits,
 )
+from ..ops.marching import MARCH_GROUP
 from .network import NeRFNetwork
 
 GRID_SIZE = 128
@@ -65,7 +71,18 @@ class RenderConfig:
     """Static rendering configuration (the JAX ``RenderConfig``, minus the
     capacity knobs that only size TPU buffers, and minus ``exp_eye`` and
     ``density_scale``, which no caller sets: the renderer never reads the
-    first and the second is always 1)."""
+    first and the second is always 1).
+
+    ``march_group`` turns on the two-level march (``march_rays_grouped``)
+    where the config qualifies, as JAX's ``run_head`` chooses: the affine
+    orbit, cascade 1 and ceil(K / 4) <= 24 groups; else the dense march
+    runs. At the defaults (bound 1, grid 128, max_steps 16) K is 129 and
+    ceil(K / 4) 33, so the renderer marches densely unless ``march_iters``
+    is at most 96. ``march_group_slots`` fine-marches only a ray's first
+    kept groups (None: all). JAX's ``march_group_mult`` is not ported: it
+    sizes JAX's kept-group buffer, and the port drops no group, as it has no
+    ``sample_capacity_mult``.
+    """
 
     bound: float = 1.0
     min_near: float = 0.05
@@ -80,6 +97,8 @@ class RenderConfig:
     march_iters: Optional[int] = None
     sample_slots: Optional[int] = None
     cull_T: float = 1e-6
+    march_group: bool = False
+    march_group_slots: Optional[int] = None
 
     @property
     def cascade(self) -> int:
@@ -109,11 +128,14 @@ class RenderConfig:
 @dataclasses.dataclass
 class RendererState:
     """Occupancy and audio state the renderer reads (the JAX
-    ``RendererState`` without its TPU row layouts)."""
+    ``RendererState`` without its TPU row layouts). ``coarse_bytes`` is
+    derived from ``sigma_bytes`` (``build_coarse_bytes``) and set with it:
+    set both through ``with_sigma_bytes`` (JAX's invariant)."""
 
     density_grid: torch.Tensor  # [cascade, H^3] float32, Morton order
     density_bitfield: torch.Tensor  # [cascade*H^3//8] uint8
     sigma_bytes: torch.Tensor  # [cascade*H^3] uint8 occupancy | log-sigma
+    coarse_bytes: torch.Tensor  # [cascade*(H/4)^3] uint8 supercells, Morton order
     mean_density: torch.Tensor  # [] float32
     density_grid_torso: torch.Tensor  # [H^2] float32
     mean_density_torso: torch.Tensor  # [] float32
@@ -126,6 +148,13 @@ class RendererState:
         return RendererState(**{f.name: getattr(self, f.name).to(device)
                                 for f in dataclasses.fields(self)})
 
+    def with_sigma_bytes(self, sigma_bytes: torch.Tensor) -> "RendererState":
+        """The state with these sigma bytes and the coarse bytes built from
+        them (JAX ``with_sigma_bytes``)."""
+        cas, ncells = self.density_grid.shape
+        coarse = build_coarse_bytes(sigma_bytes, cas, round(ncells ** (1.0 / 3.0)))
+        return dataclasses.replace(self, sigma_bytes=sigma_bytes, coarse_bytes=coarse)
+
     @staticmethod
     def create(cfg: "RenderConfig", audio_dim: int = 64, device="cuda") -> "RendererState":
         """An empty state, as JAX ``RendererState.create``: zero grids, no
@@ -137,6 +166,8 @@ class RendererState:
             density_grid=torch.zeros((cas, H**3), dtype=torch.float32, device=dev),
             density_bitfield=torch.zeros((cas * H**3 // 8,), dtype=torch.uint8, device=dev),
             sigma_bytes=torch.zeros((cas * H**3,), dtype=torch.uint8, device=dev),
+            coarse_bytes=torch.zeros((cas * (H // MARCH_GROUP)**3,), dtype=torch.uint8,
+                                     device=dev),
             mean_density=zero.clone(),
             density_grid_torso=torch.zeros((H * H,), dtype=torch.float32, device=dev),
             mean_density_torso=zero.clone(),
@@ -201,9 +232,10 @@ def compute_occ_sphere(cfg: RenderConfig, density_grid: torch.Tensor, thresh) ->
 
 def _occupancy(cfg: RenderConfig, grid: torch.Tensor, thresh) -> dict:
     """The state fields derived from a head grid at an occupancy threshold:
-    bitfield, sigma bytes, occupied box and sphere."""
-    return dict(density_bitfield=packbits(grid, thresh),
-                sigma_bytes=build_sigma_bytes(grid, thresh),
+    bitfield, sigma bytes and their coarse bytes, occupied box and sphere."""
+    sigma_bytes = build_sigma_bytes(grid, thresh)
+    return dict(density_bitfield=packbits(grid, thresh), sigma_bytes=sigma_bytes,
+                coarse_bytes=build_coarse_bytes(sigma_bytes, cfg.cascade, cfg.grid_size),
                 occ_bbox=compute_occ_bbox(cfg, grid, thresh),
                 occ_sphere=compute_occ_sphere(cfg, grid, thresh))
 
@@ -214,8 +246,8 @@ def make_state(cfg: RenderConfig, density_grid: torch.Tensor, density_grid_torso
                audio_dim: int = 64) -> RendererState:
     """Renderer state from density grids on their device; the occupancy
     threshold defaults to min(mean_density, density_thresh) as the JAX
-    grid update uses. Derives sigma_bytes, occ_bbox and occ_sphere (and the
-    bitfield unless given)."""
+    grid update uses. Derives sigma_bytes, coarse_bytes, occ_bbox and
+    occ_sphere (and the bitfield unless given)."""
     dev = density_grid.device
     if thresh is None:
         thresh = min(float(mean_density), cfg.density_thresh)
@@ -327,7 +359,10 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
       opacity), depth [N] (normalised by the full-AABB near/far),
       torso_alpha / torso_color / deform with the torso, ambient [N] when
       training, and the telemetry n_hit, n_k_span, n_samples_needed,
-      n_max_count, n_torso_mask as 0-dim int tensors.
+      n_max_count, n_groups_needed, n_group_max (the two-level march's kept
+      groups, their sum and per-ray max before the ``march_group_slots``
+      truncation; 0 when the march is dense), n_torso_mask as 0-dim int
+      tensors.
     """
     if rays_o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on; the float32 render needs them off")
@@ -403,8 +438,19 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                                 0.0).max().to(torch.int32),
     }
 
-    march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
-                       t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
+    if cfg.march_group and grouped_march_qualifies(mcfg):
+        n_groups = -(-mcfg.n_march_iters // MARCH_GROUP)
+        march = march_rays_grouped(ro, rd, nears, fars, state.sigma_bytes, state.coarse_bytes,
+                                   mcfg, (t_lo, t_hi),
+                                   min(cfg.march_group_slots or n_groups, n_groups),
+                                   cfg.cull_T, noises)
+        results["n_groups_needed"] = march["groups"].sum(dtype=torch.int32)
+        results["n_group_max"] = march["groups"].max()
+    else:
+        march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
+                           t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
+        results["n_groups_needed"] = results["n_group_max"] = torch.zeros(
+            (), dtype=torch.int32, device=ro.device)
     if camera:
         march = dict(march, xyz=sample_positions(rays_o, rays_d, march["t"], cfg.bound))
     sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)

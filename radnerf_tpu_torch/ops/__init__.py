@@ -4,7 +4,9 @@ rasterizer, Morton codes.
 ``grid_encode``, ``march_rays``, ``composite_rays``, ``take_rows`` and
 ``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E; the gradients of the first and
 third are kernels A' and C' (``grid_encode_backward``,
-``composite_rays_backward``); ``pack_table`` wraps A-bf16's packing pass. Each has a plain PyTorch version (``*_plain``)
+``composite_rays_backward``); ``pack_table`` wraps A-bf16's packing pass;
+``march_rays`` with a bitfield runs B-bitfield, and ``march_rays_grouped``
+(the two-level march over ``build_coarse_bytes``) B-grouped. Each has a plain PyTorch version (``*_plain``)
 that the wrapper runs for CPU tensors. ``grid_total_variation``,
 ``sph_from_ray``, ``sample_pdf`` and the factory ``get_encoder`` are plain
 PyTorch.
@@ -25,14 +27,19 @@ from .grid_encode import (
 )
 from .marching import (
     MarchConfig,
+    build_coarse_bytes,
     build_sigma_bytes,
     composite_rays,
     composite_rays_backward,
     composite_rays_backward_plain,
     composite_rays_plain,
     dequant_sigma,
+    grouped_march_qualifies,
     march_rays,
+    march_rays_grouped,
+    march_rays_grouped_plain,
     march_rays_plain,
+    occupancy_lookup,
 )
 from .morton import morton3d, morton3d_invert, morton_dilate, packbits, unpackbits
 from .ray_aabb import near_far_from_aabb
@@ -55,14 +62,19 @@ __all__ = [
     "pack_table",
     "pack_table_plain",
     "MarchConfig",
+    "build_coarse_bytes",
     "build_sigma_bytes",
     "composite_rays",
     "composite_rays_backward",
     "composite_rays_backward_plain",
     "composite_rays_plain",
     "dequant_sigma",
+    "grouped_march_qualifies",
     "march_rays",
+    "march_rays_grouped",
+    "march_rays_grouped_plain",
     "march_rays_plain",
+    "occupancy_lookup",
     "morton3d",
     "morton3d_invert",
     "morton_dilate",

@@ -15,7 +15,8 @@ sample in the same cell (an FMA moves ``floor(x*scale+0.5)`` and
 A source may hold several kernels, each with its own ``Kernel`` (its own
 C entry points and launch count) over one library: kernel A, its bf16
 variant and that variant's packing pass are all in ``grid_encode.cu``, A'
-and A'-bf16 in ``grid_encode_backward.cu``.
+and A'-bf16 in ``grid_encode_backward.cu``, B, B-bitfield and B-grouped in
+``march_rays.cu`` (B and B-bitfield through one entry point).
 
 Libraries go into ``build/kernels/`` at the repository root (git-ignored),
 named by a hash of the source, every header in ``csrc/`` (``*.cuh``) and
@@ -167,10 +168,21 @@ KERNELS = {
     }, source="grid_encode_backward"),
     "march_rays": Kernel("march_rays", {
         # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes,
-        # t, dt, valid, xyz, count, N, K, S, H, cascade, bound, dt_gamma,
-        # dt_min, dt_max, affine, use_cull, log_cull, stream
-        "march_rays_fwd": [_P] * 13 + [_L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P],
+        # bitfield, sigma_grid, t, dt, valid, xyz, count, N, K, S, H, cascade,
+        # bound, dt_gamma, dt_min, dt_max, affine, use_cull, log_cull, stream
+        "march_rays_fwd": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P],
     }),
+    # B's variants in march_rays.cu, each with its own launch count: the
+    # bitfield march (march_rays_fwd with a bitfield) and the two-level march
+    "march_rays_bitfield": Kernel("march_rays_bitfield", {
+        "march_rays_fwd": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P],
+    }, source="march_rays"),
+    "march_rays_grouped": Kernel("march_rays_grouped", {
+        # rays_o, rays_d, nears, fars, t_lo, t_hi, noises, sigma_bytes, coarse,
+        # t, dt, valid, xyz, count, groups, N, K, S, H, group_slots, bound,
+        # dt_min, dt_group, use_cull, log_cull, stream
+        "march_rays_grouped_fwd": [_P] * 15 + [_L, _I, _I, _I, _I, _F, _F, _F, _I, _F, _P],
+    }, source="march_rays"),
     "composite_rays": Kernel("composite_rays", {
         # sigmas, rgbs, dts, ts, valid, ambient, image, depth, weights_sum,
         # ambient_sum, N, S, T_thresh, stream

@@ -12,7 +12,14 @@ Counterpart of ``radnerf_tpu/ops/marching.py``:
   general orbit ``t_{k+1} = t_k + clamp(t_k * dt_gamma, dt_min, dt_max)``
   it walks K steps from t0 and the window only ends it (JAX's branches).
   At ``cascade > 1`` each point's level is JAX's ``_mip_level``. Training
-  perturbs each ray's orbit origin with ``noises``.
+  perturbs each ray's orbit origin with ``noises``. With a ``bitfield``
+  instead of sigma bytes it is JAX's march without ``sigma_rows``: kernel
+  B-bitfield, occupancy from ``occupancy_lookup`` and, with ``sigma_grid``,
+  the float-grid cull on the selected samples;
+- ``march_rays_grouped``: the two-level march (kernel B-grouped, twin
+  ``march_rays_grouped_plain``): coarse groups of 4 steps looked up in the
+  supercell bytes of ``build_coarse_bytes``, then the kept groups' fine
+  steps, with the dense march's cull and selection;
 - ``composite_rays``: the wrapper of kernel C (``csrc/composite_rays.cu``),
   with the plain twin ``composite_rays_plain``: front-to-back alpha
   compositing with early termination at ``T_thresh``. Its gradient is kernel
@@ -31,9 +38,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._kernels import KERNELS, refuse_grad, require_cuda_tensors
-from .morton import morton3d
+from .morton import morton3d, morton3d_invert
 
 SQRT3 = 1.7320508075688772
 # kernel B holds a block's rays' [S] rows in shared memory, 21 B a slot; at
@@ -42,6 +50,11 @@ MAX_SLOTS = 2048
 # share of the lower-bound optical depth sigma_lo * dt the cull counts
 # (kCullSafety in csrc/march_rays.cu)
 CULL_SAFETY = 0.5
+# the two-level march: fine steps a coarse group (JAX RendererState.
+# MARCH_GROUP) and the most groups a ray's orbit may take (JAX's group-id
+# bitmask is exact in float32 up to 24 bits; the port keeps its limit)
+MARCH_GROUP = 4
+MAX_GROUPS = 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,27 +154,120 @@ def _cells(xyz, dts, cfg: MarchConfig):
     return index if level is None else index + level.to(torch.int64) * H**3
 
 
+def occupancy_lookup(xyz, dt, bitfield, cfg: MarchConfig):
+    """Occupancy bits of points xyz [..., 3] with steps dt [...] (JAX
+    ``occupancy_lookup``, and ``occupancy_lookup_wide`` on its TPU rows):
+    bit ``index & 7`` of byte ``index >> 3`` of the packed ``bitfield``
+    (uint8 [cascade * H^3 / 8], ``packbits``), ``index`` the cell of
+    ``_cells``."""
+    index = _cells(xyz, dt, cfg)
+    return ((bitfield[index >> 3].long() >> (index & 7)) & 1).bool()
+
+
+def build_coarse_bytes(sigma_bytes, cascade: int, grid_size: int) -> torch.Tensor:
+    """The supercell byte field of the two-level march (JAX
+    ``build_coarse_rows`` as bytes): one byte per 4^3 supercell (a group of
+    MARCH_GROUP steps), Morton order, uint8 [cascade * (H / 4)^3]. Bit 7:
+    some sigma byte of the 3x3x3 supercells around it is occupied (a box
+    dilation, so a coarse step never skips an occupied fine cell); bits
+    0-6: the least 7-bit code over those supercells' cells (a box erosion,
+    > 0 only where every one is occupied), so ``4 * dt * sigma`` bounds the
+    optical depth of a group from below. A supercell's cells are
+    Morton-contiguous, so its pooling is a reshape."""
+    g, H = MARCH_GROUP, grid_size
+    if H % g:
+        raise ValueError(f"the coarse field needs a grid that {g} divides, not {H}")
+    Hc = H // g
+    b = sigma_bytes.reshape(cascade, Hc**3, g**3)
+    occ = (b.amax(dim=-1) >= 128).float()
+    code = (b & 127).amin(dim=-1).float()
+    xyz = morton3d_invert(torch.arange(Hc**3, device=sigma_bytes.device))
+    flat = (xyz[:, 0] * Hc + xyz[:, 1]) * Hc + xyz[:, 2]
+
+    def window_max(v):  # [cascade, Hc^3] Morton -> its 3x3x3 max, Morton
+        dense = v.new_zeros((cascade, Hc**3))
+        dense[:, flat] = v
+        pooled = F.max_pool3d(dense.view(cascade, 1, Hc, Hc, Hc), 3, stride=1, padding=1)
+        return pooled.reshape(cascade, -1)[:, flat]
+
+    # max_pool3d pads with -inf: for these non-negative values the max is
+    # the max with 0 padding, and the min (a max of negations) the min with
+    # 127 padding, as JAX's reduce_window pads them
+    dil, ero = window_max(occ), -window_max(-code)
+    byte = torch.clamp(ero, 0, 127).to(torch.uint8) | 128
+    return torch.where(dil > 0, byte, torch.zeros_like(byte)).reshape(-1)
+
+
+def _affine_start(nears, t_lo, cfg: MarchConfig, noises):
+    """The affine orbit's origin t0 (moved by ``dt * noises``) and the
+    window's first step k0 = max(floor((t_lo - t0) / dt), 0), NaN kept."""
+    dt = _f32(cfg.dt_min)
+    t0 = nears
+    if noises is not None:
+        # on the affine orbit the clamped step _clamp_dt(nears) is exactly dt
+        t0 = t0 + torch.full_like(t0, dt) * noises
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
+    return t0, torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
+
+
+def _running_keep(est, log_cull: float):
+    """keep[:, j] = (sum_{i <= j} est[:, i]) - est[:, j] <= log_cull: the
+    JAX path's ``cumsum(est) - est``, the running sum float32 in column
+    order."""
+    incl = torch.zeros_like(est[:, 0])
+    keep = torch.empty(est.shape, dtype=torch.bool, device=est.device)
+    for j in range(est.shape[1]):
+        incl = incl + est[:, j]
+        keep[:, j] = (incl - est[:, j]) <= log_cull
+    return keep
+
+
+def _select_first(occ, ts, dts, S: int):
+    """The first S occupied lattice points of each row into slots 0..S-1
+    (the rest go to column S, which is dropped): (t, dt, valid) [N, S]."""
+    N, dev = occ.shape[0], occ.device
+    rank = torch.cumsum(occ.to(torch.int32), dim=1)
+    slot = torch.where(occ & (rank <= S), rank - 1, torch.full_like(rank, S)).long()
+    valid = torch.zeros((N, S + 1), dtype=torch.bool, device=dev)
+    valid.scatter_(1, slot, torch.ones_like(occ))
+    t_out = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
+    dt_out = torch.zeros_like(t_out)
+    t_out.scatter_(1, slot, ts)
+    dt_out.scatter_(1, slot, dts)
+    return t_out[:, :S], dt_out[:, :S], valid[:, :S]
+
+
+def _lattice_out(rays_o, rays_d, t_out, dt_out, valid, cfg: MarchConfig):
+    xyz_out = torch.clamp(rays_o[:, None, :] + t_out[..., None] * rays_d[:, None, :],
+                          -cfg.bound, cfg.bound)
+    zero = torch.zeros_like(t_out)
+    return {
+        "t": torch.where(valid, t_out, zero),
+        "dt": torch.where(valid, dt_out, zero),
+        "valid": valid,
+        "xyz": torch.where(valid[..., None], xyz_out, torch.zeros_like(xyz_out)),
+    }
+
+
 def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-                     t_window, cull_T: float = 0.0, noises=None):
+                     t_window=None, cull_T: float = 0.0, noises=None, bitfield=None,
+                     sigma_grid=None):
     """Plain PyTorch marcher; the arguments and results of ``march_rays``."""
+    _check_march_source(sigma_bytes, bitfield, sigma_grid)
     N, dev = rays_o.shape[0], rays_o.device
     S, K = cfg.n_sample_slots, cfg.n_march_iters
-    t0 = nears
-    t_lo, t_hi = t_window
+    t_lo, t_hi = (nears, fars) if t_window is None else t_window
     t_end = torch.minimum(fars, t_hi)
     if cfg.affine:
         dt = _f32(cfg.dt_min)
-        if noises is not None:
-            # on the affine orbit the clamped step _clamp_dt(nears) is exactly dt
-            t0 = t0 + torch.full_like(t0, dt) * noises
-        # divide by a tensor: PyTorch's CUDA division by a Python scalar
-        # multiplies by its reciprocal, which is not the IEEE quotient
-        k0 = torch.floor((t_lo - t0) / torch.full_like(t0, dt))
-        k0 = torch.where(k0 < 0.0, torch.zeros_like(k0), k0)
+        t0, k0 = _affine_start(nears, t_lo, cfg, noises)
         k = k0[:, None] + torch.arange(K, dtype=torch.float32, device=dev)[None, :]
         ts = t0[:, None] + k * dt  # [N, K]
         dts = torch.full_like(ts, dt)
     else:
+        t0 = nears
         if noises is not None:
             t0 = t0 + _clamp_dt(t0, cfg) * noises
         # the recurrence, K steps from t0, each op rounded in float32
@@ -174,113 +280,301 @@ def march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
             t = t + dts[:, j]
     xyz = torch.clamp(rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :],
                       -cfg.bound, cfg.bound)
-    byte = sigma_bytes[_cells(xyz, dts, cfg)]
-    occ = ((byte & 128) > 0) & (ts < t_end[:, None])
-    if cull_T > 0.0:
-        est = torch.where(occ, dequant_sigma(byte & 127) * dts * CULL_SAFETY,
-                          torch.zeros_like(ts))
-        log_cull = _f32(-math.log(cull_T))
-        # the JAX path tests cumsum(est) - est; the running sum is float32,
-        # added in orbit order
-        incl = torch.zeros_like(t0)
-        keep = torch.empty_like(occ)
-        for j in range(K):
-            incl = incl + est[:, j]
-            keep[:, j] = (incl - est[:, j]) <= log_cull
-        occ = occ & keep
+    log_cull = _f32(-math.log(cull_T)) if cull_T > 0.0 else None
+    if bitfield is not None:
+        occ = occupancy_lookup(xyz, dts, bitfield, cfg) & (ts < t_end[:, None])
+    else:
+        byte = sigma_bytes[_cells(xyz, dts, cfg)]
+        occ = ((byte & 128) > 0) & (ts < t_end[:, None])
+        if log_cull is not None:
+            est = torch.where(occ, dequant_sigma(byte & 127) * dts * CULL_SAFETY,
+                              torch.zeros_like(ts))
+            occ = occ & _running_keep(est, log_cull)
 
-    rank = torch.cumsum(occ.to(torch.int32), dim=1)
-    slot = torch.where(occ & (rank <= S), rank - 1, torch.full_like(rank, S))
-    # first S occupied points into slots 0..S-1; the rest go to column S,
-    # which is dropped
-    slot = slot.long()
-    valid = torch.zeros((N, S + 1), dtype=torch.bool, device=dev)
-    valid.scatter_(1, slot, torch.ones_like(occ))
-    valid = valid[:, :S]
     if cfg.affine:
-        k_sel = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
-        k_sel.scatter_(1, slot, k)
-        t_out = t0[:, None] + k_sel[:, :S] * dt
+        # t is affine in the orbit index: select k, then t = t0 + k * dt
+        k_sel, _, valid = _select_first(occ, k, dts, S)
+        t_out = t0[:, None] + k_sel * dt
         dt_out = torch.full_like(t_out, dt)
     else:
-        t_out = torch.zeros((N, S + 1), dtype=torch.float32, device=dev)
-        dt_out = torch.zeros_like(t_out)
-        t_out.scatter_(1, slot, ts)
-        dt_out.scatter_(1, slot, dts)
-        t_out, dt_out = t_out[:, :S], dt_out[:, :S]
-    xyz_out = torch.clamp(rays_o[:, None, :] + t_out[..., None] * rays_d[:, None, :],
-                          -cfg.bound, cfg.bound)
-    zero = torch.zeros_like(t_out)
-    return {
-        "t": torch.where(valid, t_out, zero),
-        "dt": torch.where(valid, dt_out, zero),
-        "valid": valid,
-        "xyz": torch.where(valid[..., None], xyz_out, torch.zeros_like(xyz_out)),
-        "count": occ.sum(dim=1, dtype=torch.int32),
-    }
+        t_out, dt_out, valid = _select_first(occ, ts, dts, S)
+    out = _lattice_out(rays_o, rays_d, t_out, dt_out, valid, cfg)
+    if bitfield is not None and sigma_grid is not None and log_cull is not None:
+        # the float-grid cull on the selected samples (JAX marching.py:490-509):
+        # each one's cell from its own position and step, sigma_hat =
+        # max(grid, 0) * 0.25, own = sigma_hat * dt, in slot order
+        cell = _cells(out["xyz"], out["dt"], cfg)
+        own = torch.clamp(sigma_grid.reshape(-1)[cell], min=0.0) * 0.25 * out["dt"]
+        out = _lattice_out(rays_o, rays_d, t_out, dt_out,
+                           valid & _running_keep(own, log_cull), cfg)
+    out["count"] = occ.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def _check_march_source(sigma_bytes, bitfield, sigma_grid):
+    if (sigma_bytes is None) == (bitfield is None):
+        raise ValueError("the march takes sigma bytes or a bitfield, exactly one")
+    if sigma_grid is not None and bitfield is None:
+        raise ValueError("the float-grid cull (sigma_grid) runs on the bitfield march only")
 
 
 def march_rays(rays_o, rays_d, nears, fars, sigma_bytes, cfg: MarchConfig,
-               t_window, cull_T: float = 0.0, noises=None):
-    """Fixed-lattice marcher: kernel B on CUDA tensors, the plain twin on CPU
-    tensors.
+               t_window=None, cull_T: float = 0.0, noises=None, bitfield=None,
+               sigma_grid=None):
+    """Fixed-lattice marcher: kernel B on CUDA tensors (B-bitfield with
+    ``bitfield``), the plain twin on CPU tensors.
 
     Args:
       rays_o, rays_d: [N, 3] float32 (unit directions).
       nears, fars: [N] from ``near_far_from_aabb``.
       sigma_bytes: uint8 [cascade * H^3] from ``build_sigma_bytes`` (Morton
-        order, cascade-major).
+        order, cascade-major), or None with ``bitfield``.
       t_window: ([N] t_lo, [N] t_hi): march only this interval (the
         renderer's ``march_window``); the orbit origin stays at ``nears`` so
         samples stay on the lattice. On the general orbit the march starts
-        at the origin and only t_hi ends it, as in JAX.
-      cull_T: drop occupied points once the running optical-depth bound
-        ``sum(CULL_SAFETY * sigma_lo * dt)`` before them exceeds
-        ``-ln(cull_T)`` (0 disables).
+        at the origin and only t_hi ends it, as in JAX. None is (nears,
+        fars).
+      cull_T: with sigma bytes, drop occupied points once the running
+        optical-depth bound ``sum(CULL_SAFETY * sigma_lo * dt)`` before
+        them exceeds ``-ln(cull_T)``; with a bitfield and ``sigma_grid``,
+        the float-grid cull below (0 disables either).
       noises: optional [N] float32 in [0, 1): the orbit origin moves to
         ``nears + clamp(nears * dt_gamma, dt_min, dt_max) * noises``
         (training's perturbation; ``dt`` on the affine orbit); the window's
         first step is taken from the moved origin.
+      bitfield: uint8 [cascade * H^3 / 8] (``packbits``) instead of sigma
+        bytes: JAX's march without ``sigma_rows``, occupancy from its bits
+        and no cull in the walk.
+      sigma_grid: float32 [cascade * H^3] density grid (Morton order; the
+        state's ``density_grid``), with a bitfield only: after the first-S
+        selection a sample is dropped once the running sum, in slot order,
+        of ``max(grid[cell], 0) * 0.25 * dt`` over the samples before it
+        exceeds ``-ln(cull_T)``, its cell taken from its own position and
+        step (JAX ``marching.py:490-509``).
 
     Returns dict: t, dt [N, S] (0 where invalid), valid [N, S] bool,
       xyz [N, S, 3] (0 where invalid), count [N] int32 occupied points per
-      ray before the S truncation (its max is the ``max_count`` telemetry).
+      ray before the S truncation and the float-grid cull (its max is the
+      ``max_count`` telemetry).
     """
     if rays_o.device.type == "cpu":
         return march_rays_plain(rays_o, rays_d, nears, fars, sigma_bytes, cfg,
-                                t_window, cull_T, noises)
-    N = rays_o.shape[0]
-    S, K, H = cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
+                                t_window, cull_T, noises, bitfield, sigma_grid)
+    _check_march_source(sigma_bytes, bitfield, sigma_grid)
+    N, S, K, H = rays_o.shape[0], cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
     if S > MAX_SLOTS:
         raise ValueError(f"kernel B takes at most {MAX_SLOTS} sample slots, not {S}")
-    t_lo, t_hi = t_window
+    t_lo, t_hi = (nears, fars) if t_window is None else t_window
     refuse_grad("kernel B", rays_o=rays_o, rays_d=rays_d)
+    ins = _march_inputs(rays_o, rays_d, nears, fars, t_lo, t_hi, noises)
+    cells = cfg.cascade * H**3
+    if bitfield is not None:
+        name, field = "march_rays_bitfield", bitfield
+        ok = bitfield.dtype == torch.uint8 and bitfield.numel() * 8 == cells
+        use_cull = cull_T > 0.0 and sigma_grid is not None
+        if sigma_grid is not None:
+            sigma_grid = sigma_grid.reshape(-1).contiguous()
+            ok = ok and sigma_grid.dtype == torch.float32 and sigma_grid.numel() == cells
+    else:
+        name, field = "march_rays", sigma_bytes
+        ok = sigma_bytes.dtype == torch.uint8 and sigma_bytes.numel() == cells
+        use_cull = cull_T > 0.0
+    if not ok:
+        raise ValueError("kernel B takes uint8 [cascade * H^3] sigma bytes, or a uint8 "
+                         "[cascade * H^3 / 8] bitfield and float32 [cascade * H^3] grid")
+    require_cuda_tensors(*ins, field, *([] if sigma_grid is None else [sigma_grid]))
+    t, dt, valid, xyz, count = _march_outputs(N, S, rays_o.device)
+    if N > 0:
+        ptrs = [v.data_ptr() for v in ins[:6]] + [ins[6].data_ptr() if noises is not None
+                                                   else None]
+        KERNELS[name].launch(
+            "march_rays_fwd", rays_o.device, *ptrs,
+            sigma_bytes.data_ptr() if bitfield is None else None,
+            None if bitfield is None else bitfield.data_ptr(),
+            None if sigma_grid is None else sigma_grid.data_ptr(),
+            t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(), count.data_ptr(),
+            N, K, S, H, cfg.cascade, _f32(cfg.bound), _f32(cfg.dt_gamma), _f32(cfg.dt_min),
+            _f32(cfg.dt_max), int(cfg.affine), int(use_cull),
+            _f32(-math.log(cull_T)) if use_cull else 0.0)
+    return {"t": t, "dt": dt, "valid": valid, "xyz": xyz, "count": count}
+
+
+def _march_inputs(rays_o, rays_d, nears, fars, t_lo, t_hi, noises):
+    """The march's float32 inputs, contiguous, checked for shape."""
+    N = rays_o.shape[0]
     ins = [v.contiguous() for v in (rays_o, rays_d, nears, fars, t_lo, t_hi)]
     if noises is not None:
         ins.append(noises.contiguous())
     shapes = [(N, 3), (N, 3)] + [(N,)] * (len(ins) - 2)
-    if any(v.dtype != torch.float32 or v.shape != shape
-           for v, shape in zip(ins, shapes)) \
-            or sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != cfg.cascade * H**3:
-        raise ValueError("kernel B takes float32 rays [N, 3], intervals and noises "
-                         "[N] and uint8 [cascade * H^3] bytes")
-    require_cuda_tensors(*ins, sigma_bytes)
-    dev = rays_o.device
+    if any(v.dtype != torch.float32 or v.shape != shape for v, shape in zip(ins, shapes)):
+        raise ValueError("kernel B takes float32 rays [N, 3], intervals and noises [N]")
+    return ins
+
+
+def _march_outputs(N, S, dev):
     t = torch.empty((N, S), dtype=torch.float32, device=dev)
-    dt = torch.empty_like(t)
-    valid = torch.empty((N, S), dtype=torch.bool, device=dev)
-    xyz = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
-    count = torch.empty((N,), dtype=torch.int32, device=dev)
+    return (t, torch.empty_like(t), torch.empty((N, S), dtype=torch.bool, device=dev),
+            torch.empty((N, S, 3), dtype=torch.float32, device=dev),
+            torch.empty((N,), dtype=torch.int32, device=dev))
+
+
+def grouped_march_qualifies(cfg: MarchConfig, group: int = MARCH_GROUP) -> bool:
+    """Whether the two-level march takes ``cfg`` (JAX ``run_head``'s rule):
+    the affine orbit, cascade 1 and ceil(K / group) <= MAX_GROUPS."""
+    return (cfg.cascade == 1 and cfg.affine
+            and -(-cfg.n_march_iters // group) <= MAX_GROUPS)
+
+
+def _check_grouped(cfg: MarchConfig):
+    if not grouped_march_qualifies(cfg):
+        raise ValueError(
+            "the two-level march takes the affine orbit at cascade 1 with ceil(K / "
+            f"{MARCH_GROUP}) <= {MAX_GROUPS} groups (JAX march_rays_grouped's asserts); "
+            f"got cascade {cfg.cascade}, affine {cfg.affine}, K {cfg.n_march_iters}")
+
+
+def _grouped_plan(rays_o, rays_d, nears, fars, coarse_bytes, cfg: MarchConfig, t_window,
+                  group_slots, cull_T, noises):
+    """The coarse pass of the two-level march: each ray's Kg = ceil(K / 4)
+    groups from its window's first step, the group centre ``t0 + (k0 + 4 j
+    + 1.5) * dt`` looked up in the coarse bytes at grid H / 4, kept where
+    occupied, started inside the window, and (with the cull) while the
+    float32 running sum of ``sigma_c * f32(4 dt) * 0.5`` before it stays
+    within ``-ln(cull_T)``. Returns a dict of t0, k0, t_end [N], the kept
+    groups ``kept`` [N, Kg], the ones fine-marched (the first
+    ``group_slots`` kept of each ray) ``marched`` [N, Kg] and the walked
+    groups' coarse cells ``cells_c`` (for a work count)."""
+    _check_grouped(cfg)
+    g, K, dev = MARCH_GROUP, cfg.n_march_iters, rays_o.device
+    Kg = -(-K // g)
+    dt = _f32(cfg.dt_min)
+    t_lo, t_hi = t_window
+    t0, k0 = _affine_start(nears, t_lo, cfg, noises)
+    t_end = torch.minimum(fars, t_hi)
+    k_base = k0[:, None] + (torch.arange(Kg, dtype=torch.float32, device=dev) * g)[None, :]
+    t_start = t0[:, None] + k_base * dt
+    tc = t0[:, None] + (k_base + (g - 1) * 0.5) * dt
+    xyz_c = torch.clamp(rays_o[:, None, :] + tc[..., None] * rays_d[:, None, :],
+                        -cfg.bound, cfg.bound)
+    cfg_c = dataclasses.replace(cfg, grid_size=cfg.grid_size // g)
+    walked = t_start < t_end[:, None]
+    dt_g = _f32(g * cfg.dt_min)  # one rounding of the double product, as JAX's
+    cells_c = _cells(xyz_c, torch.full_like(tc, dt_g), cfg_c)
+    byte_c = coarse_bytes[cells_c]
+    kept = ((byte_c & 128) > 0) & walked
+    if cull_T > 0.0:
+        est = torch.where(kept, dequant_sigma(byte_c & 127) * dt_g * CULL_SAFETY,
+                          torch.zeros_like(tc))
+        kept = kept & _running_keep(est, _f32(-math.log(cull_T)))
+    slots = Kg if group_slots is None else group_slots
+    marched = kept & (torch.cumsum(kept.to(torch.int32), dim=1) <= slots)
+    return {"t0": t0, "k0": k0, "t_end": t_end, "kept": kept, "marched": marched,
+            "cells_c": cells_c[walked]}
+
+
+def _grouped_fine(rays_o, rays_d, sigma_bytes, cfg: MarchConfig, plan):
+    """The fine lattice of the two-level march: every group's 4 steps
+    [N, Kg * 4] in orbit order, k = (k0 + 4 gid) + i as JAX's fine pass
+    forms it; ``looked`` marks the steps the kernel looks up (in a marched
+    group, before K and the window's end), ``occ`` those occupied."""
+    g, K = MARCH_GROUP, cfg.n_march_iters
+    dt = _f32(cfg.dt_min)
+    Kg = plan["kept"].shape[1]
+    k_rel = torch.arange(Kg * g, device=rays_o.device)
+    k = (plan["k0"][:, None] + (k_rel // g * g).float()[None, :]) + (k_rel % g).float()[None, :]
+    ts = plan["t0"][:, None] + k * dt
+    xyz = torch.clamp(rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :],
+                      -cfg.bound, cfg.bound)
+    dts = torch.full_like(ts, dt)
+    cells = _cells(xyz, dts, cfg)
+    looked = plan["marched"].repeat_interleave(g, dim=1) & (k_rel < K)[None, :] \
+        & (ts < plan["t_end"][:, None])
+    byte = sigma_bytes[cells]
+    return {"k": k, "dts": dts, "cells": cells, "byte": byte, "looked": looked,
+            "occ": looked & ((byte & 128) > 0)}
+
+
+def march_rays_grouped_plain(rays_o, rays_d, nears, fars, sigma_bytes, coarse_bytes,
+                             cfg: MarchConfig, t_window, group_slots=None,
+                             cull_T: float = 0.0, noises=None):
+    """Plain PyTorch two-level marcher; the arguments and results of
+    ``march_rays_grouped``. The fine steps of every group are laid out
+    [N, Kg * 4] in orbit order; steps outside the fine-marched groups are
+    unoccupied and add an exact 0 to the cull's running sum."""
+    plan = _grouped_plan(rays_o, rays_d, nears, fars, coarse_bytes, cfg, t_window,
+                         group_slots, cull_T, noises)
+    fine = _grouped_fine(rays_o, rays_d, sigma_bytes, cfg, plan)
+    occ, dts = fine["occ"], fine["dts"]
+    if cull_T > 0.0:
+        est = torch.where(occ, dequant_sigma(fine["byte"] & 127) * dts * CULL_SAFETY,
+                          torch.zeros_like(dts))
+        occ = occ & _running_keep(est, _f32(-math.log(cull_T)))
+    k_sel, _, valid = _select_first(occ, fine["k"], dts, cfg.n_sample_slots)
+    dt = _f32(cfg.dt_min)
+    out = _lattice_out(rays_o, rays_d, plan["t0"][:, None] + k_sel * dt,
+                       torch.full_like(k_sel, dt), valid, cfg)
+    out["count"] = occ.sum(dim=1, dtype=torch.int32)
+    out["groups"] = plan["kept"].sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def march_rays_grouped(rays_o, rays_d, nears, fars, sigma_bytes, coarse_bytes,
+                       cfg: MarchConfig, t_window, group_slots=None, cull_T: float = 0.0,
+                       noises=None):
+    """The two-level march (JAX ``march_rays_grouped``): kernel B-grouped on
+    CUDA tensors, the plain twin on CPU tensors.
+
+    A coarse pass looks up each group of 4 orbit steps at its centre in the
+    supercell bytes (``build_coarse_bytes``) and keeps the occupied ones
+    (with the cull, while the coarse optical-depth bound allows); the fine
+    pass marches the kept groups' steps through the sigma bytes with the
+    dense march's cull and first-S selection. With every kept group marched
+    the result is ``march_rays``' on the same sigma bytes: the dilated
+    coarse bit never skips an occupied fine cell and the eroded code's
+    bound never exceeds the fine one. Takes the affine orbit at cascade 1
+    with ceil(K / 4) <= 24 groups and a window (``ValueError`` otherwise,
+    where JAX asserts). JAX's kept-group buffer (``group_capacity``) has no
+    counterpart: the port drops no group but past ``group_slots``.
+
+    Args: those of ``march_rays`` with the sigma bytes, and
+      coarse_bytes: uint8 [(H / 4)^3] from ``build_coarse_bytes``.
+      group_slots: fine-march only each ray's first ``group_slots`` kept
+        groups (None: all).
+
+    Returns dict: t, dt, valid, xyz, count as ``march_rays`` (count after
+      the fine cull, within the marched groups), and groups [N] int32 kept
+      groups per ray before the ``group_slots`` truncation (the telemetry
+      ``n_groups_needed`` is their sum, ``n_group_max`` their max).
+    """
+    if rays_o.device.type == "cpu":
+        return march_rays_grouped_plain(rays_o, rays_d, nears, fars, sigma_bytes,
+                                        coarse_bytes, cfg, t_window, group_slots, cull_T,
+                                        noises)
+    _check_grouped(cfg)
+    N, S, K, H = rays_o.shape[0], cfg.n_sample_slots, cfg.n_march_iters, cfg.grid_size
+    if S > MAX_SLOTS:
+        raise ValueError(f"kernel B-grouped takes at most {MAX_SLOTS} sample slots, not {S}")
+    refuse_grad("kernel B-grouped", rays_o=rays_o, rays_d=rays_d)
+    ins = _march_inputs(rays_o, rays_d, nears, fars, *t_window, noises)
+    Hc = H // MARCH_GROUP
+    if sigma_bytes.dtype != torch.uint8 or sigma_bytes.numel() != H**3 \
+            or coarse_bytes.dtype != torch.uint8 or coarse_bytes.numel() != Hc**3:
+        raise ValueError("kernel B-grouped takes uint8 [H^3] sigma bytes and [(H/4)^3] "
+                         "coarse bytes")
+    require_cuda_tensors(*ins, sigma_bytes, coarse_bytes)
+    t, dt, valid, xyz, count = _march_outputs(N, S, rays_o.device)
+    groups = torch.empty_like(count)
+    slots = -(-K // MARCH_GROUP) if group_slots is None else max(int(group_slots), 0)
     if N > 0:
-        args = (*[v.data_ptr() for v in ins[:6]],
-                ins[6].data_ptr() if noises is not None else None, sigma_bytes.data_ptr(),
-                t.data_ptr(), dt.data_ptr(), valid.data_ptr(), xyz.data_ptr(),
-                count.data_ptr(), N, K, S, H)
-        cull = (int(cull_T > 0.0), _f32(-math.log(cull_T)) if cull_T > 0.0 else 0.0)
-        KERNELS["march_rays"].launch(
-            "march_rays_fwd", dev, *args, cfg.cascade, _f32(cfg.bound), _f32(cfg.dt_gamma),
-            _f32(cfg.dt_min), _f32(cfg.dt_max), int(cfg.affine), *cull)
-    return {"t": t, "dt": dt, "valid": valid, "xyz": xyz, "count": count}
+        use_cull = cull_T > 0.0
+        KERNELS["march_rays_grouped"].launch(
+            "march_rays_grouped_fwd", rays_o.device, *[v.data_ptr() for v in ins[:6]],
+            ins[6].data_ptr() if noises is not None else None, sigma_bytes.data_ptr(),
+            coarse_bytes.data_ptr(), t.data_ptr(), dt.data_ptr(), valid.data_ptr(),
+            xyz.data_ptr(), count.data_ptr(), groups.data_ptr(), N, K, S, H, slots,
+            _f32(cfg.bound), _f32(cfg.dt_min), _f32(MARCH_GROUP * cfg.dt_min), int(use_cull),
+            _f32(-math.log(cull_T)) if use_cull else 0.0)
+    return {"t": t, "dt": dt, "valid": valid, "xyz": xyz, "count": count, "groups": groups}
 
 
 def composite_rays_plain(sigmas, rgbs, dts, ts, valid, ambient,

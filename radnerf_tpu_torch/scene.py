@@ -1,4 +1,6 @@
-"""The bench scene, built in the port (a copy of ``bench.py:build_scene``).
+"""The bench scene, built in the port (a copy of ``bench.py:build_scene``),
+and the sparse two-blob scene of the two-level march's benchmark
+(``build_sparse_scene``).
 
 A converged-head-style occupancy (rough ellipsoid cranium + neck column,
 opaque interior at sigma 300) in the density grid, a shoulders-shaped torso
@@ -104,4 +106,44 @@ def build_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0
         "bg_color": torch.full((n, 3), 0.5, device=dev),
     }
     aud = np.random.default_rng(0).normal(size=(64, 8, 44, 16)).astype(np.float32)
+    return net, rc, state, batch, torch.from_numpy(aud).to(dev)
+
+
+def build_sparse_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0):
+    """The scene the JAX package's two-level-march benchmark renders (a copy
+    of ``scripts/bench_march_group.py:build_sparse_scene``): two balls of
+    density 300 and radius 0.18 at +-(0.7, 0.35, 0.7) on the 128^3 grid
+    (occupancy threshold 5), so the occupied box spans nearly the cube and
+    ~97% of the marched orbit is empty; the head alone
+    (``NetworkConfig(torso=False, exp_eye=True)``, float32, ``random_weights``),
+    max_steps 16, dt_gamma 0, the camera at z = -3.3 with focal 700 * H / 450.
+    Returns what ``build_scene`` returns."""
+    dev = resolve_device(device)
+    net = NeRFNetwork(NetworkConfig(torso=False, exp_eye=True), device=dev)
+    random_weights(net, seed)
+    rc = RenderConfig(torso=False, max_steps=16, dt_gamma=0.0)
+    G = rc.grid_size
+    coords = morton3d_invert(torch.arange(G**3)).numpy()
+    xyz = 2.0 * coords.astype(np.float32) / (G - 1) - 1.0
+    occ = np.zeros((G**3,), np.float32)
+    for c in ([-0.7, -0.35, -0.7], [0.7, 0.35, 0.7]):
+        occ = np.maximum(occ, (np.linalg.norm(xyz - np.asarray(c), axis=-1) < 0.18) * 300.0)
+    state = make_state(rc, torch.from_numpy(occ[None]).to(dev),
+                       torch.zeros((G * G,), device=dev), mean_density=float(occ.mean()),
+                       mean_density_torso=0.0, thresh=5.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.0, 0.0, -3.3]
+    focal = 700.0 * H_img / 450.0
+    rays = get_rays(pose, (focal, focal, W_img / 2, H_img / 2), H_img, W_img, -1)
+    n = H_img * W_img
+    batch = {
+        "rays_o": torch.from_numpy(rays["rays_o"]).to(dev),
+        "rays_d": torch.from_numpy(rays["rays_d"]).to(dev),
+        "bg_coords": torch.from_numpy(get_bg_coords(H_img, W_img)).to(dev),
+        "poses": torch.zeros((1, 6), device=dev),
+        "eye": torch.full((1, 1), 0.25, device=dev),
+        "index": torch.zeros((), dtype=torch.int64, device=dev),
+        "bg_color": torch.full((n, 3), 0.5, device=dev),
+    }
+    aud = np.random.default_rng(0).normal(size=(8, 8, 44, 16)).astype(np.float32)
     return net, rc, state, batch, torch.from_numpy(aud).to(dev)

@@ -706,7 +706,8 @@ class Trainer:
             "mean_density_torso": float(self.state.mean_density_torso),
             # the march lattice the field was trained with; the JAX trainer
             # keeps its own TPU capacities for the fields this lacks
-            "render_cfg": {"march_iters": rc.march_iters, "sample_slots": rc.sample_slots},
+            "render_cfg": {"march_iters": rc.march_iters, "sample_slots": rc.sample_slots,
+                           "march_group_slots": rc.march_group_slots},
             "grid_shape": self._grid_shape_id(),
         }
         if best:
@@ -759,7 +760,8 @@ class Trainer:
         """Load a checkpoint of either package (``.npz``) or a reference
         ``.pth`` (utils.py:1362-1427): parameters in place (a head checkpoint
         leaves the torso's as they are), the EMA merged, the renderer state
-        rebuilt, ``march_iters`` and ``sample_slots`` restored, and unless
+        rebuilt, ``march_iters``, ``sample_slots`` and ``march_group_slots``
+        restored, and unless
         ``model_only`` the epoch and step counts. Adam starts afresh, then
         takes the checkpoint's moments and schedule on a full load (the
         port's own, or a JAX checkpoint's optax state)."""
@@ -777,8 +779,8 @@ class Trainer:
         # capacity fields size TPU buffers, and the port has nothing to size
         if cap and not (model_only and self._cap_restored):
             self.render_cfg = dataclasses.replace(
-                self.render_cfg, **{k: cap[k] for k in ("march_iters", "sample_slots")
-                                    if k in cap})
+                self.render_cfg, **{k: cap[k] for k in ("march_iters", "sample_slots",
+                                                        "march_group_slots") if k in cap})
             self._cap_restored = True
         if params is not None:
             self._load_params(params)
@@ -825,20 +827,19 @@ class Trainer:
         if "density_grid" in arrays:
             thresh = torch.clamp(mean, max=rc.density_thresh)
             st = dataclasses.replace(
-                st, sigma_bytes=build_sigma_bytes(st.density_grid, thresh),
-                occ_bbox=compute_occ_bbox(rc, st.density_grid, thresh),
-                occ_sphere=compute_occ_sphere(rc, st.density_grid, thresh))
+                st, occ_bbox=compute_occ_bbox(rc, st.density_grid, thresh),
+                occ_sphere=compute_occ_sphere(rc, st.density_grid, thresh),
+            ).with_sigma_bytes(build_sigma_bytes(st.density_grid, thresh))
             if "density_bitfield" not in arrays:
                 st = dataclasses.replace(st, density_bitfield=packbits(st.density_grid,
                                                                        thresh))
         else:
             if "sigma_bytes" in arrays:
-                st = dataclasses.replace(st, sigma_bytes=tensor(
-                    "sigma_bytes", torch.uint8, st.sigma_bytes.shape))
+                st = st.with_sigma_bytes(tensor("sigma_bytes", torch.uint8,
+                                                st.sigma_bytes.shape))
             elif "density_bitfield" in arrays:
                 occ = unpackbits(st.density_bitfield, rc.cascade, rc.grid_size).reshape(-1)
-                st = dataclasses.replace(st, sigma_bytes=torch.where(
-                    occ > 0, 129, 0).to(torch.uint8))
+                st = st.with_sigma_bytes(torch.where(occ > 0, 129, 0).to(torch.uint8))
             if "occ_bbox" in arrays and "occ_sphere" in arrays:
                 st = dataclasses.replace(st, occ_bbox=tensor("occ_bbox", torch.float32, (6,)),
                                          occ_sphere=tensor("occ_sphere", torch.float32, (4,)))

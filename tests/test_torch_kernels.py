@@ -362,6 +362,87 @@ def test_march_variant_kernel_matches_twin(dev, case, noises):
         assert len(torch.unique(want["dt"][want["valid"]])) > 1
 
 
+BITFIELD_CASES = {"cascade1-affine": (1.0, 16, 0.0), "cascade2-affine": (2.0, 32, 0.0),
+                  "cascade1-general": (1.0, 256, 1 / 64), "cascade2-general": (2.0, 256, 1 / 64)}
+
+
+@pytest.mark.parametrize("grid_cull", [False, True], ids=["nocull", "gridcull"])
+@pytest.mark.parametrize("case", list(BITFIELD_CASES))
+def test_march_bitfield_kernel_matches_twin(dev, case, grid_cull):
+    """B-bitfield bit for bit with its twin on both orbits at cascade 1 and
+    2, with noises and a window, with and without the float-grid cull
+    (1e-4 on a grid of hundreds, so it drops samples): valid, count, t, dt
+    and xyz; its own launch count, none of B's."""
+    bound, max_steps, dt_gamma = BITFIELD_CASES[case]
+    H, N = 64, 20_003
+    cfg = T.MarchConfig(bound=bound, cascade=1 + int(bound > 1), grid_size=H,
+                        max_steps=max_steps, dt_gamma=dt_gamma)
+    rng = np.random.default_rng(70 + len(case) + grid_cull)
+    dens, o, d = _march_scene(N, H, rng)
+    dens = np.concatenate([dens, dens[::-1]])[:cfg.cascade * H**3] * 10.0
+    grid = _t(dens, dev)
+    bits = T.packbits(grid, 5.0)
+    o, d = _t(o * bound, dev), _t(d, dev)
+    aabb = torch.tensor([-bound, -bound / 2, -bound, bound, bound / 2, bound],
+                        dtype=torch.float32, device=dev)
+    nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
+    kw = dict(bitfield=bits, sigma_grid=grid if grid_cull else None,
+              noises=_t(rng.random(N).astype(np.float32), dev))
+    args = (o, d, nears, fars, None, cfg, (nears + 0.3, fars - 0.2), 1e-4)
+    k, b = _kernels.KERNELS["march_rays_bitfield"], _kernels.KERNELS["march_rays"]
+    before = (k.launches, b.launches)
+    got = T.march_rays(*args, **kw)
+    assert (k.launches, b.launches) == (before[0] + 1, before[1])
+    want = T.march_rays_plain(*args, **kw)
+    torch.cuda.synchronize()
+    kept = int(want["valid"].sum())
+    assert kept > 10_000
+    selected = int(torch.clamp(want["count"], max=cfg.n_sample_slots).sum())
+    assert (kept < selected) == grid_cull  # the grid cull drops samples
+    for key in ("valid", "count", "t", "dt", "xyz"):
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("slots", [None, 3], ids=["allgroups", "slots3"])
+@pytest.mark.parametrize("cull_T", [0.0, 1e-4])
+def test_march_grouped_kernel_matches_twin(dev, cull_T, slots):
+    """B-grouped bit for bit with its twin (t, dt, valid, xyz, count and the
+    kept groups) on grid 64 (K = 65, 17 groups), with noises, a tenth of the
+    windows empty and a tenth inverted, with and without the cull, every
+    kept group marched and 3 a ray; with every group marched, bit for bit
+    with kernel B."""
+    H, N = 64, 20_003
+    cfg = T.MarchConfig(grid_size=H, max_steps=16, dt_gamma=0.0)
+    assert -(-cfg.n_march_iters // 4) == 17
+    rng = np.random.default_rng(80 + (slots or 0) + int(cull_T > 0))
+    dens, o, d = _march_scene(N, H, rng)
+    sb = T.build_sigma_bytes(_t(dens, dev), 5.0)
+    cb = T.build_coarse_bytes(sb, 1, H)
+    o, d = _t(o, dev), _t(d, dev)
+    aabb = torch.tensor([-1, -0.5, -1, 1, 0.5, 1], dtype=torch.float32, device=dev)
+    nears, fars = T.near_far_from_aabb(o, d, aabb, 0.05)
+    t_lo, t_hi = nears + 0.3, fars - 0.2
+    kind = _t(rng.integers(0, 10, N), dev)
+    t_hi = torch.where(kind == 0, t_lo, torch.where(kind == 1, t_lo - 0.5, t_hi))
+    noises = _t(rng.random(N).astype(np.float32), dev)
+    args = (o, d, nears, fars, sb, cb, cfg, (t_lo, t_hi), slots, cull_T, noises)
+    k = _kernels.KERNELS["march_rays_grouped"]
+    before = k.launches
+    got = T.march_rays_grouped(*args)
+    assert k.launches == before + 1
+    want = T.march_rays_grouped_plain(*args)
+    torch.cuda.synchronize()
+    assert int(want["valid"].sum()) > 10_000
+    if slots is not None:  # the truncation bites
+        assert int((want["groups"] > slots).sum()) > 1000
+    for key in ("valid", "count", "groups", "t", "dt", "xyz"):
+        assert torch.equal(got[key], want[key]), key
+    if slots is None:
+        dense = T.march_rays(o, d, nears, fars, sb, cfg, (t_lo, t_hi), cull_T, noises)
+        for key in ("valid", "count", "t", "dt", "xyz"):
+            assert torch.equal(got[key], dense[key]), key
+
+
 @pytest.mark.parametrize("layout,input_dim", _LAYOUTS)
 def test_grid_encode_bf16_kernels_match_plain(dev, layout, input_dim):
     """The bf16 policy's kernels: A-bf16 (the float32 master cast to a bf16

@@ -4,6 +4,8 @@ twins here). The scene copies tests/test_parity.py::
 test_reference_semantics_frame_psnr: a 48x48 head+torso frame on a blob grid
 of 32, imported torch-layout weights, JAX at exhaustive capacities."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,17 +87,24 @@ def oracle_image(frame_inputs):
     return img
 
 
-@pytest.mark.parametrize("cull_T", [0.0, 1e-6])
-def test_frame_matches_jax_and_reference(frame_inputs, oracle_image, cull_T):
+# the earlier cases keep their ids ("0.0", "1e-06"); "1e-06-group" runs the
+# two-level march (grid 32, max_steps 8: K = 33, 9 groups, so it qualifies)
+@pytest.mark.parametrize("cull_T,group", [
+    pytest.param(0.0, False, id="0.0"), pytest.param(1e-6, False, id="1e-06"),
+    pytest.param(1e-6, True, id="1e-06-group")])
+def test_frame_matches_jax_and_reference(frame_inputs, oracle_image, cull_T, group):
     """The port's 48x48 frame vs JAX render_rays at exhaustive capacities:
-    PSNR >= 60 dB and identical n_hit, n_samples_needed, n_max_count; vs the
-    reference-semantics oracle: PSNR >= 40 dB (the floor of the JAX
-    package's own test)."""
+    PSNR >= 60 dB and identical n_hit, n_samples_needed, n_max_count (and,
+    with march_group, n_groups_needed and n_group_max; JAX's kept-group
+    buffer ample); vs the reference-semantics oracle: PSNR >= 40 dB (the
+    floor of the JAX package's own test). With march_group the frame is
+    also the port's dense frame bit for bit."""
     params, f = frame_inputs
     thresh = 1.0  # min(mean_density=1.0, density_thresh=10)
     rc_j = JRenderConfig(torso=True, exp_eye=True, grid_size=GRID, max_steps=8,
                          dt_gamma=0.0, sample_capacity_mult=16.0,
-                         ray_capacity_frac=1.0, cull_T=cull_T)
+                         ray_capacity_frac=1.0, cull_T=cull_T, march_group=group,
+                         march_group_mult=16.0)
     grid = jnp.asarray(f["grid"])
     state_j = JRendererState.create(rc_j).replace(
         density_grid=grid, density_bitfield=packbits(grid, thresh),
@@ -113,7 +122,7 @@ def test_frame_matches_jax_and_reference(frame_inputs, oracle_image, cull_T):
         training=False))(params, state_j)
 
     rc = RenderConfig(torso=True, grid_size=GRID, max_steps=8,
-                      dt_gamma=0.0, cull_T=cull_T)
+                      dt_gamma=0.0, cull_T=cull_T, march_group=group)
     net = network_from_jax(jax.tree_util.tree_map(np.asarray, params),
                            NetworkConfig(torso=True, exp_eye=True), device="cpu")
     state = state_from_numpy(rc, f["grid"], f["torso_grid"], 1.0, 0.05, thresh=thresh,
@@ -122,17 +131,23 @@ def test_frame_matches_jax_and_reference(frame_inputs, oracle_image, cull_T):
     np.testing.assert_allclose(state.occ_sphere.numpy(), np.asarray(state_j.occ_sphere),
                                rtol=1e-6)
     t = {k: torch.from_numpy(np.array(v)) for k, v in f.items()}
-    got, _ = render_rays(net, rc, state, t["rays_o"], t["rays_d"], t["auds"],
-                         t["bg_coords"], t["pose6"], t["eye"], torch.zeros(()),
-                         t["bg_color"])
+    args = (t["rays_o"], t["rays_d"], t["auds"], t["bg_coords"], t["pose6"], t["eye"],
+            torch.zeros(()), t["bg_color"])
+    got, _ = render_rays(net, rc, state, *args)
 
-    for k in ("n_hit", "n_samples_needed", "n_max_count", "n_torso_mask"):
+    for k in ("n_hit", "n_samples_needed", "n_max_count", "n_torso_mask", "n_groups_needed",
+              "n_group_max"):
         assert int(got[k]) == int(want[k]), k
+    assert (int(got["n_groups_needed"]) > 0) == group
+    if group:
+        dense, _ = render_rays(net, dataclasses.replace(rc, march_group=False), state, *args)
+        for k in ("image", "depth", "weights_sum", "torso_alpha"):
+            assert torch.equal(got[k], dense[k]), k
     img = got["image"].numpy().astype(np.float64)
     assert np.isfinite(img).all() and img.shape == (H * W, 3)
     p_jax = _psnr(img, np.asarray(want["image"], np.float64))
     p_ref = _psnr(img, oracle_image)
-    print(f"\n[torch frame cull_T={cull_T}] PSNR vs JAX {p_jax:.2f} dB, "
+    print(f"\n[torch frame cull_T={cull_T} group={group}] PSNR vs JAX {p_jax:.2f} dB, "
           f"vs reference semantics {p_ref:.2f} dB")
     assert p_jax >= 60.0
     assert p_ref >= 40.0
