@@ -101,6 +101,20 @@ The dataset and the entry points, on the same directory:
      versions on one eval frame's own inputs (~4.2M samples, [262,144, 16]
      lattice), the eval frame fenced and profiled, ``test``'s FPS.
 
+Data parallelism (``data_parallel_phase``), after phase 16 on the same
+directory:
+ data_parallel: this process's 1-rank head step, then two ranks spawned
+     on this card (gloo: NCCL refuses two ranks on one device) with
+     ``Options(data_parallel=True)``, loading the kernels built in phase 2:
+     8 float32 head steps at 65,536 global rays with every launch count set
+     to 0 just before and read just after on each rank (A, A', B, C, C'
+     launched), the first step's loss and gradients against the 1-rank
+     step's, every rank's parameters, Adam moments and state bit for bit
+     alike; 2 -O steps (A-bf16, its packing pass, A'-bf16), in sync; the
+     512x512 bench frame by ``render_frame_dp`` against the 1-rank frame
+     (>= 60 dB, the same n_hit); the 2-rank step ms beside the 1-rank one,
+     which two processes sharing one card make no scaling figure.
+
 The grid and march variants (``variants_phase``, ``variant_kernel_checks``):
  variants: ``radnerf_tpu_torch.main --exp_eye --grid_levels 8 --grid_ch 4
      --bound 2 --max_steps 128`` on the same directory at full width (the
@@ -293,6 +307,11 @@ TRAIN_SIZE = 512  # the targets' height and width
 # the on-disk dataset of phases 14-16: its frames, the validation (and test)
 # split's, the entry run's epochs, the audio rows infer renders
 DATASET_FRAMES, VAL_FRAMES, ENTRY_EPOCHS, INFER_FRAMES = 8, 4, 2, 6
+# the data_parallel phase: its ranks (gloo, sharing this card), float32
+# head steps (one epoch of the 8 frames), -O steps; a collective's and the
+# whole spawn's time limits
+DP_WORLD, DP_STEPS, DP_BF16_STEPS = 2, 8, 2
+DP_COLLECTIVE_S, DP_TIMEOUT_S = 300, 600
 PROFILED_STEPS = 3
 GATHER_ROWS, GATHER_WIDTH, GATHER_TABLES = 2 * 1024 * 1024, 16, (4096, 65536)
 # the camera phase: -O steps through the CLI, float32 steps of each trainer
@@ -950,6 +969,7 @@ def main():
         entry_timing_phase(report, out_dir, entry_trainer, root)
         del entry_trainer
         torch.cuda.empty_cache()
+        data_parallel_phase(report, root)
         t0 = time.perf_counter()
         step_calls, eval_calls, variant_launches, variant_state = variants_phase(
             report, out_dir, root)
@@ -985,7 +1005,9 @@ def main():
         marks.append(time.perf_counter())
         kernels.append(preprocess_phase(report, out_dir, dev))
         marks.append(time.perf_counter())
-        report["phase_seconds"] = {"since_start": marks[0] - start, "variants": variants_s,
+        report["phase_seconds"] = {"since_start": marks[0] - start,
+                                   "data_parallel": report["data_parallel"]["seconds"],
+                                   "variants": variants_s,
                                    "march_variants": march_variants_s,
                                    "bf16_variants": bf16_variants_s,
                                    **{name: b - a for name, a, b in
@@ -1732,6 +1754,14 @@ def entry_phase(report, root):
     del init
     validation = sorted(os.listdir(os.path.join(ws, "validation")))
     results = sorted(os.listdir(os.path.join(ws, "results")))
+    # the run log (JAX's log_<name>.txt): its banner and every epoch
+    with open(os.path.join(ws, "log_ngp.txt")) as fh:
+        log_lines = fh.read().splitlines()
+    log_events = ["[INFO] Trainer: ngp | ", "[INFO] #parameters: ",
+                  *(f"==> Start Training Epoch {e} ..." for e in range(1, ENTRY_EPOCHS + 1)),
+                  *(f"==> Finished Epoch {e}: " for e in range(1, ENTRY_EPOCHS + 1)),
+                  "++> Evaluate at epoch ", "==> Finished Test."]
+    log_missing = [e for e in log_events if not any(l.startswith(e) for l in log_lines)]
 
     pose_path, aud_path = os.path.join(root, "pose.json"), os.path.join(root, "novel.npy")
     with open(os.path.join(root, "transforms_val.json")) as f:
@@ -1754,6 +1784,8 @@ def entry_phase(report, root):
           "eval_psnr": tr.stats["results"], "eval_loss": tr.stats["valid_loss"],
           "metrics": [type(m).__name__ for m in tr.metrics], "checkpoints": ckpts, "ema": ema,
           "validation_files": len(validation), "result_files": results,
+          "log_lines": len(log_lines), "log_banner": log_lines[:2],
+          "log_events_missing": log_missing,
           "infer": {"launches": infer_launches, "fps": fps, "files": len(infer_files)},
           "model": "NetworkConfig(torso=False, exp_eye=True) full width, float32, the CLI's "
                    "defaults (65,536 rays, grid 128), seeded init"}
@@ -1776,6 +1808,8 @@ def entry_phase(report, root):
         raise RuntimeError(f"validation files {validation}, results {results}")
     if len(infer_files) not in (1, INFER_FRAMES) or not fps > 0:
         raise RuntimeError(f"infer wrote {infer_files} at {fps} FPS")
+    if log_missing:
+        raise RuntimeError(f"{ws}/log_ngp.txt lacks {log_missing}")
     return tr
 
 
@@ -4551,6 +4585,292 @@ def preprocess_phase(report, out_dir, dev):
     report["preprocess"] = ph
     emit({"phase": "preprocess", **ph})
     return e
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                          .cpu().numpy().tobytes()).hexdigest()
+
+
+def _digests(tr) -> dict:
+    """sha256 of every array the data-parallel ranks must hold alike: the
+    parameters, Adam's moments, the renderer state."""
+    arrays = {f"param/{k}": p for k, p in tr.net.named_parameters()}
+    names = {id(p): k for k, p in tr.net.named_parameters()}
+    for p, st in tr.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            arrays[f"adam/{names[id(p)]}/{k}"] = st[k]
+    for f in dataclasses.fields(tr.state):
+        arrays[f"state/{f.name}"] = getattr(tr.state, f.name)
+    return {k: _digest(v) for k, v in arrays.items()}
+
+
+def dp_rank(rank, init_file, tmp, root):
+    """One rank of the data_parallel phase, in a spawned process: DP_STEPS
+    float32 head steps on the directory's dataset with every launch count
+    set to 0 just before and read just after (the first step's gradients
+    saved by rank 0), DP_BF16_STEPS -O steps, and the 512x512 bench frame
+    through ``render_frame_dp``; the ranks' arrays digested. Writes
+    ``<tmp>/rank<r>.pt``, or ``<tmp>/rank<r>.err`` with the traceback."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from radnerf_tpu_torch.config import Options
+        from radnerf_tpu_torch.data import TalkingHeadDataset
+        from radnerf_tpu_torch.main import float32_matmuls
+        from radnerf_tpu_torch.models import mark_untrained_grid
+        from radnerf_tpu_torch.ops import _kernels
+        from radnerf_tpu_torch.parallel import render_frame_dp
+        from radnerf_tpu_torch.scene import build_scene
+        from radnerf_tpu_torch.train import Trainer
+
+        float32_matmuls()
+        # both ranks load the libraries the parent built; nothing rebuilds
+        missing = sorted({k.source.name for k in _kernels.KERNELS.values()
+                          if not k.library_path().exists()})
+        if missing:
+            raise RuntimeError(f"kernel libraries not built: {missing}")
+        # NCCL refuses two ranks on one device: the two ranks share cuda:0
+        # over gloo, which takes all_reduce and broadcast on CUDA tensors
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=DP_WORLD,
+                                timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+        dev = torch.device("cuda", 0)
+        out = {}
+        opt = Options(path=root, exp_eye=True, preload=2, data_parallel=True)
+        ds = TalkingHeadDataset(opt, split="train", device=dev)
+        tr = Trainer(opt, device=dev)
+        out["world"] = tr.world
+        tr.state = mark_untrained_grid(tr.render_cfg, tr.state, ds.poses, tuple(ds.intrinsics))
+        order = ds.epoch_indices()
+        losses, step_ms = [], []
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        for i, idx in enumerate(order[:DP_STEPS]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(ds, idx)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["first_telemetry"] = {k: int(v) for k, v in tr.telemetry.items()}
+                if rank == 0:
+                    torch.save({k: p.grad.cpu() for k, p in tr.net.named_parameters()
+                                if p.grad is not None}, os.path.join(tmp, "grads.pt"))
+        out["launches"] = _kernels.launches()
+        out.update(losses=losses, step_ms=step_ms, digests=_digests(tr),
+                   mean_density=float(tr.state.mean_density))
+        del tr, ds
+        torch.cuda.empty_cache()
+
+        opt_o = Options(path=root, preload=2, data_parallel=True).apply_O()
+        ds = TalkingHeadDataset(opt_o, split="train", device=dev)
+        tr = Trainer(opt_o, device=dev)
+        tr.state = mark_untrained_grid(tr.render_cfg, tr.state, ds.poses, tuple(ds.intrinsics))
+        _kernels.reset_launches()
+        losses_o = [float(tr.step(ds, idx)) for idx in ds.epoch_indices()[:DP_BF16_STEPS]]
+        torch.cuda.synchronize()
+        out["bf16"] = {"losses": losses_o, "launches": _kernels.launches(),
+                       "digests": _digests(tr)}
+        del tr, ds
+        torch.cuda.empty_cache()
+
+        net, rc, state, b, auds = build_scene(512, 512, device=dev)
+        batch = dict(b, auds=auds[0])
+        render_frame_dp(net, rc, state, batch)  # warm
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        res, _ = render_frame_dp(net, rc, state, batch)
+        torch.cuda.synchronize()
+        frame_launches = _kernels.launches()
+        frame_ms = fenced_ms(lambda i: render_frame_dp(net, rc, state, batch), 5)
+        out["frame"] = {"telemetry": {k: int(v) for k, v in res.items() if k.startswith("n_")},
+                        "launches": frame_launches, "fenced_ms": frame_ms,
+                        "image_sha256": _digest(res["image"])}
+        if rank == 0:
+            torch.save({"image": res["image"].cpu(), "depth": res["depth"].cpu()},
+                       os.path.join(tmp, "frame.pt"))
+        dist.destroy_process_group()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def run_ranks(target, args, n, timeout_s):
+    """Run ``target(rank, *args)`` in n spawned processes (the parent holds a
+    CUDA context: fork would break it); raise with a rank's traceback (from
+    ``<args[1]>/rank<r>.err``), on a nonzero exit or after timeout_s, having
+    ended every rank still running."""
+    from multiprocessing.connection import wait
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        running = list(procs)
+        while running and time.monotonic() < deadline:
+            wait([p.sentinel for p in running], timeout=max(deadline - time.monotonic(), 0))
+            for p in [p for p in running if not p.is_alive()]:
+                p.join()
+                running.remove(p)
+                if p.exitcode != 0:
+                    running = []  # the others may wait on it in a collective
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    errs = {r: open(os.path.join(args[1], f"rank{r}.err")).read() for r in range(n)
+            if os.path.exists(os.path.join(args[1], f"rank{r}.err"))}
+    codes = [p.exitcode for p in procs]
+    if errs or any(c != 0 for c in codes):
+        raise RuntimeError(f"data-parallel ranks failed: exit codes {codes}, ended after a "
+                           f"failure or the {timeout_s} s timeout: {hung}; {errs}")
+
+
+def data_parallel_phase(report, root):
+    """The data_parallel phase: the port's data parallelism
+    (``Options(data_parallel=True)``, ``radnerf_tpu_torch/parallel``) on
+    two gloo ranks spawned on this card (``dp_rank``), against this
+    process's 1-rank trainer on the same directory: the first step's loss
+    and gradients, the ranks' arrays bit for bit alike after DP_STEPS float32
+    steps and after DP_BF16_STEPS -O steps, each rank's launches of the
+    kernels, and the 512x512 bench frame by ``render_frame_dp`` against the
+    1-rank frame (PSNR, summed n_hit). The step ms of two processes sharing
+    one card over gloo is no scaling figure."""
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.models import mark_untrained_grid, render_rays
+    from radnerf_tpu_torch.scene import build_scene
+    from radnerf_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # the 1-rank reference: a fresh trainer on a fresh dataset draws the
+    # ranks' batches, noises and upkeep jitter
+    opt = Options(path=root, exp_eye=True, preload=2)
+    ds = TalkingHeadDataset(opt, split="train", device=dev)
+    tr = Trainer(opt, device=dev)
+    tr.state = mark_untrained_grid(tr.render_cfg, tr.state, ds.poses, tuple(ds.intrinsics))
+    order = ds.epoch_indices()
+    loss_1 = float(tr.step(ds, order[0]))
+    tel_1 = {k: int(v) for k, v in tr.telemetry.items()}
+    grads_1 = {k: p.grad.detach().clone() for k, p in tr.net.named_parameters()
+               if p.grad is not None}
+    step_ms_1 = fenced_ms(lambda i: tr.step(ds, order[1 + i]), DP_STEPS - 1)
+    # the 1-rank gradient's own spread: one batch's gradients taken twice
+    # (A' adds with float atomics, in another order on each run)
+    fixed = tr.next_batch(ds, order[0])
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(9),
+                              device=dev)
+    twice = []
+    for _ in range(2):
+        tr.optimizer.zero_grad(set_to_none=True)
+        tr.loss(fixed, fixed_noises, tr.global_step)[0].backward()
+        twice.append({k: p.grad.detach().clone() for k, p in tr.net.named_parameters()
+                      if p.grad is not None})
+    spread = {k: rel_err(twice[1][k], g) for k, g in twice[0].items()}
+    del tr, ds, twice
+    net, rc, state, b, auds = build_scene(512, 512, device=dev)
+    with torch.no_grad():
+        frame_1 = render_rays(net, rc, state, b["rays_o"], b["rays_d"], auds[0], b["bg_coords"],
+                              b["poses"], b["eye"], b["index"], b["bg_color"])[0]
+    del net, state, b, auds
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(dp_rank, (os.path.join(tmp, "store"), tmp, root), DP_WORLD, DP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+        grads = torch.load(os.path.join(tmp, "grads.pt"), weights_only=False)
+        frame = torch.load(os.path.join(tmp, "frame.pt"), weights_only=False)
+
+    # each gradient within 1e-4 of its largest value plus 1e-7, as the CPU
+    # parity tests hold the port's step to JAX's
+    grad_err = {}
+    for k, g1 in grads_1.items():
+        err = float((grads[k].to(dev) - g1).abs().max())
+        grad_err[k] = {"max_abs_err": err, "max_abs": float(g1.abs().max()),
+                       "err_over_tol": err / (TOL_STEP_GRAD * float(g1.abs().max()) + 1e-7),
+                       "spread_1rank_of_largest": spread[k]}
+    worst = max(grad_err, key=lambda k: grad_err[k]["err_over_tol"])
+    r0 = ranks[0]
+    loss_rel = abs(r0["losses"][0] - loss_1) / abs(loss_1)
+    differ = sorted({k for r in ranks[1:] for k in r0["digests"]
+                     if r["digests"][k] != r0["digests"][k]})
+    differ_o = sorted({k for r in ranks[1:] for k in r0["bf16"]["digests"]
+                       if r["bf16"]["digests"][k] != r0["bf16"]["digests"][k]})
+    frame_psnr = psnr(frame["image"], frame_1["image"].cpu())
+    n_hit_1 = int(frame_1["n_hit"])
+    ph = {
+        "ranks": DP_WORLD, "backend": "gloo, both ranks on cuda:0",
+        "world": [r["world"] for r in ranks],
+        "steps": DP_STEPS, "bf16_steps": DP_BF16_STEPS,
+        "num_rays_global": Options().num_rays,
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "bf16_launches_per_rank": [r["bf16"]["launches"] for r in ranks],
+        "frame_launches_per_rank": [r["frame"]["launches"] for r in ranks],
+        "first_step": {"loss_2ranks": r0["losses"][0], "loss_1rank": loss_1,
+                       "loss_rel_err": loss_rel, "tol_rel": TOL_STEP_REL,
+                       "grad_worst": worst, **grad_err[worst],
+                       "tol_grad": f"{TOL_STEP_GRAD} x max|g| + 1e-7",
+                       "spread_1rank_worst": max(spread, key=spread.get),
+                       "spread_1rank_of_largest": max(spread.values()),
+                       "telemetry_2ranks": r0["first_telemetry"],
+                       "telemetry_1rank": tel_1},
+        "losses_per_rank": [r["losses"] for r in ranks],
+        "bf16_losses_per_rank": [r["bf16"]["losses"] for r in ranks],
+        "arrays_compared": len(r0["digests"]), "arrays_differing": differ,
+        "bf16_arrays_compared": len(r0["bf16"]["digests"]), "bf16_arrays_differing": differ_o,
+        "mean_density_per_rank": [r["mean_density"] for r in ranks],
+        "frame": {"psnr_vs_1rank_db": frame_psnr, "psnr_min_db": MIN_FRAME_PSNR_DB,
+                  "max_abs_err": float((frame["image"] - frame_1["image"].cpu()).abs().max()),
+                  "n_hit_2ranks": r0["frame"]["telemetry"]["n_hit"], "n_hit_1rank": n_hit_1,
+                  "same_image_on_every_rank": len({r["frame"]["image_sha256"]
+                                                   for r in ranks}) == 1,
+                  "fenced_ms_per_rank": [r["frame"]["fenced_ms"] for r in ranks]},
+        "step_ms_median_2ranks_sharing_one_card_gloo": [
+            float(np.median(r["step_ms"][1:])) for r in ranks],
+        "step_ms_1rank_median": float(np.median(step_ms_1)),
+        "step_ms_note": "two processes sharing one card, gradients all-reduced through "
+                        "the host by gloo: not a scaling figure",
+        "ranks_seconds": ranks_s, "seconds": time.perf_counter() - t_phase,
+    }
+    report["data_parallel"] = ph
+    emit({"phase": "data_parallel", **ph})
+    for r, rk in enumerate(ranks):
+        missing = [k for k in TRAIN_KERNELS if rk["launches"][k] <= 0]
+        missing += [k for k in BF16_KERNELS if rk["bf16"]["launches"][k] <= 0]
+        missing += [k for k in FRAME_KERNELS if rk["frame"]["launches"][k] <= 0]
+        if missing:
+            raise RuntimeError(f"data parallel rank {r} did not launch {missing}")
+        if rk["world"] != (r, DP_WORLD):
+            raise RuntimeError(f"rank {r} ran in world {rk['world']}")
+        if not all(math.isfinite(v) for v in rk["losses"] + rk["bf16"]["losses"]):
+            raise RuntimeError(f"rank {r} losses {rk['losses']} {rk['bf16']['losses']}")
+    if not loss_rel <= TOL_STEP_REL or not grad_err[worst]["err_over_tol"] <= 1.0:
+        raise RuntimeError(f"the 2-rank step is not the 1-rank step: {ph['first_step']}")
+    if r0["first_telemetry"] != tel_1:
+        raise RuntimeError(f"2-rank telemetry {r0['first_telemetry']} != 1-rank {tel_1}")
+    if differ or differ_o or any(r["losses"] != r0["losses"] for r in ranks):
+        raise RuntimeError(f"the ranks diverged: {differ[:8]} {differ_o[:8]}")
+    if not frame_psnr >= MIN_FRAME_PSNR_DB or ph["frame"]["n_hit_2ranks"] != n_hit_1 \
+            or not ph["frame"]["same_image_on_every_rank"]:
+        raise RuntimeError(f"the data-parallel frame: {ph['frame']}")
 
 
 if __name__ == "__main__":

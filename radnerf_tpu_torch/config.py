@@ -1,9 +1,11 @@
 """Options of the port (a copy of the ``radnerf_tpu/config.py`` ``Options``
 fields the port reads, with the same names and defaults; reference
 main.py:12-108). The TPU capacity knobs (``sample_capacity_mult``,
-``ray_capacity_frac``, ``data_parallel``, ``auto_capacity``,
-``cap_overrides``) are left out: the port never drops work, so it has
-nothing for them to size."""
+``ray_capacity_frac``, ``auto_capacity``, ``cap_overrides``) are left out:
+the port never drops work, so it has nothing for them to size.
+``data_parallel`` shards the training batches and frames over the ranks of
+an initialised ``torch.distributed`` group (``parallel/mesh.py``); no CLI
+flag sets it, as none of JAX's does."""
 
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ class Options:
     # accepted for the reference CLI only: its staged renderer, which chunks
     # by it, is unreachable from its own main.py (cuda_ray forced on)
     max_ray_batch: int = 4096
+    # shard ray batches and frames over the ranks of the process group
+    # the caller started (torchrun); without one, or at one rank, a no-op
+    data_parallel: bool = False
 
     # precision / losses
     fp16: bool = False

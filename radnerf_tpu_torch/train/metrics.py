@@ -10,7 +10,8 @@ without them the filters are drawn from a seeded ``torch.Generator``, a
 valid relative distance for tracking training, and the report names that
 backend ("uncalibrated-torch"; the JAX package's seeded draw is another).
 LMD needs a face-landmark model and is gated on ``face_alignment``, or takes
-an injected predictor.
+an injected predictor. Each meter's ``write(writer, global_step, prefix)``
+adds its measure to a tensorboard writer under the JAX package's tag.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class PSNRMeter:
 
     def measure(self) -> float:
         return self.V / max(self.N, 1)
+
+    def write(self, writer, global_step, prefix=""):
+        writer.add_scalar(f"{prefix}/PSNR", self.measure(), global_step)
 
     def report(self) -> str:
         return f"PSNR = {self.measure():.6f}"
@@ -162,6 +166,9 @@ class LPIPSMeter:
     def measure(self) -> float:
         return self.V / max(self.N, 1)
 
+    def write(self, writer, global_step, prefix=""):
+        writer.add_scalar(f"{prefix}/LPIPS{self._tag()}", self.measure(), global_step)
+
     def _tag(self) -> str:
         return " (alex)" if self.lpips.calibrated else " (uncalibrated-torch)"
 
@@ -218,6 +225,9 @@ class LMDMeter:
 
     def measure(self) -> float:
         return self.V / max(self.N, 1)
+
+    def write(self, writer, global_step, prefix=""):
+        writer.add_scalar(f"{prefix}/LMD ({self.backend})", self.measure(), global_step)
 
     def report(self) -> str:
         return f"LMD ({self.backend}) = {self.measure():.6f}"

@@ -50,6 +50,26 @@ lips finetune flips ``opt.finetune_lips`` after every step, and the dataset
 that shares the same ``Options`` object alternates rect and full batches
 with it. There is no capacity adaptation: the port never drops work, so it
 has no static capacity to size.
+
+With a workspace the trainer keeps JAX's run log: every ``log`` line goes to
+``<workspace>/log_<name>.txt`` (appended) and, unless ``mute``, to stdout;
+``train`` writes tensorboard scalars to ``<workspace>/run/<name>`` where
+``tensorboardX`` imports (``train/loss`` and ``train/lr`` every 16 steps, the
+meters after each evaluation), else none.
+
+With ``opt.data_parallel`` inside a ``torch.distributed`` group of more than
+one rank (``parallel/mesh.py``; the caller starts the group), the network,
+its EMA and the renderer state are broadcast from rank 0 at construction;
+every rank draws the same global batch and noises and keeps its shard of
+the rays, the gradients and the loss are averaged over the ranks before
+Adam steps, and the telemetry is reduced. A batch with an LPIPS term (a lips
+rect or patches) spans several ranks' rays, so it runs whole on every rank.
+Grid upkeep and EMA run on every rank from the same parameters and seeds,
+so the ranks stay bit for bit alike. Frames with no noises and an audio
+window whose ray count divides the world render sharded
+(``render_frame_dp``). Only rank 0 writes files: the log, the scalars,
+checkpoints, validation images, test results and meshes; the other ranks
+are muted.
 """
 
 from __future__ import annotations
@@ -63,6 +83,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Options
 from ..convert import jax_from_state_dict, load_jax_params, network_to_jax, _state_dict_from_jax
@@ -82,6 +103,16 @@ from ..models import (
     update_torso_grid,
 )
 from ..ops import build_sigma_bytes, packbits, unpackbits
+from ..parallel import (
+    all_reduce_mean,
+    create_mesh,
+    local_device,
+    reduce_telemetry,
+    render_frame_dp,
+    replicate,
+    shard_batch,
+    shard_rays,
+)
 from ..utils.color import linear_to_srgb, srgb_to_linear
 from ..utils.image import write_png, write_video
 from ..utils.mesh import extract_geometry, save_mesh_ply
@@ -136,18 +167,21 @@ def _to_tensor(v, device) -> torch.Tensor:
 
 
 class Trainer:
-    """Training of the head or the torso stage on one device.
+    """Training of the head or the torso stage on one device, or data
+    parallel over the ranks of a process group (``opt.data_parallel``).
 
     Args:
       opt: the options (``Options``); ``opt.seed`` seeds the network's
         initial draw, the march noises and the grid jitter; ``opt.torso``
         selects the torso stage.
       net_cfg, render_cfg: default from ``opt``.
-      device: "cuda" by default, which raises without a card.
+      device: "cuda" by default, which raises without a card; under data
+        parallelism a bare "cuda" is ``cuda:<LOCAL_RANK>``.
       ema_decay: keep an EMA of the parameters, updated every
         ``opt.ema_update_interval`` steps.
       name: the checkpoints' file-name stem.
-      workspace: the directory of the checkpoints; None (the default)
+      workspace: the directory of the checkpoints, the log file
+        ``log_<name>.txt`` and the tensorboard scalars; None (the default)
         writes and reads none (main.py passes ``opt.workspace``).
       max_keep_ckpt: how many epoch checkpoints the rolling window keeps.
       use_checkpoint: with a workspace, what the constructor restores:
@@ -157,13 +191,17 @@ class Trainer:
       metrics: meters (``metrics.py``) the evaluation updates; the first
         one's measure is the epoch's result.
       eval_interval: ``train`` evaluates every this many epochs.
+      use_tensorboard: with a workspace, ``train`` writes tensorboard
+        scalars where ``tensorboardX`` imports.
+      mute: ``log`` writes to the log file only, not to stdout.
     """
 
     def __init__(self, opt: Options, net_cfg: Optional[NetworkConfig] = None,
                  render_cfg: Optional[RenderConfig] = None, device="cuda",
                  ema_decay: Optional[float] = None, name: str = "ngp",
                  workspace: Optional[str] = None, max_keep_ckpt: int = 2,
-                 use_checkpoint: str = "latest", metrics=(), eval_interval: int = 1):
+                 use_checkpoint: str = "latest", metrics=(), eval_interval: int = 1,
+                 use_tensorboard: bool = True, mute: bool = False):
         if 1 < opt.patch_size < 32:
             # alex-LPIPS needs >= 32 px: smaller inputs leave empty feature
             # maps mid-stack
@@ -175,13 +213,38 @@ class Trainer:
         self.max_keep_ckpt = max_keep_ckpt
         self.metrics = list(metrics)
         self.eval_interval = eval_interval
+        self.use_tensorboard = use_tensorboard
+        self.writer = None
+        # data parallelism: the world of the caller's process group, or None
+        # (JAX's mesh); only rank 0 writes files, the other ranks are muted
+        self.world = create_mesh() if opt.data_parallel else None
+        self.is_main = self.world is None or self.world[0] == 0
+        self.mute = mute or not self.is_main
+        if self.world is not None:
+            device = local_device(device)
         self.device = resolve_device(device)
+        if self.world is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.time_stamp = time.strftime("%Y-%m-%d_%H-%M-%S")
+        self.log_path = None
+        if workspace and self.is_main:
+            os.makedirs(workspace, exist_ok=True)
+            self.log_path = os.path.join(workspace, f"log_{name}.txt")
         self.net_cfg = net_cfg or NetworkConfig.from_options(opt)
         self.render_cfg = render_cfg or RenderConfig.from_options(opt)
         self.net = NeRFNetwork(self.net_cfg, device=self.device,
                                generator=torch.Generator().manual_seed(opt.seed))
         self.state = RendererState.create(self.render_cfg, self.net_cfg.audio_dim,
                                           self.device)
+        self.log(f"[INFO] Trainer: {name} | {self.time_stamp} | {self.device} | "
+                 f"{'bf16' if opt.fp16 else 'fp32'} | {workspace}")
+        self.log(f"[INFO] #parameters: {sum(p.numel() for p in self.net.parameters())}")
+        if opt.data_parallel:
+            self.log(f"[INFO] data parallel over {self.world[1]} ranks "
+                     f"({dist.get_backend()}), this rank {self.world[0]} on {self.device}"
+                     if self.world is not None else
+                     "[INFO] data parallel asked, but no process group of more than one "
+                     "rank is up: training on one device")
         # the lips finetune's schedule and flip follow the options as given,
         # whatever opt.finetune_lips reads after the flips
         self.flip_finetune_lips = opt.finetune_lips
@@ -219,10 +282,18 @@ class Trainer:
         self._cap_restored = False
         if workspace:
             self._restore(use_checkpoint)
+        if self.world is not None:
+            # every rank starts from rank 0's draw (or checkpoint)
+            replicate([self.net, self.ema_params, self.state])
 
-    @staticmethod
-    def log(*args):
-        print(*args, flush=True)
+    def log(self, *args):
+        """A line to stdout (unless muted) and appended to the workspace's
+        log file."""
+        if not self.mute:
+            print(*args, flush=True)
+        if self.log_path:
+            with open(self.log_path, "a") as fh:
+                print(*args, file=fh)
 
     def _optimizer(self, step: int = 0):
         return build_optimizer(self.net, self.opt, step, self.decay_base)
@@ -304,15 +375,33 @@ class Trainer:
         (already counted); returns the loss (a device scalar, no sync), keeps
         the state the render leaves and the step's telemetry (the results'
         ``n_*`` counts) in ``self.telemetry``. In the lips finetune it then
-        flips ``opt.finetune_lips`` (utils.py:769-770)."""
+        flips ``opt.finetune_lips`` (utils.py:769-770).
+
+        Under data parallelism every rank holds the same global batch and
+        draws the same global noises, keeps its shard of both unless the
+        batch carries an LPIPS term (whose images span the ranks' rays: it
+        runs whole on every rank), and averages the gradients and the loss
+        over the ranks before Adam steps; the telemetry of a sharded batch
+        is reduced over the ranks."""
         noises = self.draw_noises(batch["rays_o"].shape[0])
+        sharded = (self.world is not None and self.loss_mode(batch) == "none"
+                   and batch["rays_o"].shape[0] % self.world[1] == 0)
+        if sharded:
+            batch = shard_batch(batch, self.world)
+            noises = shard_rays(noises, self.world)
         parts = {}
         loss, results, self.state = self.loss(batch, noises, self.global_step, parts=parts)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        telemetry = {k: v for k, v in results.items() if k.startswith("n_")}
+        if self.world is not None:
+            loss = loss.detach()
+            all_reduce_mean([p.grad for p in self.net.parameters()] + [loss], self.world)
+            if sharded:
+                telemetry = reduce_telemetry(telemetry)
         self.optimizer.step()
         self.scheduler.step()
-        self.telemetry = {k: v for k, v in results.items() if k.startswith("n_")}
+        self.telemetry = telemetry
         if self.lpips is not None:
             self.stats["loss_mode"].append(parts.get("mode", "none"))
             if "lpips" in parts:
@@ -364,18 +453,33 @@ class Trainer:
         epochs up to ``max_epochs`` (utils.py:899-921): each followed by a
         full checkpoint when the trainer has a workspace, and every
         ``eval_interval`` epochs by an evaluation of ``valid_ds`` (when given)
-        and the best checkpoint."""
+        and the best checkpoint. With a workspace and ``use_tensorboard``,
+        the tensorboard scalars go to ``<workspace>/run/<name>`` while it
+        runs, where ``tensorboardX`` imports."""
+        if self.use_tensorboard and self.workspace and self.is_main:
+            try:
+                import tensorboardX
+
+                self.writer = tensorboardX.SummaryWriter(
+                    os.path.join(self.workspace, "run", self.name))
+            except ImportError:
+                self.writer = None
         self.state = mark_untrained_grid(self.render_cfg, self.state, train_ds.poses,
                                          tuple(train_ds.intrinsics))
-        for epoch in range(self.epoch + 1, max_epochs + 1):
-            self.epoch = epoch
-            self.train_one_epoch(train_ds)
-            if self.workspace:
-                self.save_checkpoint(full=True)
-            if valid_ds is not None and self.epoch % self.eval_interval == 0:
-                self.evaluate_one_epoch(valid_ds)
+        try:
+            for epoch in range(self.epoch + 1, max_epochs + 1):
+                self.epoch = epoch
+                self.train_one_epoch(train_ds)
                 if self.workspace:
-                    self.save_checkpoint(best=True)
+                    self.save_checkpoint(full=True)
+                if valid_ds is not None and self.epoch % self.eval_interval == 0:
+                    self.evaluate_one_epoch(valid_ds)
+                    if self.workspace:
+                        self.save_checkpoint(best=True)
+        finally:
+            if self.writer is not None:
+                self.writer.close()
+                self.writer = None
 
     def next_batch(self, dataset, idx) -> dict:
         """The dataset's batch ``idx`` on the trainer's device."""
@@ -392,9 +496,18 @@ class Trainer:
 
     def train_one_epoch(self, dataset) -> list:
         """One pass over ``dataset.epoch_indices()``; returns the step
-        losses as floats."""
+        losses as floats. The loss is read back once an epoch, and every
+        16th step when a tensorboard writer is open (JAX trainer.py:595-601:
+        ``train/loss`` and the grid group's ``train/lr``)."""
+        self.log(f"==> Start Training Epoch {self.epoch} ...")
         t0 = time.perf_counter()
-        losses = [self.step(dataset, idx) for idx in dataset.epoch_indices()]
+        losses = []
+        for idx in dataset.epoch_indices():
+            losses.append(self.step(dataset, idx))
+            if self.writer is not None and self.global_step % 16 == 0:
+                self.writer.add_scalar("train/loss", float(losses[-1]), self.global_step)
+                lr = self.opt.lr * self.decay_base ** (self.global_step / self.opt.iters)
+                self.writer.add_scalar("train/lr", lr, self.global_step)
         losses = torch.stack(losses).tolist() if losses else []
         if self._lpips_terms:
             steps, terms = zip(*self._lpips_terms)
@@ -402,8 +515,12 @@ class Trainer:
             self._lpips_terms = []
         self.stats["loss"].append(float(np.mean(losses)) if losses else 0.0)
         self.stats["step_loss"].extend(losses)
+        # the last step's rays hit and samples marched (JAX writes them
+        # beside its capacities; the port has none)
+        hits = (f", hits {int(self.telemetry['n_hit'])} rays, samples "
+                f"{int(self.telemetry['n_samples_needed'])}" if losses else "")
         self.log(f"==> Finished Epoch {self.epoch}: loss={self.stats['loss'][-1]:.6f}, "
-                 f"{len(losses) / max(time.perf_counter() - t0, 1e-9):.2f} steps/s")
+                 f"{len(losses) / max(time.perf_counter() - t0, 1e-9):.2f} steps/s{hits}")
         return losses
 
     # ------------------------------------------------------- eval and test
@@ -430,13 +547,21 @@ class Trainer:
     def _render_frame(self, batch: dict, noises: Optional[torch.Tensor] = None):
         """``render_rays(training=False)`` of a whole-frame device batch with
         the evaluation parameters: ((pred [H, W, 3], depth [H, W]) as numpy,
-        the state the render leaves)."""
+        the state the render leaves). Under data parallelism a frame with no
+        noises and an audio window whose ray count divides the world renders
+        sharded (JAX trainer.py:736-738); any other renders whole on every
+        rank."""
         H, W = batch["H"], batch["W"]
         with self._eval_params():
-            results, state = render_rays(
-                self.net, self.render_cfg, self.state, batch["rays_o"], batch["rays_d"],
-                batch.get("auds"), batch["bg_coords"], batch["poses"], batch.get("eye"),
-                batch["index"], batch["bg_color"], noises=noises)
+            if (self.world is not None and noises is None and batch.get("auds") is not None
+                    and batch["rays_o"].shape[0] % self.world[1] == 0):
+                results, state = render_frame_dp(self.net, self.render_cfg, self.state, batch,
+                                                 self.world)
+            else:
+                results, state = render_rays(
+                    self.net, self.render_cfg, self.state, batch["rays_o"], batch["rays_d"],
+                    batch.get("auds"), batch["bg_coords"], batch["poses"], batch.get("eye"),
+                    batch["index"], batch["bg_color"], noises=noises)
         pred = results["image"].reshape(H, W, 3).cpu().numpy()
         depth = results["depth"].reshape(H, W).cpu().numpy()
         return (pred, depth), state
@@ -460,12 +585,14 @@ class Trainer:
         """Render the dataset's first ``eval_count`` (default all) frames:
         their mean squared error against the ground truth, the metrics, and
         with a workspace ``validation/<name>_<i>_{rgb,depth}.png``
-        (utils.py:1237-1300)."""
+        (utils.py:1237-1300), rank 0's alone under data parallelism; with a
+        tensorboard writer open, each meter's scalar at the epoch."""
         self.log(f"++> Evaluate at epoch {self.epoch} ...")
         name = name or f"{self.name}_ep{self.epoch:04d}"
         for metric in self.metrics:
             metric.clear()
-        save_path = os.path.join(self.workspace, "validation") if self.workspace else None
+        save_path = (os.path.join(self.workspace, "validation")
+                     if self.workspace and self.is_main else None)
         if save_path:
             os.makedirs(save_path, exist_ok=True)
         total, count = 0.0, 0
@@ -493,6 +620,8 @@ class Trainer:
         self.stats["results"].append(self.metrics[0].measure() if self.metrics else avg)
         for metric in self.metrics:
             self.log(metric.report())
+            if self.writer is not None:
+                metric.write(self.writer, self.epoch, prefix="evaluate")
             metric.clear()
         self.log(f"++> Evaluate epoch {self.epoch} Finished, loss={avg:.6f}")
 
@@ -517,14 +646,16 @@ class Trainer:
              write_image: bool = False) -> float:
         """Render every frame of the dataset into ``<save_path>/<name>.mp4``
         (default ``<workspace>/results``; per-frame PNGs without an mp4
-        writer) at 25 fps (utils.py:923-973); returns the frames rendered per
-        second, batches and host copies included."""
+        writer) at 25 fps (utils.py:923-973), rank 0's alone under data
+        parallelism; returns the frames rendered per second, batches and host
+        copies included."""
         if save_path is None:
             if not self.workspace:
                 raise ValueError("test needs a save_path or a trainer workspace")
             save_path = os.path.join(self.workspace, "results")
         name = name or f"{self.name}_ep{self.epoch:04d}"
-        os.makedirs(save_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(save_path, exist_ok=True)
         self.log(f"==> Start Test, save results to {save_path}")
         frames = []
         t0 = time.perf_counter()
@@ -533,14 +664,16 @@ class Trainer:
             if self.opt.color_space == "linear":
                 pred = linear_to_srgb(torch.from_numpy(np.clip(pred, 0, 1))).numpy()
             img = (np.clip(pred, 0, 1) * 255).astype(np.uint8)
-            if write_image:
+            if write_image and self.is_main:
                 write_png(os.path.join(save_path, f"{name}_{i:04d}_rgb.png"), img)
                 write_png(os.path.join(save_path, f"{name}_{i:04d}_depth.png"),
                           (np.clip(self._normalize_depth(depth), 0, 1) * 255).astype(np.uint8))
             frames.append(img)
         fps = len(frames) / max(time.perf_counter() - t0, 1e-9)
         self.log(f"==> Rendered {len(frames)} frames at {fps:.2f} FPS")
-        write_video(os.path.join(save_path, f"{name}.mp4"), np.stack(frames, 0))
+        if self.is_main:
+            write_video(os.path.join(save_path, f"{name}.mp4"), np.stack(frames, 0))
+        self.log("==> Finished Test.")
         return fps
 
     # ----------------------------------------------- the interactive app
@@ -608,9 +741,12 @@ class Trainer:
         parameters on a ``resolution``^3 lattice over the box, with no audio
         code, on the device. A model with an eye input (``exp_eye``) takes
         the app's default eye value, 0.25 (JAX's query passes none there and
-        fails on the shapes). Returns the path."""
+        fails on the shapes). Returns the path; under data parallelism the
+        other ranks than 0 return it without a mesh."""
         save_path = save_path or os.path.join(self.workspace, "meshes",
                                               f"{self.name}_{self.epoch}.ply")
+        if not self.is_main:
+            return save_path
         os.makedirs(os.path.dirname(save_path), exist_ok=True)
         self.log(f"==> Saving mesh to {save_path}")
         e = torch.full((1, 1), 0.25, device=self.device) if self.net_cfg.eye_dim > 0 else None
@@ -635,11 +771,14 @@ class Trainer:
     def _restore(self, use_checkpoint: str):
         """Checkpoint selector semantics (utils.py:682-700)."""
         if use_checkpoint == "scratch":
+            self.log("[INFO] Training from scratch ...")
             return
         if use_checkpoint in ("latest", "latest_model"):
             path = ckpt_lib.latest_checkpoint(self.ckpt_path, self.name)
-            if path is not None:
-                self.load_checkpoint(path, model_only=use_checkpoint == "latest_model")
+            if path is None:
+                self.log("[WARN] No checkpoint found, model randomly initialized.")
+                return
+            self.load_checkpoint(path, model_only=use_checkpoint == "latest_model")
             return
         if use_checkpoint == "best":
             path = (self.best_path if os.path.exists(self.best_path)
@@ -647,6 +786,7 @@ class Trainer:
             if path:
                 self.load_checkpoint(path)
             return
+        self.log(f"[INFO] Loading {use_checkpoint} ...")
         self.load_checkpoint(use_checkpoint)
 
     def _grid_shape_id(self, full=False):
@@ -691,10 +831,14 @@ class Trainer:
         ``<workspace>/checkpoints/<self.name>.npz`` instead: the evaluation
         parameters (the EMA, else the live ones) and the renderer state
         without its density grid; before any evaluation it warns and writes
-        nothing, as the JAX trainer does."""
+        nothing, as the JAX trainer does. Under data parallelism only rank 0
+        writes."""
         if not self.workspace:
             raise ValueError("the trainer has no workspace to save a checkpoint in")
+        if not self.is_main:
+            return
         if best and not self.stats["results"]:
+            self.log("[WARN] no evaluated results found, skip saving best checkpoint.")
             warnings.warn("no evaluated results found; the best checkpoint is not saved")
             return
         name = name or f"{self.name}_ep{self.epoch:04d}"
@@ -770,6 +914,7 @@ class Trainer:
             self._load_params(params)
             self._apply_state_arrays(arrays, meta)
             self.optimizer, self.scheduler = self._optimizer()
+            self.log(f"[INFO] imported torch checkpoint ({len(params)} groups).")
             return
         params, state, ema, opt_flat, meta = ckpt_lib.load_checkpoint(path)
         self._check_grid_shape(path, meta, params)
@@ -782,6 +927,9 @@ class Trainer:
                 self.render_cfg, **{k: cap[k] for k in ("march_iters", "sample_slots",
                                                         "march_group_slots") if k in cap})
             self._cap_restored = True
+            rc = self.render_cfg
+            self.log(f"[INFO] restored trained render capacities (K={rc.march_iters} "
+                     f"slots={rc.sample_slots} group_slots={rc.march_group_slots})")
         if params is not None:
             self._load_params(params)
         if state is not None:
@@ -797,8 +945,10 @@ class Trainer:
             self.global_step = int(meta.get("global_step", 0))
         if opt_flat is not None and not model_only:
             self._restore_opt_state(opt_flat)
+            self.log("[INFO] restored optimizer state.")
         else:
             self.optimizer, self.scheduler = self._optimizer()
+        self.log(f"[INFO] loaded checkpoint {path} (epoch {self.epoch}).")
 
     def _apply_state_arrays(self, arrays: dict, meta: dict):
         """The renderer state from a checkpoint's arrays (JAX

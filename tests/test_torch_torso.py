@@ -102,18 +102,34 @@ def test_torso_loss_matches_jax():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
-def test_torso_train_step_matches_jax(torso_params):
+@pytest.mark.parametrize("flags", [
+    {},
+    # flags no other port test reaches at a value off their defaults
+    {"ind_dim_torso": 4, "torso_shrink": 0.6},
+], ids=["default", "code4-shrink"])
+def test_torso_train_step_matches_jax(torso_params, flags):
     """One torso-stage train step on the 48x48 blob scene, 512 rays, frame
     index 3, JAX's value_and_grad under jit at exhaustive capacities, the same
     noises: loss to rel 1e-5, identical telemetry (n_torso_mask included),
     every torso parameter's gradient within 1e-4 * max|g_jax| + 1e-7
     (through the torso MLPs, the clamp and the 2-D encode's x gradient), the
     torso code rows other than 3 exactly 0, and no gradient on the frozen
-    head."""
+    head. The second case takes a 4-wide torso code (``--ind_dim_torso``)
+    and a torso shrink of 0.6 (``--torso_shrink``), as the options map them
+    into both packages' network configs."""
     from radnerf_tpu.data.rays import get_bg_coords, get_rays
     from test_train import _blob_grid
 
+    small_t = dict(SMALL_T, **flags)
+    for cfg in (NetworkConfig.from_options(Options(torso=True, **flags)),
+                JNetworkConfig.from_options(JOptions(torso=True, **flags))):
+        assert all(getattr(cfg, k) == v for k, v in flags.items())
     params = torso_params
+    if flags:
+        params = jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda k: init_params(k, JNetworkConfig(**small_t)))(jax.random.PRNGKey(13)))
+        for k in ("encoder", "encoder_ambient", "torso_encoder"):
+            params[k] = params[k] * 1e4
     rng = np.random.default_rng(83)
     n = 512
     pose = np.eye(4, dtype=np.float32)
@@ -139,7 +155,7 @@ def test_torso_train_step_matches_jax(torso_params):
     state_j = _blob_state_j(rc_j, grid, 1.0).replace(
         density_grid_torso=jnp.asarray(torso_grid),
         mean_density_torso=jnp.asarray(mean_t, jnp.float32))
-    cfg_j = JNetworkConfig(**SMALL_T)
+    cfg_j = JNetworkConfig(**small_t)
     a = {k: jnp.asarray(v) for k, v in f.items()}
 
     def loss_fn(p):
@@ -152,7 +168,8 @@ def test_torso_train_step_matches_jax(torso_params):
     (loss_j, tel_j), grads_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         jax.tree_util.tree_map(jnp.asarray, params))
 
-    net = network_from_jax(params, NetworkConfig(**SMALL_T), device="cpu")
+    net = network_from_jax(params, NetworkConfig(**small_t), device="cpu")
+    assert net.individual_codes_torso.shape[1] == small_t.get("ind_dim_torso", 8)
     build_optimizer(net, Options(torso=True))  # freezes the head
     rc = RenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=1e-6, torso=True)
     state = state_from_numpy(rc, grid, torso_grid, 1.0, mean_t, thresh=1.0, device="cpu")

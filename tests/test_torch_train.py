@@ -235,18 +235,35 @@ def _blob_state_j(rc_j, grid, thresh):
     ).with_sigma_bytes(jmarch.build_sigma_bytes(g, thresh))
 
 
-def test_head_train_step_matches_jax(head_params):
+@pytest.mark.parametrize("flags", [
+    {},
+    # flags no other port test reaches at a value off their defaults
+    {"color_space": "linear", "lambda_amb": 0.5, "amb_dim": 4},
+], ids=["default", "linear-amb"])
+def test_head_train_step_matches_jax(head_params, flags):
     """One head-stage train step on tests/test_torch_render.py's 48x48 blob
     scene, 512 rays, JAX at exhaustive capacities, the same noises: loss to
     rel 1e-5, identical telemetry, and every parameter's gradient within
     1e-4 * max|g_jax| + 1e-7 (float32 GEMM and scatter sums in another
     order, through the grid encodes, the MLPs and the compositor). The JAX
     step runs under jit; the identical telemetry shows that no contracted
-    FMA moved a sample to another cell."""
+    FMA moved a sample to another cell. The port's loss is its trainer's
+    (``Trainer.loss``: the options' color space and lambda_amb); the second
+    case takes linear colour (the targets linearised on both sides), an
+    ambient weight of 0.5 and a 4-wide ambient code (``--amb_dim``)."""
     from radnerf_tpu.data.rays import get_bg_coords, get_rays
     from test_train import _blob_grid
 
+    opt, jopt = Options(iters=100, **flags), JOptions(iters=100, **flags)
+    small = dict(SMALL, ambient_dim=opt.amb_dim)
+    assert NetworkConfig.from_options(opt).ambient_dim == opt.amb_dim \
+        == JNetworkConfig.from_options(jopt).ambient_dim
     params = head_params
+    if flags:
+        params = jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda k: init_params(k, JNetworkConfig(**small)))(jax.random.PRNGKey(11)))
+        for k in ("encoder", "encoder_ambient"):
+            params[k] = params[k] * 1e4
     rng = np.random.default_rng(12)
     n = 512
     pose = np.eye(4, dtype=np.float32)
@@ -263,35 +280,39 @@ def test_head_train_step_matches_jax(head_params):
         noises=rng.random(n).astype(np.float32),
     )
     face_mask = rng.random(n) < 0.5
-    index, step, iters = 3, 40, 100
+    index, step, iters = 3, 40, jopt.iters
     grid = _blob_grid(GRID)
     rc_j = JRenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0, exp_eye=True,
                          sample_capacity_mult=16.0, ray_capacity_frac=1.0, cull_T=1e-6)
     state_j = _blob_state_j(rc_j, grid, 1.0)
-    cfg_j = JNetworkConfig(**SMALL)
+    cfg_j = JNetworkConfig(**small)
     a = {k: jnp.asarray(v) for k, v in f.items()}
+    # the JAX trainer linearises the targets with --color_space linear
+    gt_j = j_srgb_to_linear(a["images"]) if jopt.color_space == "linear" else a["images"]
 
     def loss_fn(p):
         res, _ = j_render_rays(p, cfg_j, rc_j, state_j, a["rays_o"], a["rays_d"], a["auds"],
                                a["bg_coords"], a["pose6"], a["eye"],
                                jnp.asarray(index, jnp.int32), a["bg_color"],
                                noises=a["noises"], training=True)
-        loss = j_head_loss(res, a["images"], jnp.asarray(face_mask),
-                           jnp.asarray(step, jnp.float32), iters, 0.1)
+        loss = j_head_loss(res, gt_j, jnp.asarray(face_mask),
+                           jnp.asarray(step, jnp.float32), iters, jopt.lambda_amb)
         return loss, {k: res[k] for k in TELEMETRY}
 
     (loss_j, tel_j), grads_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         jax.tree_util.tree_map(jnp.asarray, params))
 
-    net = _port_net(params)
     rc = RenderConfig(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=1e-6)
+    tr = Trainer(opt, NetworkConfig(**small), rc, device="cpu")
+    load_jax_params(tr.net, params)
+    net = tr.net
     state = state_from_numpy(rc, grid, np.zeros(GRID * GRID, np.float32), 1.0, 0.0,
                              thresh=1.0, device="cpu")
     t = {k: _T(v) for k, v in f.items()}
-    res, _ = render_rays(net, rc, state, t["rays_o"], t["rays_d"], t["auds"], t["bg_coords"],
-                         t["pose6"], t["eye"], index, t["bg_color"], noises=t["noises"],
-                         training=True)
-    loss = head_loss(res, t["images"], _T(face_mask), step, iters, 0.1)
+    batch = dict(rays_o=t["rays_o"], rays_d=t["rays_d"], auds=t["auds"],
+                 bg_coords=t["bg_coords"], poses=t["pose6"], eye=t["eye"], index=index,
+                 bg_color=t["bg_color"], images=t["images"], face_mask=_T(face_mask))
+    loss, res, _ = tr.loss(batch, t["noises"], step, state=state)
     loss.backward()
 
     assert int(res["n_samples_needed"]) > 300
