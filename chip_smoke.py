@@ -144,7 +144,12 @@ The two-level march and the bitfield march (``march_variants_phase``):
      the fixed batch's loss falling, a step's march held to the twin;
      B-bitfield bit for bit with its twin, without and with the float-grid
      cull, on the bench frame's rays and the variants eval frame's
-     (cascade 2, the general orbit), in turns with B.
+     (cascade 2, the general orbit), in turns with B; both kernels bit for
+     bit with their twins on MARCH_ADVERSARIAL_RAYS rays of each adversarial
+     call of ``radnerf_tpu_torch.studies.march`` (K = 96 over 3 coarse
+     chunks, group_slots 0, 1 and 11, training noises, NaN nears; float-grid
+     culls crossing at slots 1, 8, S - 1 and 2, negative, NaN and 1e12 grid
+     values; S = 128 with count > S).
 
 The bf16 policy (``-O``): the frame and the head step beside their float32
 runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
@@ -373,6 +378,8 @@ VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
 # steps, the most it takes), the head steps it trains with march_group on,
 # the float-grid cull's transmittance for B-bitfield's checks
 MARCH_K_CAP, MARCH_GROUP_STEPS, BITFIELD_CULL_T = 96, 8, 1e-4
+# the rays of each adversarial call of the two kernels (studies/march.py)
+MARCH_ADVERSARIAL_RAYS = 65536
 BF16_VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4"]
 BF16_VARIANT_STEPS, BF16_VARIANT_TORSO_STEPS = 16, 8
 BF16_VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
@@ -2246,7 +2253,10 @@ def march_variants_phase(report, root, variant_eval, variant_state):
     affine) and on the variants eval frame's (``variant_eval``: cascade 2,
     the general orbit; ``variant_state``: that run's bitfield and density
     grid), without and with the float-grid cull (BITFIELD_CULL_T), timed in
-    turns with B on the same rays. Returns the kernels line's two entries."""
+    turns with B on the same rays. Then both kernels bit for bit with their
+    twins, one launch each, on MARCH_ADVERSARIAL_RAYS rays of every call of
+    ``studies.march.grouped_calls`` and ``bitfield_calls``. Returns the
+    kernels line's two entries."""
     import radnerf_tpu_torch.models.renderer as renderer_mod
     from radnerf_tpu_torch.config import Options
     from radnerf_tpu_torch.data import TalkingHeadDataset
@@ -2260,6 +2270,7 @@ def march_variants_phase(report, root, variant_eval, variant_state):
     )
     from radnerf_tpu_torch.ops.marching import MARCH_GROUP
     from radnerf_tpu_torch.scene import build_scene, build_sparse_scene
+    from radnerf_tpu_torch.studies import march as adversarial
     from radnerf_tpu_torch.train import Trainer
 
     t_start = time.perf_counter()
@@ -2398,6 +2409,30 @@ def march_variants_phase(report, root, variant_eval, variant_state):
     bitfield_rows_on("variants_eval", m_args, m_kw, m_args[5],
                      variant_state.density_bitfield, variant_state.density_grid)
 
+    # both kernels on the adversarial calls, bit for bit with their twins
+    # (every output, zero in every unused slot)
+    adversarial_rows = []
+    for kernel, calls, fn, plain in (
+            ("march_rays_grouped", adversarial.grouped_calls, march_rays_grouped,
+             march_rays_grouped_plain),
+            ("march_rays_bitfield", adversarial.bitfield_calls, march_rays, march_rays_plain)):
+        for name, args, kw in calls("cuda", MARCH_ADVERSARIAL_RAYS):
+            got, check_launches = counted(kernel, lambda: fn(*args, **kw))
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            names = keys + (("groups",) if kernel == "march_rays_grouped" else ())
+            differing, err = compare(got, want, names)
+            S_ = want["valid"].shape[1]
+            adversarial_rows.append({
+                "kernel": kernel, "call": name, "n_rays": int(args[0].shape[0]),
+                "check_launches": check_launches, "bit_for_bit": not differing,
+                "differing": differing, "max_abs_err": err,
+                "n_samples": int(want["valid"].sum()),
+                "rays_over_S": int((want["count"] > S_).sum())})
+    emit({"phase": "march_variants_adversarial", "calls": adversarial_rows})
+    if not all(r["bit_for_bit"] and r["check_launches"] == 1 for r in adversarial_rows):
+        problems.append(f"adversarial calls: {adversarial_rows}")
+
     # the head steps with march_group on
     opt = Options(path=root, exp_eye=True, preload=2)
     ds = TalkingHeadDataset(opt, split="train", device="cuda")
@@ -2461,8 +2496,8 @@ def march_variants_phase(report, root, variant_eval, variant_state):
     bad += [r for r in bitfield_rows if r["n_samples"] == 0 or
             (r["where"] == "bench_frame" and r["grid_cull"] and r["dropped_by_grid_cull"] == 0)]
     mv = {"scenes": scenes, "grouped": grouped_rows, "bitfield": bitfield_rows,
-          "grouped_head_steps": steps, "path_launches": path_launches,
-          "seconds": time.perf_counter() - t_start}
+          "adversarial": adversarial_rows, "grouped_head_steps": steps,
+          "path_launches": path_launches, "seconds": time.perf_counter() - t_start}
     report["march_variants"] = {**mv, "grouped_head_steps": {**steps, "step_losses": losses}}
     emit({"phase": "march_variants", **mv})
     if bad:

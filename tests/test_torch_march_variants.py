@@ -127,19 +127,55 @@ def test_coarse_bytes_match_jax(cascade):
 
 # ---------------------------------------------------------- bitfield march
 # name -> (cascade, bound, max_steps, dt_gamma, occupied fraction, noise,
-# float-grid cull): tests/test_ops.py:274 at both dt_gamma, :315 (the
+# float-grid cull, edge): tests/test_ops.py:274 at both dt_gamma, :315 (the
 # perturbation), :482 (cascade 3 at bound 4) at both dt_gamma; the
 # float-grid cull at 1e-6 on a dense grid, on the affine orbit and on the
-# general one at cascade 2
+# general one at cascade 2. The edges (_bitfield_edge), each with every cell
+# occupied in the bitfield and the cull at 1e-4: a constant grid whose
+# cull crosses at slot 1 (slot 0's estimate alone exceeds -ln(cull_T)), at
+# slot 8 and at slot S - 1; negative and NaN grid values; S = 128 with count
+# > S on the general orbit at cascade 2; a grid value of 1e12 after the
+# crossing, which brings its slot back under the limit (fl(fl(s + a) - a)
+# = 0); a NaN near
 BITFIELD_CASES = {
-    "affine": (1, 1.0, 16, 0.0, 0.08, False, False),
-    "general": (1, 1.0, 16, 1 / 256, 0.08, False, False),
-    "noise": (1, 1.0, 16, 0.0, 0.2, True, False),
-    "cascade3-affine": (3, 4.0, 32, 0.0, 0.1, False, False),
-    "cascade3-general": (3, 4.0, 32, 1 / 256, 0.1, False, False),
-    "gridcull": (1, 1.0, 16, 0.0, 0.5, True, True),
-    "gridcull-cascade2-general": (2, 2.0, 64, 1 / 64, 0.5, True, True),
+    "affine": (1, 1.0, 16, 0.0, 0.08, False, False, None),
+    "general": (1, 1.0, 16, 1 / 256, 0.08, False, False, None),
+    "noise": (1, 1.0, 16, 0.0, 0.2, True, False, None),
+    "cascade3-affine": (3, 4.0, 32, 0.0, 0.1, False, False, None),
+    "cascade3-general": (3, 4.0, 32, 1 / 256, 0.1, False, False, None),
+    "gridcull": (1, 1.0, 16, 0.0, 0.5, True, True, None),
+    "gridcull-cascade2-general": (2, 2.0, 64, 1 / 64, 0.5, True, True, None),
+    "gridcull-cross-slot1": (1, 1.0, 16, 0.0, 1.0, False, True, 1),
+    "gridcull-cross-slot8": (1, 1.0, 16, 0.0, 1.0, True, True, 8),
+    "gridcull-cross-last-slot": (1, 1.0, 16, 0.0, 1.0, False, True, 15),
+    "gridcull-negative-nan": (1, 1.0, 16, 0.0, 1.0, False, True, "negative-nan"),
+    "gridcull-s128-count-over-S": (2, 2.0, 128, 1 / 256, 1.0, True, True, 64),
+    "gridcull-huge-after-crossing": (1, 1.0, 16, 0.0, 1.0, False, True, "huge"),
+    "gridcull-nan-near": (1, 1.0, 16, 0.0, 1.0, True, True, "nan-near"),
 }
+
+
+def _bitfield_edge(edge, cfg, rng):
+    """(float grid, nan_near) of an edge case of BITFIELD_CASES; the
+    bitfield occupies every cell. An int edge s: the grid that puts the
+    cull's crossing at slot s, c = 4 L / (dt (s - 0.5)) with dt the orbit's
+    least step (every step's estimate c * 0.25 * dt >= L / (s - 0.5)
+    before the clamp's larger steps), U(0.9, 1.1) c at cascade > 1."""
+    n = cfg.cascade * H**3
+    L = np.float32(-np.log(1e-4))
+    dt = np.float32(cfg.dt_min)
+    if isinstance(edge, int):
+        c = 4.0 * L / (dt * (edge - 0.5))
+        grid = np.full(n, c) if cfg.cascade == 1 else c * rng.uniform(0.9, 1.1, n)
+        return grid.astype(np.float32), False
+    grid = np.full(n, 4.0 * L / (dt * 5.5), np.float32)  # crossing at slot 6
+    if edge == "negative-nan":
+        grid[rng.random(n) < 0.3] = -1.0
+        grid[rng.random(n) < 0.01] = np.nan
+    elif edge == "huge":
+        z = _coords(H)[:, 2]
+        grid[(z >= 20) & (z <= 21)] = 1e12  # a slab after the crossing
+    return grid, edge == "nan-near"
 
 
 @pytest.mark.parametrize("case", list(BITFIELD_CASES))
@@ -148,20 +184,29 @@ def test_bitfield_march_matches_jax(case):
     march_rays without sigma_rows: valid identical, t, dt and xyz within
     1e-5 where valid, the same max_count; with the float-grid cull (the
     density grid, cells of -1 among them) it drops samples JAX drops."""
-    cascade, bound, max_steps, dt_gamma, frac, noise, grid_cull = BITFIELD_CASES[case]
+    cascade, bound, max_steps, dt_gamma, frac, noise, grid_cull, edge = BITFIELD_CASES[case]
     rng = np.random.default_rng(len(case))
-    dens = np.where(rng.random(cascade * H**3) < frac, rng.uniform(0.0, 3000.0,
-                                                                 cascade * H**3), 0.0)
-    dens[rng.random(dens.shape) < 0.05] = -1.0  # untrained cells clip to 0
-    dens = dens.astype(np.float32)
-    bits = _np(jmorton.packbits(jnp.asarray(dens), 5.0))
+    kw = dict(bound=bound, cascade=cascade, grid_size=H, max_steps=max_steps,
+              dt_gamma=dt_gamma)
+    nan_near = False
+    if edge is None:
+        dens = np.where(rng.random(cascade * H**3) < frac,
+                        rng.uniform(0.0, 3000.0, cascade * H**3), 0.0)
+        dens[rng.random(dens.shape) < 0.05] = -1.0  # untrained cells clip to 0
+        dens = dens.astype(np.float32)
+        bits = _np(jmorton.packbits(jnp.asarray(dens), 5.0))
+        cull_T = 1e-6 if grid_cull else 0.0
+    else:
+        dens, nan_near = _bitfield_edge(edge, T.MarchConfig(**kw), rng)
+        bits = np.full(cascade * H**3 // 8, 255, np.uint8)
+        cull_T = 1e-4
     o, d = _rays(rng, 32, -4.0 * bound, 0.3 * bound, 0.15)
     b = np.float32(bound)
     nears, fars = _near_far(o, d, [-b, -b / 2, -b, b, b / 2, b])
+    if nan_near:
+        nears = nears.copy()
+        nears[::5] = np.nan
     noises = rng.random(32).astype(np.float32) if noise else None
-    cull_T = 1e-6 if grid_cull else 0.0
-    kw = dict(bound=bound, cascade=cascade, grid_size=H, max_steps=max_steps,
-              dt_gamma=dt_gamma)
     want = jax.jit(lambda *a: jmarch.march_rays(
         *a[:5], jmarch.MarchConfig(**kw), noises=a[5], sigma_grid=a[6], cull_T=cull_T))(
         *(jnp.asarray(v) for v in (o, d, nears, fars, bits)),
@@ -176,8 +221,18 @@ def test_bitfield_march_matches_jax(case):
     for k in ("t", "dt", "xyz"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), atol=1e-5, rtol=0)
     assert int(got["count"].max()) == int(want["max_count"])
-    selected = int(got["count"].clamp(max=valid.shape[1]).sum())
+    S = valid.shape[1]
+    selected = int(got["count"].clamp(max=S).sum())
     assert (valid.sum() < selected) == grid_cull  # the cull drops samples
+    if isinstance(edge, int):  # every ray that fills its slots crosses at slot `edge`
+        full = got["count"].numpy() >= S  # (at cascade 2, within its larger steps' reach)
+        n_kept = valid[full].sum(axis=1)
+        assert full.sum() > 5 and (n_kept <= edge).all() and (n_kept >= edge * 0.9).all()
+        assert cascade == 1 or int(got["count"].max()) > S
+    elif edge == "huge":  # a slot after the crossing is kept again
+        assert (np.diff(valid.astype(np.int8), axis=1) > 0).any()
+    elif edge == "nan-near":
+        assert not valid[::5].any() and not got["count"].numpy()[::5].any()
 
 
 # --------------------------------------------------------- two-level march
@@ -186,7 +241,10 @@ def _grouped_scene(name):
     of tests/test_ops.py's three grouped-march scenes: the blob with
     scattered cells (:531), the sphere whose groups overflow (:602; here
     group_slots 2 of 9 without the cull, below the groups its rays keep),
-    the full field at K = 10 (:661)."""
+    the full field at K = 10 (:661); and the K = 96 scene (24 groups, 3
+    coarse chunks) with every kept group marched, group_slots 0, 1 and 11
+    (a truncation inside the second chunk), and training noises with one
+    near in 5 NaN."""
     coords = _coords(H)
     xyz = 2.0 * coords.astype(np.float32) / (H - 1) - 1.0
     cfg = dict(bound=1.0, cascade=1, grid_size=H, max_steps=8, dt_gamma=0.0)
@@ -203,6 +261,19 @@ def _grouped_scene(name):
         dens = np.where(np.linalg.norm(xyz, axis=-1) < 0.5, 150.0, 0.0).astype(np.float32)
         o, d = _rays(rng, 64, -3.0, 0.5, 0.0)
         noises, slots, cull_T, aabb = None, 2, 0.0, AABB1
+    elif name.startswith("k96"):
+        # K = 96: 24 groups over 3 coarse chunks of 8. The box of bound 4
+        # (cascade 1: points outside [-1, 1] clamp to the grid's faces)
+        # gives windows of up to 128 steps of 0.108; 20% of cells occupied
+        # with mixed codes, so the dilated coarse bits keep most groups
+        rng = np.random.default_rng(13)
+        dens = np.where(rng.random(H**3) < 0.2, rng.uniform(6.0, 400.0, H**3), 0.0)
+        dens = dens.astype(np.float32)
+        o, d = _rays(rng, 48, -12.0, 2.5, 0.3)
+        cfg.update(bound=4.0, march_iters=96)
+        noises = rng.random(48, dtype=np.float32) if name == "k96-noises-nan-near" else None
+        slots = {"k96-slots0": 0, "k96-slots1": 1, "k96-slots11": 11}.get(name)
+        cull_T, aabb = 1e-4, (-4.0, -4.0, -4.0, 4.0, 4.0, 4.0)
     else:  # "full-K10"
         rng = np.random.default_rng(11)
         dens = np.full((H**3,), 80.0, np.float32)
@@ -210,22 +281,47 @@ def _grouped_scene(name):
         cfg.update(max_steps=16, march_iters=10)
         noises, slots, cull_T, aabb = None, None, 0.0, (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
     sb = _np(jmarch.build_sigma_bytes(jnp.asarray(dens), 5.0))
-    return sb, o, d, _near_far(o, d, aabb), noises, cfg, slots, cull_T
+    nears, fars = _near_far(o, d, aabb)
+    if name == "k96-noises-nan-near":
+        nears = nears.copy()
+        nears[::5] = np.nan
+    return sb, o, d, (nears, fars), noises, cfg, slots, cull_T
 
 
-@pytest.mark.parametrize("name", ["blob", "blob-cull", "sphere-slots2", "full-K10"])
-def test_grouped_march_matches_jax(name):
+def _exact_exp2(x):
+    """jnp.exp2 with integer arguments in [0, 32) exact. XLA:CPU's exp2 is
+    not (2^13 + 2^-8, ..., 2^23 - 3.5 at the odd exponents from 13), so on
+    the CPU JAX's group-id bitmask sum(m * exp2(j)), exact for Kg <= 24 as
+    its docstring says, misdecodes the groups of a ray that keeps group 13
+    or a later odd one."""
+    x = jnp.asarray(x)
+    whole = (x == jnp.round(x)) & (x >= 0) & (x < 32)
+    exact = jnp.ldexp(jnp.ones_like(x), jnp.where(whole, x, 0).astype(jnp.int32))
+    return jnp.where(whole, exact, _JNP_EXP2(x))
+
+
+_JNP_EXP2 = jnp.exp2
+
+
+@pytest.mark.parametrize("name", ["blob", "blob-cull", "sphere-slots2", "full-K10", "k96",
+                                  "k96-slots0", "k96-slots1", "k96-slots11",
+                                  "k96-noises-nan-near"])
+def test_grouped_march_matches_jax(name, monkeypatch):
     """The two-level march against JAX march_rays_grouped at ample group
     capacity: valid identical, t and xyz within 1e-6, max_count,
     n_groups_needed and n_group_max equal; with every kept group marched,
     bit for bit with the port's dense march (K truncation included); with
     group_slots below the groups a ray keeps, a prefix of each ray's dense
-    samples."""
+    samples. The K = 96 scenes' rays keep up to 24 groups: their JAX
+    reference runs with exp2 exact at integers (_exact_exp2)."""
     sb, o, d, (nears, fars), noises, kw, slots, cull_T = _grouped_scene(name)
+    if name.startswith("k96"):
+        monkeypatch.setattr(jnp, "exp2", _exact_exp2)
     cfg_j, cfg_t = jmarch.MarchConfig(**kw), T.MarchConfig(**kw)
     K = cfg_t.n_march_iters
     Kg = -(-K // 4)
     assert K == cfg_j.n_march_iters and (K == 10) == (name == "full-K10")
+    assert (Kg == 24) == name.startswith("k96")
     want = jax.jit(lambda o, d, n, f, sb, nz: jmarch.march_rays_grouped(
         o, d, n, f, cfg_j, jmarch.pack_sigma_byte_rows(sb),
         jmarch.build_coarse_rows(sb, 1, H, 4), (n, f), 4,
@@ -238,7 +334,8 @@ def test_grouped_march_matches_jax(name):
             (t[2], t[3]), slots, cull_T, None if noises is None else _T(noises))
     got = T.march_rays_grouped(*args)
     valid = _np(want["valid"])
-    assert valid.sum() > 30
+    # one marched group a ray at group_slots 1, none at 0
+    assert valid.sum() > {0: -1, 1: 10}.get(slots, 30) and (slots != 0 or valid.sum() == 0)
     np.testing.assert_array_equal(got["valid"].numpy(), valid)
     for k in ("t", "xyz"):
         np.testing.assert_allclose(got[k].numpy(), _np(want[k]), atol=1e-6, rtol=1e-6)
