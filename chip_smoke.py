@@ -151,6 +151,22 @@ The two-level march and the bitfield march (``march_variants_phase``):
      culls crossing at slots 1, 8, S - 1 and 2, negative, NaN and 1e12 grid
      values; S = 128 with count > S).
 
+The adaptive capacities (``capacity_phase``, ``train/capacity.py``):
+ capacity: three head-stage runs through ``Trainer.train`` at the
+     ``Options`` defaults (``auto_capacity`` on) with an upkeep every
+     CAP_UPKEEP steps, CAP_EPOCHS epochs, counts from 0, K, S and the group
+     slots at each upkeep: from scratch (K adapted to the measured span);
+     with ``march_group`` on (B before the first adaptation, B-grouped at
+     every step once K <= MARCH_K_CAP; the group buffer adapted next);
+     resumed at step 1 on the bench head's occupancy (K and S shrink to the
+     head, at least two adaptations). B bit for bit, C and C' against their
+     plain versions on that run's first adapted step; the step at the
+     default and the adapted lattice in turns; the bench frame at
+     ``fresh_render_config``'s lattice (JAX bench.py's two fresh passes at
+     headroom 1.1), with and without ``march_group``, bit for bit with the
+     default lattice's frame, its kernels against their plain versions,
+     each frame fenced and profiled in turns. Measured only.
+
 The bf16 policy (``-O``): the frame and the head step beside their float32
 runs (bf16_frame, bf16_train), A-bf16 (on corner-packed tables), its
 packing pass and A'-bf16 against their plain versions on the path's points
@@ -380,6 +396,12 @@ VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
 MARCH_K_CAP, MARCH_GROUP_STEPS, BITFIELD_CULL_T = 96, 8, 1e-4
 # the rays of each adversarial call of the two kernels (studies/march.py)
 MARCH_ADVERSARIAL_RAYS = 65536
+# the capacity phase: the head stage at the port's defaults but an upkeep
+# every CAP_UPKEEP steps, CAP_EPOCHS epochs of the 8 frames, so that the
+# upkeeps at steps 4, 12, 20 and 28 adapt the capacities (those at an
+# epoch's first step do not, as in JAX's trainer); the fenced steps and
+# frames of each lattice, twice in turns
+CAP_UPKEEP, CAP_EPOCHS, CAP_TIMED = 4, 4, 8
 BF16_VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4"]
 BF16_VARIANT_STEPS, BF16_VARIANT_TORSO_STEPS = 16, 8
 BF16_VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
@@ -988,6 +1010,8 @@ def main():
         march_variants_s = time.perf_counter() - t0
         del step_calls, eval_calls, variant_eval, variant_state
         torch.cuda.empty_cache()
+        capacity_phase(report, out_dir, root, smi)
+        torch.cuda.empty_cache()
         frame_calls = bf16_frame_phase(report, out_dir, (net, rc, state, b), auds)
         step_calls = bf16_train_phase(report, out_dir, root)
         bf16_entries = bf16_kernel_checks(report, frame_calls, step_calls)
@@ -1016,6 +1040,7 @@ def main():
                                    "data_parallel": report["data_parallel"]["seconds"],
                                    "variants": variants_s,
                                    "march_variants": march_variants_s,
+                                   "capacity": report["capacity"]["seconds"],
                                    "bf16_variants": bf16_variants_s,
                                    **{name: b - a for name, a, b in
                                       zip(("camera", "live", "mesh", "preprocess"), marks,
@@ -2524,6 +2549,276 @@ def march_variants_phase(report, root, variant_eval, variant_state):
             "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bms, "bound_by": by,
             "library_ms": None, "calls": rows})
     return entries
+
+
+def capacity_phase(report, out_dir, root, smi):
+    """capacity: the trainer's adaptive capacities (``train/capacity.py``)
+    on the card. Measured only: the times stand beside the card's name and
+    power limit (``smi``) and claim nothing.
+
+    Three head-stage runs through ``train`` on the written directory at the
+    ``Options`` defaults (``auto_capacity`` on) but an upkeep every
+    CAP_UPKEEP steps, CAP_EPOCHS epochs, launch counts from 0, K, S and the
+    group slots recorded at each upkeep (those after an epoch's first step
+    adapt) with JAX's log lines: "defaults", from scratch; "march_group",
+    the same with ``march_group`` on: B at the steps before the first
+    adaptation, B-grouped at every step after it, once K <= MARCH_K_CAP;
+    "warm", a trainer resumed at step 1 on the bench scene's occupancy (the
+    head the directory's frames were rendered from) with an untrained
+    field: K and S shrink to that head at the first adapting upkeep, and
+    later ones follow the samples as training adds them (at least two
+    adaptations). B (bit for bit), C and C' against
+    their plain versions on the calls of the warm run's first step after
+    its first adaptation. The head step on the scene's occupancy at the
+    default lattice and at that adapted one, one batch, fenced and
+    profiled in turns. The 512x512 bench frame at the lattice
+    ``fresh_render_config`` sizes (JAX bench.py's two fresh passes at
+    headroom 1.1), with and without ``march_group``, against the default
+    lattice's frame: bit for bit, A, B (or B-grouped) and C launched, A, B
+    and C against their plain versions on its calls; each frame fenced and
+    profiled in turns."""
+    import radnerf_tpu_torch.models.renderer as renderer_mod
+    from radnerf_tpu_torch.config import Options
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.models import RenderConfig, render_rays
+    from radnerf_tpu_torch.ops import (
+        _kernels, composite_rays, composite_rays_backward, composite_rays_backward_plain,
+        composite_rays_plain, march_rays, march_rays_plain,
+    )
+    from radnerf_tpu_torch.scene import build_scene
+    from radnerf_tpu_torch.train import Trainer
+    from radnerf_tpu_torch.train.capacity import fresh_render_config
+
+    t_start = time.perf_counter()
+    problems = []
+    net, scene_rc, scene_state, b, auds = build_scene(512, 512, device="cuda")
+
+    def copy_state(st):
+        return dataclasses.replace(st, **{f.name: getattr(st, f.name).clone()
+                                          for f in dataclasses.fields(st)})
+
+    def lattice(rc):
+        mcfg = rc.march_config()
+        return {"K": mcfg.n_march_iters, "S": mcfg.n_sample_slots,
+                "group_slots": rc.march_group_slots, "march_group": rc.march_group,
+                "ray_capacity_frac": rc.ray_capacity_frac,
+                "sample_capacity_mult": rc.sample_capacity_mult}
+
+    def busy_ms(fn, reps=PROFILED_STEPS):
+        _, events = device_profile(fn, reps)
+        return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+    def adaptive_run(name, group=False, warm=False):
+        """A head trainer at the defaults through ``train``; returns (the
+        trainer, its dataset, the run's record, the march and composite
+        calls of its first step after its first adaptation)."""
+        opt = Options(path=root, exp_eye=True, preload=2, update_extra_interval=CAP_UPKEEP)
+        ds = TalkingHeadDataset(opt, split="train", device="cuda")
+        rc = dataclasses.replace(RenderConfig.from_options(opt), march_group=group)
+        tr = Trainer(opt, render_cfg=rc, device=ds.device)
+        if warm:
+            tr.state, tr.global_step = copy_state(scene_state), 1
+        lines, upkeeps, calls = [], [], []
+        tr.log = lines.append
+
+        def recording_upkeep(dataset):
+            n = _kernels.launches()
+            upkeeps.append({"step": tr.global_step, "adaptations": tr._adapt_count,
+                            **lattice(tr.render_cfg),
+                            "launches_before": {k: n[k] for k in ("march_rays",
+                                                                  "march_rays_grouped")}})
+            Trainer.update_extra_state(tr, dataset)
+
+        def recording_step(batch):
+            if calls or tr._adapt_count == 0:
+                return Trainer.train_step(tr, batch)
+            with recorded_calls([(renderer_mod, "march_rays"),
+                                 (renderer_mod, "composite_rays")]) as got:
+                loss = Trainer.train_step(tr, batch)
+            calls.extend(got)
+            return loss
+
+        tr.update_extra_state, tr.train_step = recording_upkeep, recording_step
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr.train(ds, max_epochs=CAP_EPOCHS)
+        torch.cuda.synchronize()
+        del tr.update_extra_state, tr.train_step  # the class's own again
+        run = {"run": name, "march_group": group, "steps": tr.global_step - int(warm),
+               "seconds": time.perf_counter() - t0, "launches": _kernels.launches(),
+               "adaptations": tr._adapt_count, "upkeeps": upkeeps,
+               "default": lattice(rc), "final": lattice(tr.render_cfg),
+               "log": [l for l in lines if l.startswith(("[INFO] adapt", "==> Finished Epoch",
+                                                         "[WARN]"))],
+               "telemetry_last_step": {k: int(v) for k, v in tr.telemetry.items()}}
+        emit({"phase": f"capacity_{name}", **run})
+        for kernel in TRAIN_KERNELS:
+            if run["launches"][kernel] <= 0:
+                problems.append(f"{name}: kernel {kernel} was not launched")
+        if not all(math.isfinite(v) for v in tr.stats["step_loss"]):
+            problems.append(f"{name}: losses {tr.stats['step_loss']}")
+        if tr._adapt_count < 1 or not run["final"]["K"] < run["default"]["K"]:
+            problems.append(f"{name}: no adaptation narrowed the orbit: {run['final']}")
+        return tr, ds, run, calls
+
+    # ---- the defaults, from scratch
+    tr, ds, run_d, _ = adaptive_run("defaults")
+    del tr, ds
+    torch.cuda.empty_cache()
+
+    # ---- march_group on: B-grouped once the adapted K qualifies it
+    tr, ds, run_g, _ = adaptive_run("march_group", group=True)
+    first = next((u for u in run_g["upkeeps"] if u["adaptations"] >= 1), None)
+    launches_g = run_g["launches"]
+    if first is None or first["K"] > MARCH_K_CAP:
+        problems.append(f"march_group: the lattice after the first adaptation {first}")
+    elif (launches_g["march_rays"], launches_g["march_rays_grouped"]) != \
+            (first["step"], run_g["steps"] - first["step"]):
+        problems.append(f"march_group: launches {launches_g}, the first adaptation at step "
+                        f"{first['step']} of {run_g['steps']}")
+    if run_g["adaptations"] < 2 or not run_g["telemetry_last_step"].get("n_groups_needed"):
+        problems.append(f"march_group: {run_g['adaptations']} adaptations, telemetry "
+                        f"{run_g['telemetry_last_step']}")
+    del tr, ds
+    torch.cuda.empty_cache()
+
+    # ---- warm: the scene's occupancy, then the untrained field's
+    tr, ds, run_w, calls = adaptive_run("warm", warm=True)
+    adapted = [u for u in run_w["upkeeps"] if u["adaptations"] >= 1]
+    shrunk = adapted[0] if adapted else None
+    if run_w["adaptations"] < 2 or shrunk is None or \
+            not shrunk["S"] < run_w["default"]["S"]:
+        problems.append(f"warm: {run_w['adaptations']} adaptations, upkeeps {run_w['upkeeps']}")
+
+    # B, C and C' on the calls of the warm run's first adapted step
+    (_, m_args, m_kw), = [c for c in calls if c[0] == "march_rays"]
+    (_, c_args, c_kw), = [c for c in calls if c[0] == "composite_rays"]
+    mk, mp = march_rays(*m_args, **m_kw), march_rays_plain(*m_args, **m_kw)
+    differing = [k for k in ("valid", "t", "dt", "xyz", "count") if not torch.equal(mk[k], mp[k])]
+    c_in = (*c_args, c_kw["ambient"])
+    outs = composite_rays(*c_in, T_thresh=c_kw["T_thresh"])
+    outs_p = composite_rays_plain(*c_in, T_thresh=c_kw["T_thresh"])
+    gen = torch.Generator(ds.device).manual_seed(9)
+    N = c_args[0].shape[0]
+    grads = {k: torch.randn((N, 3) if k == "image" else (N,), generator=gen, device=ds.device)
+             for k in ("image", "depth", "weights_sum", "ambient_sum")}
+    ck = composite_rays_backward(*c_in, grads, outs, T_thresh=c_kw["T_thresh"])
+    cp = composite_rays_backward_plain(*c_in, grads, T_thresh=c_kw["T_thresh"])
+    torch.cuda.synchronize()
+    checks = {
+        "march_rays": {"n_rays": int(m_args[0].shape[0]), "noises": m_kw.get("noises") is not None,
+                       "K": m_args[5].n_march_iters, "S": int(mk["valid"].shape[1]),
+                       "n_samples": int(mk["valid"].sum()),
+                       "rays_over_S": int((mk["count"] > mk["valid"].shape[1]).sum()),
+                       "bit_for_bit": not differing, "differing": differing},
+        "composite_rays": {"shape": list(c_args[4].shape), "tol": TOL_COMPOSITE,
+                           "max_abs_err": max(float((outs[k] - outs_p[k]).abs().max())
+                                              for k in outs)},
+        "composite_rays_backward": {"tol_rel": TOL_BACKWARD_REL, "grads": {
+            name: {"rel_err": rel_err(a, b_), "max_abs_err": float((a - b_).abs().max())}
+            for name, a, b_ in zip(("sigmas", "rgbs", "ambient"), ck, cp)}},
+    }
+    emit({"phase": "capacity_kernel_checks", **checks})
+    if differing or m_kw.get("noises") is None or shrunk is None or \
+            (checks["march_rays"]["K"], checks["march_rays"]["S"]) != (shrunk["K"], shrunk["S"]) \
+            or checks["march_rays"]["n_samples"] == 0:
+        problems.append(f"B at the adapted lattice: {checks['march_rays']}")
+    if not checks["composite_rays"]["max_abs_err"] <= TOL_COMPOSITE:
+        problems.append(f"C at the adapted lattice: {checks['composite_rays']}")
+    if not max(g["rel_err"] for g in checks["composite_rays_backward"]["grads"].values()) \
+            <= TOL_BACKWARD_REL:
+        problems.append(f"C' at the adapted lattice: {checks['composite_rays_backward']}")
+
+    # the head step on the scene's occupancy, default and adapted lattices
+    batch = tr.next_batch(ds, 1)
+    tr.state = copy_state(scene_state)
+    default = RenderConfig.from_options(tr.opt)
+    small = dataclasses.replace(default, march_iters=shrunk["K"], sample_slots=shrunk["S"])
+
+    def step_at(rc):
+        def step(i):
+            tr.render_cfg = rc
+            tr.train_step(batch)
+        return step
+
+    fenced = {"default": [], "adapted": []}
+    busy = {"default": [], "adapted": []}
+    for name in ("default", "adapted", "adapted", "default"):
+        rc = default if name == "default" else small
+        fenced[name] += fenced_ms(step_at(rc), CAP_TIMED)
+        busy[name].append(busy_ms(step_at(rc)))
+    step_t = {name: {"lattice": lattice(default if name == "default" else small),
+                     "fenced_ms_median": float(np.median(fenced[name])),
+                     "device_busy_ms": float(np.mean(busy[name])),
+                     "device_busy_ms_turns": busy[name]} for name in fenced}
+    step_t["telemetry"] = {k: int(v) for k, v in tr.telemetry.items()}
+    emit({"phase": "capacity_step_timing", "card": smi, **step_t})
+    del tr, ds, batch, calls, mk, mp, outs, outs_p, ck, cp
+    torch.cuda.empty_cache()
+
+    # ---- the bench frame at the fresh lattice against the default lattice
+    def frame(rc_):
+        return render_rays(net, rc_, scene_state, b["rays_o"], b["rays_d"], auds[0],
+                           b["bg_coords"], b["poses"], b["eye"], b["index"], b["bg_color"])[0]
+
+    def telemetry(rc_):
+        return {k: int(v) for k, v in frame(rc_).items() if k.startswith("n_")}
+
+    n, radius = int(b["rays_o"].shape[0]), float(scene_state.occ_sphere[3])
+    frames = {"default": scene_rc,
+              "fresh": fresh_render_config(scene_rc, telemetry, n, radius),
+              "fresh_march_group": fresh_render_config(
+                  dataclasses.replace(scene_rc, march_group=True), telemetry, n, radius)}
+    base = frame(scene_rc)
+    frame_rows = {}
+    for name, rc_ in frames.items():
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        got = frame(rc_)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launches().items() if v}
+        equal = {k: bool(torch.equal(got[k], base[k]))
+                 for k in ("image", "depth", "weights_sum", "torso_alpha")}
+        march = "march_rays_grouped" if rc_.march_group else "march_rays"
+        frame_rows[name] = {"lattice": lattice(rc_), "launches": launches,
+                            "bit_for_bit_with_default": equal,
+                            "telemetry": {k: int(v) for k, v in got.items()
+                                          if k.startswith("n_")}}
+        if not all(equal.values()):
+            problems.append(f"the {name} frame differs from the default lattice's: {equal}")
+        if launches.get(march, 0) != 1 or launches.get("composite_rays", 0) != 1 or \
+                launches.get("grid_encode", 0) != 3:
+            problems.append(f"the {name} frame launched {launches}")
+        if name != "default":
+            checks_f = frame_kernel_checks(lambda rc_=rc_: frame(rc_), {
+                "grid_encode": 3, "march_rays": 0 if rc_.march_group else 1,
+                "composite_rays": 1})
+            frame_rows[name]["kernel_checks"] = checks_f
+            if not all(r["ok"] for rows in checks_f.values() for r in rows):
+                problems.append(f"the {name} frame's kernels differ: {checks_f}")
+    fenced = {name: [] for name in frames}
+    busy = {name: [] for name in frames}
+    for name in list(frames) + list(frames)[::-1]:
+        fenced[name] += fenced_ms(lambda i, rc_=frames[name]: frame(rc_), 10)
+        busy[name].append(busy_ms(lambda i, rc_=frames[name]: frame(rc_)))
+    for name in frames:
+        frame_rows[name].update(fenced_ms_median=float(np.median(fenced[name])),
+                                device_busy_ms=float(np.mean(busy[name])),
+                                device_busy_ms_turns=busy[name])
+    emit({"phase": "capacity_frame", "card": smi, **frame_rows})
+    del net, scene_state, b, auds, base
+    torch.cuda.empty_cache()
+
+    report["capacity"] = {"card": smi, "runs": [run_d, run_g, run_w], "kernel_checks": checks,
+                          "step_timing": step_t, "frame": frame_rows,
+                          "seconds": time.perf_counter() - t_start}
+    emit({"phase": "capacity", "seconds": report["capacity"]["seconds"],
+          **{f"{r['run']}_lattices": [(u["step"], u["K"], u["S"], u["group_slots"])
+                                       for u in r["upkeeps"]] for r in (run_d, run_g, run_w)},
+          "problems": problems})
+    if problems:
+        raise RuntimeError(f"capacity: {problems}")
 
 
 def counted(name, fn):

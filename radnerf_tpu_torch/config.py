@@ -1,9 +1,11 @@
 """Options of the port (a copy of the ``radnerf_tpu/config.py`` ``Options``
 fields the port reads, with the same names and defaults; reference
-main.py:12-108). The TPU capacity knobs (``sample_capacity_mult``,
-``ray_capacity_frac``, ``auto_capacity``, ``cap_overrides``) are left out:
-the port never drops work, so it has nothing for them to size.
-``data_parallel`` shards the training batches and frames over the ranks of
+main.py:12-108). The capacity knobs are JAX's: ``auto_capacity`` adapts
+the render capacities to each upkeep's telemetry (``train/capacity.py``),
+``sample_capacity_mult`` and ``ray_capacity_frac`` start them, and
+``cap_overrides`` names the ones the user set, which beat a checkpoint's
+record. The port drops no work at any of them: of the capacities only K,
+S and the group slots change what it renders. ``data_parallel`` shards the training batches and frames over the ranks of
 an initialised ``torch.distributed`` group (``parallel/mesh.py``); no CLI
 flag sets it, as none of JAX's does."""
 
@@ -110,14 +112,23 @@ class Options:
     test_train: bool = False
     pose: str = ""  # inference only: the pose json
 
-    # grid shape and march length
+    # grid shape and the render capacities
     grid_levels: int = 16
     grid_ch: int = 2
     grid_base: int = 16
     amb_grid_levels: Optional[int] = None
     amb_grid_ch: Optional[int] = None
     amb_grid_base: Optional[int] = None
-    march_iters: Optional[int] = None
+    sample_capacity_mult: float = 4.0  # JAX's field-eval buffer = mult * num_rays
+    march_iters: Optional[int] = None  # None -> the safe bound from MarchConfig
+    ray_capacity_frac: float = 1.0  # JAX's occupied-box ray compaction capacity
+    # adapt the render capacities to the measured occupancy at each upkeep
+    # inside an epoch (the mean_count analogue, raymarching.py:224-229)
+    auto_capacity: bool = True
+    # capacity fields the user set explicitly (main.py's options_from_args
+    # records the flags typed): the trainer keeps these over a checkpoint's
+    # record and restores every other one from it
+    cap_overrides: Tuple[str, ...] = ()
 
     def apply_O(self) -> "Options":
         """-O bundle: fp16 + exp_eye (main.py:111-113)."""

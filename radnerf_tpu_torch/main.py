@@ -14,10 +14,13 @@ In a program: ``main([...], device="cpu")``, which returns the trainer.
 Training runs train -> evaluate every ``eval_interval`` epochs (writing the
 best checkpoint ``ngp.npz``) -> evaluate the test split -> render it to a
 video; ``--test`` evaluates the test split when it has ground truth, then
-renders it. The flags are ``main.py``'s but for the TPU capacity knobs
-(``--sample_capacity_mult``, ``--ray_capacity_frac``): the port never drops
-work. ``-O`` (``--fp16 --exp_eye``) runs the bf16 policy (bf16 MLPs, grid
-encodes on bf16 tables); ``--finetune_lips`` and ``--patch_size`` (>= 32)
+renders it. The flags are ``main.py``'s. The capacity flags
+(``--march_iters``, ``--sample_capacity_mult``, ``--ray_capacity_frac``)
+start the capacities the trainer adapts, and a flag typed beats a
+checkpoint's record, as in JAX; of them only ``--march_iters`` changes
+what the port renders, which drops no work at the other two. ``-O``
+(``--fp16 --exp_eye``) runs the bf16 policy (bf16 MLPs, grid encodes on
+bf16 tables); ``--finetune_lips`` and ``--patch_size`` (>= 32)
 train with the LPIPS term (its seeded, uncalibrated filters unless
 ``--lpips_weights`` names a file); ``--train_camera`` learns per-frame
 camera offsets. ``--gui`` serves the interactive app (``apps/frame_server.py``)
@@ -131,18 +134,41 @@ def build_parser(require_path: bool = True,
                    help="2-D grid channels per level (default --grid_ch)")
     p.add_argument("--amb_grid_base", type=int, default=None,
                    help="2-D grid coarsest resolution (default --grid_base)")
+    # capacity flags: default None is a "not passed" sentinel; a flag the
+    # user types is recorded in Options.cap_overrides and beats a
+    # checkpoint's trained capacities, an unset one keeps the default and
+    # restores from the checkpoint
+    p.add_argument("--sample_capacity_mult", type=float, default=None,
+                   help="JAX's field-eval buffer rows as a multiple of the compacted ray "
+                        "count (default 4.0; adapted from telemetry unless set here; the "
+                        "port drops no sample at it)")
     p.add_argument("--march_iters", type=int, default=None,
-                   help="march orbit length K (default: the safe bound)")
+                   help="march orbit length K (default: the safe bound; adapted from "
+                        "telemetry unless set here)")
+    p.add_argument("--ray_capacity_frac", type=float, default=None,
+                   help="JAX's occupied-box ray compaction capacity as a fraction of the "
+                        "ray batch (default 1.0; adapted from telemetry unless set here; "
+                        "the port drops no ray at it)")
     return p
 
 
+# capacity flags whose provenance keeps them over a checkpoint's record
+_CAP_FLAGS = ("sample_capacity_mult", "march_iters", "ray_capacity_frac")
+
+
 def options_from_args(args) -> Options:
-    """``Options`` from the parsed flags (main.py:150-177): -O and --test
-    apply their bundles; lips finetune stops the grid upkeep."""
+    """``Options`` from the parsed flags (main.py:150-177): the capacity
+    flags typed are recorded in ``cap_overrides``, those not typed keep
+    their defaults; -O and --test apply their bundles; lips finetune stops
+    the grid upkeep."""
     fields = {f.name for f in dataclasses.fields(Options)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw["data_range"] = tuple(args.data_range)
     kw["offset"] = tuple(args.offset)
+    kw["cap_overrides"] = tuple(f for f in _CAP_FLAGS if getattr(args, f, None) is not None)
+    for f in _CAP_FLAGS:
+        if kw.get(f) is None:
+            kw.pop(f, None)
     opt = Options(**kw)
     if args.O:
         opt.apply_O()

@@ -5,12 +5,13 @@
 TPU plumbing: the compacted field
 evaluation with markers and wide-row return trips becomes
 ``valid.nonzero()`` -> field on the packed samples -> scatter back into
-``[N, S]``; row gathers become plain indexing. The port never drops work,
-so the static capacities of the JAX config (``sample_capacity_mult``,
-``ray_capacity_frac``, ``torso_capacity_frac``) have nothing to size; the
-result equals the JAX one at exhaustive capacities. ``march_iters`` (K),
-``sample_slots`` (S) and ``march_group_slots`` truncate the march and are
-honoured.
+``[N, S]``; row gathers become plain indexing. The port never drops work:
+the buffer capacities of the JAX config (``sample_capacity_mult``,
+``ray_capacity_frac``, ``torso_capacity_frac``, ``march_group_mult``) are
+carried for ``train/capacity.py`` and the checkpoints, and size nothing
+here; the result equals the JAX one at exhaustive capacities.
+``march_iters`` (K), ``sample_slots`` (S) and ``march_group_slots``
+truncate the march and are honoured.
 
 The march (kernel B, or with ``march_group`` the two-level march B-grouped
 where the config qualifies), the three grid encodes (kernel A, or its bf16 variant
@@ -68,10 +69,9 @@ SQRT3 = 1.7320508075688772
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration (the JAX ``RenderConfig``, minus the
-    capacity knobs that only size TPU buffers, and minus ``exp_eye`` and
-    ``density_scale``, which no caller sets: the renderer never reads the
-    first and the second is always 1).
+    """Static rendering configuration (the JAX ``RenderConfig``, minus
+    ``exp_eye`` and ``density_scale``, which no caller sets: the renderer
+    never reads the first and the second is always 1).
 
     ``march_group`` turns on the two-level march (``march_rays_grouped``)
     where the config qualifies, as JAX's ``run_head`` chooses: the affine
@@ -79,9 +79,14 @@ class RenderConfig:
     runs. At the defaults (bound 1, grid 128, max_steps 16) K is 129 and
     ceil(K / 4) 33, so the renderer marches densely unless ``march_iters``
     is at most 96. ``march_group_slots`` fine-marches only a ray's first
-    kept groups (None: all). JAX's ``march_group_mult`` is not ported: it
-    sizes JAX's kept-group buffer, and the port drops no group, as it has no
-    ``sample_capacity_mult``.
+    kept groups (None: all).
+
+    ``ray_capacity_frac``, ``sample_capacity_mult``, ``torso_capacity_frac``
+    and ``march_group_mult`` are JAX's buffer capacities, with its names and
+    defaults. The renderer reads none of them and drops no work at them;
+    ``train/capacity.py`` sizes them as JAX does, and the checkpoints record
+    them. After adaptation K can fall to 96 or less, where the two-level
+    march qualifies.
     """
 
     bound: float = 1.0
@@ -99,10 +104,25 @@ class RenderConfig:
     cull_T: float = 1e-6
     march_group: bool = False
     march_group_slots: Optional[int] = None
+    # JAX's buffer capacities (see the class docstring)
+    ray_capacity_frac: float = 1.0
+    sample_capacity_mult: float = 4.0
+    torso_capacity_frac: Optional[float] = None
+    march_group_mult: float = 4.0
 
     @property
     def cascade(self) -> int:
         return 1 + math.ceil(math.log2(max(self.bound, 1.0)))
+
+    @staticmethod
+    def ray_capacity(n_rays: int, frac: float) -> int:
+        """JAX's compacted-ray count for a capacity fraction (x128 rows)."""
+        return max(128, int(-(-n_rays * min(frac, 1.0) // 128)) * 128)
+
+    @staticmethod
+    def sample_capacity(n_rays_cap: int, mult: float) -> int:
+        """JAX's field-eval buffer rows for a compacted ray count (x128)."""
+        return max(128, int(-(-n_rays_cap * mult // 128)) * 128)
 
     @property
     def aabb(self) -> tuple:
@@ -122,7 +142,8 @@ class RenderConfig:
                             density_thresh_torso=opt.density_thresh_torso,
                             max_steps=opt.max_steps, dt_gamma=opt.dt_gamma, torso=opt.torso,
                             smooth_lips=opt.smooth_lips, march_iters=opt.march_iters,
-                            cull_T=opt.cull_T)
+                            cull_T=opt.cull_T, sample_capacity_mult=opt.sample_capacity_mult,
+                            ray_capacity_frac=opt.ray_capacity_frac)
 
 
 @dataclasses.dataclass

@@ -48,8 +48,19 @@ batch with a lips ``rect`` while ``opt.finetune_lips`` is on is one image of
 the rect at weight 0.01; else, with patches, p x p images at 0.001. The
 lips finetune flips ``opt.finetune_lips`` after every step, and the dataset
 that shares the same ``Options`` object alternates rect and full batches
-with it. There is no capacity adaptation: the port never drops work, so it
-has no static capacity to size.
+with it.
+
+With ``opt.auto_capacity`` (the default), every upkeep inside an epoch
+first adapts the render capacities to the telemetry of the epoch's last
+step (``capacity.py``, JAX trainer.py:332-398 and :541-547): K, S and the
+group slots change the lattice the next steps march, the other four are
+JAX's buffer sizes, which the port carries but drops no work at. The
+telemetry is read back once per upkeep; ``train_step`` adds no sync. The
+epoch's last line gives the last step's hits and samples beside JAX's
+capacities, marked ``[DROPPING]`` where JAX would drop work (the port
+does not). Checkpoints record all seven capacities; a load restores them
+but for those the user set (``opt.cap_overrides`` or ``cap_overrides``),
+which it keeps with a warning, as JAX does.
 
 With a workspace the trainer keeps JAX's run log: every ``log`` line goes to
 ``<workspace>/log_<name>.txt`` (appended) and, unless ``mute``, to stdout;
@@ -117,6 +128,7 @@ from ..utils.color import linear_to_srgb, srgb_to_linear
 from ..utils.image import write_png, write_video
 from ..utils.mesh import extract_geometry, save_mesh_ply
 from . import checkpoint as ckpt_lib
+from .capacity import CAPACITY_FIELDS, adapt_render_config, ray_capacity, sample_capacity
 from .losses import head_loss, torso_loss
 
 
@@ -194,6 +206,10 @@ class Trainer:
       use_tensorboard: with a workspace, ``train`` writes tensorboard
         scalars where ``tensorboardX`` imports.
       mute: ``log`` writes to the log file only, not to stdout.
+      cap_overrides: capacity fields (``capacity.CAPACITY_FIELDS``) the user
+        set, beside ``opt.cap_overrides``: a checkpoint's record does not
+        replace them. A given ``render_cfg`` is a starting point, not an
+        override.
     """
 
     def __init__(self, opt: Options, net_cfg: Optional[NetworkConfig] = None,
@@ -201,7 +217,7 @@ class Trainer:
                  ema_decay: Optional[float] = None, name: str = "ngp",
                  workspace: Optional[str] = None, max_keep_ckpt: int = 2,
                  use_checkpoint: str = "latest", metrics=(), eval_interval: int = 1,
-                 use_tensorboard: bool = True, mute: bool = False):
+                 use_tensorboard: bool = True, mute: bool = False, cap_overrides=None):
         if 1 < opt.patch_size < 32:
             # alex-LPIPS needs >= 32 px: smaller inputs leave empty feature
             # maps mid-stack
@@ -232,6 +248,13 @@ class Trainer:
             self.log_path = os.path.join(workspace, f"log_{name}.txt")
         self.net_cfg = net_cfg or NetworkConfig.from_options(opt)
         self.render_cfg = render_cfg or RenderConfig.from_options(opt)
+        # the capacity fields the user set, by provenance (JAX
+        # trainer.py:111-135): they beat a checkpoint's record
+        self._user_cap_fields = set(opt.cap_overrides) | set(cap_overrides or ())
+        unknown = self._user_cap_fields - set(CAPACITY_FIELDS)
+        if unknown:
+            raise ValueError(f"cap_overrides names unknown capacity fields {sorted(unknown)}; "
+                             f"valid: {sorted(CAPACITY_FIELDS)}")
         self.net = NeRFNetwork(self.net_cfg, device=self.device,
                                generator=torch.Generator().manual_seed(opt.seed))
         self.state = RendererState.create(self.render_cfg, self.net_cfg.audio_dim,
@@ -278,6 +301,10 @@ class Trainer:
                       "results": [], "loss_mode": [], "lpips_term": []}
         self._lpips_terms = []  # device scalars of the epoch running
         self.telemetry = {}
+        self._last_n_rays = 0  # the last train step's (global) ray count
+        # adaptations made, and their cap (JAX's bound on its recompiles; the
+        # port keeps it so that both take the same sequence of capacities)
+        self._adapt_count, self._adapt_cap = 0, 6
         self._bg_coords = {}  # (H, W) -> the frame's bg_coords on the device
         self._cap_restored = False
         if workspace:
@@ -383,7 +410,8 @@ class Trainer:
         runs whole on every rank), and averages the gradients and the loss
         over the ranks before Adam steps; the telemetry of a sharded batch
         is reduced over the ranks."""
-        noises = self.draw_noises(batch["rays_o"].shape[0])
+        self._last_n_rays = batch["rays_o"].shape[0]
+        noises = self.draw_noises(self._last_n_rays)
         sharded = (self.world is not None and self.loss_mode(batch) == "none"
                    and batch["rays_o"].shape[0] % self.world[1] == 0)
         if sharded:
@@ -415,6 +443,53 @@ class Trainer:
                 for k, p in self.net.named_parameters():
                     self.ema_params[k].mul_(d).add_(p.detach(), alpha=1.0 - d)
         return loss.detach()
+
+    # ----------------------------------------------- adaptive capacities
+    def _adapt_capacities(self, telemetry: dict, n_rays: int):
+        """Resize the render capacities to a step's telemetry (JAX
+        ``_adapt_capacities``; ``capacity.adapt_render_config``), at most
+        ``_adapt_cap`` times; once the cap binds, warn where the telemetry
+        exceeds JAX's capacities (JAX would drop work there)."""
+        keys = ("n_hit", "n_samples_needed", "n_max_count", "n_k_span", "n_groups_needed",
+                "n_group_max")
+        # the one read-back of the upkeep
+        stats = torch.stack([telemetry[k].to(torch.int64).reshape(()) for k in keys]).tolist()
+        n_hit, n_needed, n_max, n_k_span = stats[:4]
+        rc = self.render_cfg
+        if self._adapt_count >= self._adapt_cap:
+            R_now = ray_capacity(n_rays, rc.ray_capacity_frac)
+            S_now = sample_capacity(R_now, rc.sample_capacity_mult)
+            K_now = rc.march_config().n_march_iters
+            groups_over = rc.march_group and (
+                stats[4] > sample_capacity(R_now, rc.march_group_mult)
+                or (rc.march_group_slots is not None and stats[5] > rc.march_group_slots))
+            if n_hit > R_now or n_needed > S_now or n_k_span > K_now or groups_over:
+                self.log(
+                    f"[WARN] adaptive-capacity cap ({self._adapt_cap} recompiles) "
+                    f"reached while capacities are undersized: hits {n_hit} vs "
+                    f"ray capacity {R_now}, samples {n_needed} vs capacity "
+                    f"{S_now}, window span {n_k_span} vs orbit {K_now} — work "
+                    f"beyond capacity is being DROPPED. Raise "
+                    f"--ray_capacity_frac/--sample_capacity_mult/--march_iters "
+                    f"or the cap (Trainer._adapt_cap).")
+            return
+        n_groups = n_group_max = None
+        if rc.march_group:
+            n_groups, n_group_max = stats[4] or None, stats[5] or None
+        radius = float(self.state.occ_sphere[3])
+        rc2 = adapt_render_config(rc, n_hit, n_needed, n_max, n_rays, radius,
+                                  n_k_span=n_k_span, n_groups=n_groups,
+                                  n_group_max=n_group_max)
+        if rc2 is not None:
+            self.render_cfg = rc2
+            self._adapt_count += 1
+            self.log(
+                f"[INFO] adapt capacities: ray_frac={rc2.ray_capacity_frac:.3f} "
+                f"sample_mult={rc2.sample_capacity_mult} "
+                f"march_iters={rc2.march_iters} "
+                f"sample_slots={rc2.sample_slots} "
+                f"(hits={n_hit}, samples={n_needed}, max_count={n_max}, "
+                f"occ_r={radius:.3f})")
 
     # ------------------------------------------------------ grid upkeep
     def update_extra_state(self, dataset):
@@ -485,11 +560,16 @@ class Trainer:
         """The dataset's batch ``idx`` on the trainer's device."""
         return self.to_device(dataset.collate(int(idx)))
 
-    def step(self, dataset, idx) -> torch.Tensor:
+    def step(self, dataset, idx, telemetry: Optional[dict] = None) -> torch.Tensor:
         """One step of the loop: the grid upkeep when it is due, then a
         train step on the dataset's batch ``idx``; returns the loss (a
-        device scalar, no sync)."""
+        device scalar, no sync). With ``telemetry`` (the last step's of the
+        same epoch, as ``train_one_epoch`` passes it) and
+        ``opt.auto_capacity``, a due upkeep first adapts the render
+        capacities to it."""
         if self.global_step % self.opt.update_extra_interval == 0:
+            if self.opt.auto_capacity and telemetry is not None:
+                self._adapt_capacities(telemetry, self._last_n_rays)
             self.update_extra_state(dataset)
         self.global_step += 1
         return self.train_step(self.next_batch(dataset, idx))
@@ -498,12 +578,13 @@ class Trainer:
         """One pass over ``dataset.epoch_indices()``; returns the step
         losses as floats. The loss is read back once an epoch, and every
         16th step when a tensorboard writer is open (JAX trainer.py:595-601:
-        ``train/loss`` and the grid group's ``train/lr``)."""
+        ``train/loss`` and the grid group's ``train/lr``). Upkeeps after the
+        epoch's first step adapt the capacities (``step``)."""
         self.log(f"==> Start Training Epoch {self.epoch} ...")
         t0 = time.perf_counter()
         losses = []
         for idx in dataset.epoch_indices():
-            losses.append(self.step(dataset, idx))
+            losses.append(self.step(dataset, idx, self.telemetry if losses else None))
             if self.writer is not None and self.global_step % 16 == 0:
                 self.writer.add_scalar("train/loss", float(losses[-1]), self.global_step)
                 lr = self.opt.lr * self.decay_base ** (self.global_step / self.opt.iters)
@@ -515,12 +596,19 @@ class Trainer:
             self._lpips_terms = []
         self.stats["loss"].append(float(np.mean(losses)) if losses else 0.0)
         self.stats["step_loss"].extend(losses)
-        # the last step's rays hit and samples marched (JAX writes them
-        # beside its capacities; the port has none)
-        hits = (f", hits {int(self.telemetry['n_hit'])} rays, samples "
-                f"{int(self.telemetry['n_samples_needed'])}" if losses else "")
+        cap_note = ""
+        if losses:
+            # the last step's rays hit and samples marched beside JAX's
+            # capacities: [DROPPING] where JAX would drop work (the port
+            # renders them all)
+            rc, n_hit = self.render_cfg, int(self.telemetry["n_hit"])
+            n_needed = int(self.telemetry["n_samples_needed"])
+            R = ray_capacity(self._last_n_rays, rc.ray_capacity_frac)
+            S = sample_capacity(R, rc.sample_capacity_mult)
+            cap_note = (f", hits {n_hit}/{R} rays, samples {n_needed}/{S}"
+                        + (" [DROPPING]" if n_hit > R or n_needed > S else ""))
         self.log(f"==> Finished Epoch {self.epoch}: loss={self.stats['loss'][-1]:.6f}, "
-                 f"{len(losses) / max(time.perf_counter() - t0, 1e-9):.2f} steps/s{hits}")
+                 f"{len(losses) / max(time.perf_counter() - t0, 1e-9):.2f} steps/s{cap_note}")
         return losses
 
     # ------------------------------------------------------- eval and test
@@ -848,10 +936,10 @@ class Trainer:
             "global_step": self.global_step,
             "mean_density": float(self.state.mean_density),
             "mean_density_torso": float(self.state.mean_density_torso),
-            # the march lattice the field was trained with; the JAX trainer
-            # keeps its own TPU capacities for the fields this lacks
-            "render_cfg": {"march_iters": rc.march_iters, "sample_slots": rc.sample_slots,
-                           "march_group_slots": rc.march_group_slots},
+            # the adapted capacities and the march lattice the field was
+            # trained with: a fresh JAX trainer at default capacities drops
+            # work (PARITY.md), and another K or S changes the quadrature
+            "render_cfg": {k: getattr(rc, k) for k in CAPACITY_FIELDS},
             "grid_shape": self._grid_shape_id(),
         }
         if best:
@@ -904,8 +992,9 @@ class Trainer:
         """Load a checkpoint of either package (``.npz``) or a reference
         ``.pth`` (utils.py:1362-1427): parameters in place (a head checkpoint
         leaves the torso's as they are), the EMA merged, the renderer state
-        rebuilt, ``march_iters``, ``sample_slots`` and ``march_group_slots``
-        restored, and unless
+        rebuilt, the seven capacities restored but for those the user set
+        (kept, with a warning) and, on a ``model_only`` load, all of them
+        when the trainer has restored its own already; and unless
         ``model_only`` the epoch and step counts. Adam starts afresh, then
         takes the checkpoint's moments and schedule on a full load (the
         port's own, or a JAX checkpoint's optax state)."""
@@ -918,18 +1007,27 @@ class Trainer:
             return
         params, state, ema, opt_flat, meta = ckpt_lib.load_checkpoint(path)
         self._check_grid_shape(path, meta, params)
-        cap = meta.get("render_cfg")
-        # a model-only load (freeze_loaded_head) keeps the lattice a trainer
-        # has already restored from its own checkpoint; the JAX record's
-        # capacity fields size TPU buffers, and the port has nothing to size
-        if cap and not (model_only and self._cap_restored):
-            self.render_cfg = dataclasses.replace(
-                self.render_cfg, **{k: cap[k] for k in ("march_iters", "sample_slots",
-                                                        "march_group_slots") if k in cap})
+        cap = {k: v for k, v in (meta.get("render_cfg") or {}).items() if k in CAPACITY_FIELDS}
+        # a model-only load (freeze_loaded_head) keeps the capacities a
+        # trainer has already restored from its own checkpoint
+        if model_only and self._cap_restored:
+            cap = {}
+        if cap and self._user_cap_fields:
+            # the capacities the user set beat the checkpoint's record
+            skipped = {k: v for k, v in cap.items() if k in self._user_cap_fields}
+            if skipped:
+                self.log(
+                    "[WARN] checkpoint carries trained render capacities "
+                    f"{skipped} but these fields were explicitly set at "
+                    "construction — keeping the constructor values "
+                    f"({ {k: getattr(self.render_cfg, k) for k in skipped} }).")
+            cap = {k: v for k, v in cap.items() if k not in self._user_cap_fields}
+        if cap:
+            self.render_cfg = rc = dataclasses.replace(self.render_cfg, **cap)
+            self.log("[INFO] restored trained render capacities "
+                     f"(frac={rc.ray_capacity_frac} mult={rc.sample_capacity_mult} "
+                     f"K={rc.march_iters} slots={rc.sample_slots})")
             self._cap_restored = True
-            rc = self.render_cfg
-            self.log(f"[INFO] restored trained render capacities (K={rc.march_iters} "
-                     f"slots={rc.sample_slots} group_slots={rc.march_group_slots})")
         if params is not None:
             self._load_params(params)
         if state is not None:

@@ -173,8 +173,8 @@ def gui_trainers(head_params, data_dir, tmp_path_factory):  # noqa: F811
                   params=jax.tree_util.tree_map(jnp.asarray, head_params),
                   use_checkpoint="scratch", use_tensorboard=False, mute=True)
     jt.state = _blob_state_j(JRenderConfig(**RC_J), _blob_grid(GRID), 1.0)
-    tr = Trainer(Options(path=data_dir, **opt), NetworkConfig(**SMALL), RenderConfig(**RC),
-                 device="cpu")
+    tr = Trainer(Options(path=data_dir, auto_capacity=False, **opt), NetworkConfig(**SMALL),
+                 RenderConfig(**RC), device="cpu")
     load_jax_params(tr.net, head_params)
     tr.state = state_from_numpy(tr.render_cfg, _blob_grid(GRID), np.zeros(GRID * GRID),
                                 1.0, 0.0, thresh=1.0, device="cpu")

@@ -31,8 +31,11 @@ from radnerf_tpu_torch.train import PSNRMeter, Trainer, load_checkpoint
 from test_torch_train import GRID, SMALL, _blob_state_j, head_params  # noqa: F401
 from test_train import _blob_grid, data_dir  # noqa: F401  (the on-disk dataset fixture)
 
-RC = dict(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=0.0, smooth_lips=True)
-RC_J = dict(RC, exp_eye=True, sample_capacity_mult=16.0, ray_capacity_frac=1.0)
+# both packages at exhaustive capacities: a checkpoint carries them to the
+# other trainer
+RC = dict(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=0.0, smooth_lips=True,
+          sample_capacity_mult=16.0, ray_capacity_frac=1.0)
+RC_J = dict(RC, exp_eye=True)
 OPT = dict(num_rays=512, exp_eye=True, iters=100, dt_gamma=0.0, cull_T=0.0, smooth_lips=True,
            fix_eye=0.3, update_extra_interval=2, ema_update_interval=2)
 
@@ -49,9 +52,9 @@ def _jax_trainer(data_dir, workspace, **kw):  # noqa: F811
 
 
 def _port_trainer(data_dir, workspace=None, **kw):  # noqa: F811
-    return Trainer(Options(path=data_dir, **OPT), NetworkConfig(**SMALL), RenderConfig(**RC),
-                   device="cpu", ema_decay=0.95, metrics=[PSNRMeter()], workspace=workspace,
-                   **kw)
+    return Trainer(Options(path=data_dir, auto_capacity=False, **OPT), NetworkConfig(**SMALL),
+                   RenderConfig(**RC), device="cpu", ema_decay=0.95, metrics=[PSNRMeter()],
+                   workspace=workspace, **kw)
 
 
 def _datasets(data_dir, split):  # noqa: F811

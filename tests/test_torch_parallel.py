@@ -8,8 +8,8 @@ results to a file: a head step of 512 rays (tests/test_torch_train.py's
 narrow model and blob scene), a patch step with its LPIPS term, an endurance
 run of 18 head steps across the upkeep at step 16 and a torso-stage run
 across its own, the frame by ``render_frame_dp`` (1024 rays, and 1037 padded
-by ``pad_to_multiple``) and through ``Trainer.test_step``, and a short
-``train`` with a workspace on each rank. The spawned ranks import this
+by ``pad_to_multiple``) and through ``Trainer.test_step``, 3 epochs that
+adapt the capacities, and a short ``train`` with a workspace on each rank. The spawned ranks import this
 module, so its top level imports the port alone; JAX and the parity tests'
 fixtures are imported inside the parent's functions.
 """
@@ -35,6 +35,7 @@ from radnerf_tpu_torch.convert import (
 from radnerf_tpu_torch.models import NeRFNetwork, NetworkConfig, RenderConfig, render_rays
 from radnerf_tpu_torch.parallel import create_mesh, pad_to_multiple, render_frame_dp, shard_batch
 from radnerf_tpu_torch.train import PSNRMeter, Trainer
+from radnerf_tpu_torch.train.capacity import CAPACITY_FIELDS
 
 WORLD = 2
 JOIN_TIMEOUT_S = 300  # all ranks together; a collective gives up after COLLECTIVE_S
@@ -193,6 +194,8 @@ def _rank_checks(rank, payload, ws_root):
                      "telemetry": {k: int(v) for k, v in tr.telemetry.items()},
                      "arrays": _in_sync_arrays(tr)}
 
+    out["adaptive"] = adaptive_run(payload, data_parallel=True)
+
     # the frame: divided, padded, and through the trainer
     net = network_from_jax(payload["torso_params"], NetworkConfig(**SMALL_T), device="cpu")
     rc = RenderConfig(torso=True, **RC)
@@ -220,6 +223,21 @@ def _rank_checks(rank, payload, ws_root):
     out["train"] = {"valid_loss": tr.stats["valid_loss"], "results": tr.stats["results"],
                     "loss": tr.stats["loss"], "mute": tr.mute, "ws": ws}
     return out
+
+
+def adaptive_run(payload, **opt):
+    """3 epochs of FakeDataset's 2 steps with an upkeep every step, so that
+    each epoch's second upkeep adapts the capacities (``auto_capacity``):
+    the capacities after each epoch, the adaptations, the step losses and
+    the arrays that must agree across ranks."""
+    tr = _trainer(payload, update_extra_interval=1, **opt)
+    ds, caps = FakeDataset(seed=2), []
+    for epoch in (1, 2, 3):
+        tr.epoch = epoch
+        tr.train_one_epoch(ds)
+        caps.append(tuple(getattr(tr.render_cfg, f) for f in CAPACITY_FIELDS))
+    return {"caps": caps, "adaptations": tr._adapt_count, "losses": tr.stats["step_loss"],
+            "arrays": _in_sync_arrays(tr)}
 
 
 def _rank_main(rank, init_file, out_dir, payload):
@@ -470,6 +488,21 @@ def test_dp_ranks_stay_in_sync(ranks, run):
         assert r0["mean_density_torso"] > 0
     assert set(r0["arrays"]) == set(r1["arrays"])
     assert sum(k.startswith("adam/") for k in r0["arrays"]) > 0
+    for k, v in r0["arrays"].items():
+        assert torch.equal(v, r1["arrays"][k]), k
+
+
+def test_dp_adaptive_capacities_match_one_rank(ranks, payload):
+    """Under data parallelism each rank adapts the capacities from the
+    telemetry reduced over the ranks: after each of 3 epochs both ranks
+    hold the 1-rank trainer's seven capacities, with the same number of
+    adaptations (at least one), their arrays bit for bit alike."""
+    r0, r1 = (r["adaptive"] for r in ranks[0])
+    one = adaptive_run(payload)
+    assert r0["caps"] == r1["caps"] == one["caps"]
+    assert r0["adaptations"] == r1["adaptations"] == one["adaptations"] >= 1
+    assert r0["caps"][-1] != tuple(getattr(RenderConfig(**RC), f) for f in CAPACITY_FIELDS)
+    assert np.all(np.isfinite(r0["losses"])) and r0["losses"] == r1["losses"]
     for k, v in r0["arrays"].items():
         assert torch.equal(v, r1["arrays"][k]), k
 

@@ -1,7 +1,7 @@
 """The port trainer's run log and tensorboard scalars against the JAX
 trainer's, on the CPU: tests/test_train.py's 64x64 on-disk dataset,
-tests/test_torch_train.py's narrow model (grid 32, JAX at exhaustive
-capacities), 16 steps (4 epochs of 4 frames) and one evaluation, then a
+tests/test_torch_train.py's narrow model (grid 32, both at exhaustive
+capacities, no adaptation), 16 steps (4 epochs of 4 frames) and one evaluation, then a
 second trainer of each resuming from the first's workspace, then the test
 split rendered. A recording ``tensorboardX`` module stands in for the real
 one, whether or not it is installed."""
@@ -33,8 +33,11 @@ from radnerf_tpu_torch.train import LMDMeter, LPIPSMeter, PSNRMeter, Trainer
 from test_torch_train import GRID, SMALL
 from test_train import data_dir  # noqa: F401  (the on-disk dataset fixture)
 
-RC = dict(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=0.0)
-RC_J = dict(RC, exp_eye=True, sample_capacity_mult=16.0, ray_capacity_frac=1.0)
+# both packages at exhaustive capacities: a checkpoint carries them to the
+# other trainer
+RC = dict(grid_size=GRID, max_steps=8, dt_gamma=0.0, cull_T=0.0,
+          sample_capacity_mult=16.0, ray_capacity_frac=1.0)
+RC_J = dict(RC, exp_eye=True)
 OPT = dict(num_rays=512, exp_eye=True, iters=100, dt_gamma=0.0, cull_T=0.0)
 EPOCHS = 4  # 16 steps: the scalars of step 16
 
@@ -99,8 +102,9 @@ def runs(data_dir, tmp_path_factory):  # noqa: F811
             return jt
 
         def port_trainer(ws, ckpt):
-            return Trainer(Options(path=data_dir, **OPT), NetworkConfig(**SMALL),
-                           RenderConfig(**RC), device="cpu", metrics=[PSNRMeter()],
+            return Trainer(Options(path=data_dir, auto_capacity=False, **OPT),
+                           NetworkConfig(**SMALL), RenderConfig(**RC), device="cpu",
+                           metrics=[PSNRMeter()],
                            workspace=ws, eval_interval=EPOCHS, use_checkpoint=ckpt, mute=True)
 
         def datasets(cls, opt, **kw):
