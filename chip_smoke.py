@@ -191,6 +191,27 @@ bf16_variant_kernel_checks), and the README's -O recipe through the CLIs
      beside its ms, device ms, plain ms and bound, one kernels-line entry
      per kernel and variant.
 
+The grids past RAD-NeRF's (``lifted_phase``): D outside {2, 3}, more than 32
+levels or 16 channels, which A, A', A-bf16, its packing pass and A'-bf16
+run on their general path:
+ lifted: ``main --exp_eye --amb_dim 4 --grid_levels 33 --grid_ch 17`` (a
+     4-D ambient grid, 33 levels of 17 channels in every grid, float32) and
+     ``main -O --exp_eye --amb_dim 1 --grid_levels 40 --grid_ch 32`` on the
+     same directory at full width, each: LIFTED_STEPS head steps, the
+     evaluation, the test split, ``--test``, ``--torso`` (LIFTED_TORSO_STEPS
+     steps) and ``infer --torso``, each command with every launch count set
+     to 0 just before and read just after (the run's grid kernels launched,
+     the other policy's never), the fixed batch's loss falling, the files
+     written; one more head step's grid calls recorded and held to their
+     plain versions (A, A-bf16 and the packing bit for bit, A' and A'-bf16
+     per row, as the variants checks hold them); then LIFTED_POINTS seeded
+     points a grid of LIFTED_GRIDS (hash and tiled D = 1, 4, 7; tiled D = 8
+     at 1 channel and 4 levels; 33 and 64 levels; 17, 32 and 64 channels,
+     32 on a hash grid too) through A and A' with x and, on the tiled grids,
+     A-bf16, its packing pass and A'-bf16, each held the same way, beside
+     its ms, device ms, plain ms and bound; one kernels-line entry a kernel
+     for each run and for the spread points.
+
 Camera offsets, the live path, meshes (each path with the launch counts
 set to 0 just before and read just after):
  camera: ``main -O --train_camera`` at full width, the offsets moved and
@@ -404,6 +425,38 @@ MARCH_ADVERSARIAL_RAYS = 65536
 CAP_UPKEEP, CAP_EPOCHS, CAP_TIMED = 4, 4, 8
 BF16_VARIANT_FLAGS = ["--grid_levels", "8", "--grid_ch", "4"]
 BF16_VARIANT_STEPS, BF16_VARIANT_TORSO_STEPS = 16, 8
+# the lifted phase: the grids past RAD-NeRF's (D outside {2, 3}, more than
+# 32 levels or 16 channels), which the kernels' general path runs. Two CLI
+# runs at full width on the written directory, each with every grid of its
+# flags on the general path: float32 with a 4-D ambient grid and 33 levels
+# of 17 channels in every grid, -O with a 1-D ambient grid and 40 levels of
+# 32; LIFTED_STEPS head steps (one epoch of the 8 frames) and as many torso
+# steps each. Then LIFTED_POINTS spread points a grid of LIFTED_GRIDS
+# (16 levels of 2 channels, desired resolution 2048, unless named; the
+# 1-D hash grid at 2^10 rows, so that its finest levels hash)
+LIFTED_RUNS = {
+    "f32": ["--exp_eye", "--amb_dim", "4", "--grid_levels", "33", "--grid_ch", "17"],
+    "bf16": ["-O", "--exp_eye", "--amb_dim", "1", "--grid_levels", "40", "--grid_ch", "32"],
+}
+LIFTED_STEPS, LIFTED_TORSO_STEPS, LIFTED_POINTS = 8, 8, 1 << 20
+LIFTED_GRIDS = {
+    "hash_d1": dict(input_dim=1, gridtype="hash", log2_hashmap_size=10),
+    "hash_d4": dict(input_dim=4, gridtype="hash"),
+    "hash_d7": dict(input_dim=7, gridtype="hash"),
+    "tiled_d1": dict(input_dim=1),
+    "tiled_d4": dict(input_dim=4),
+    "tiled_d7": dict(input_dim=7),
+    "tiled_d8": dict(input_dim=8, num_levels=4, level_dim=1),
+    "l33": dict(input_dim=3, num_levels=33),
+    "l64": dict(input_dim=3, num_levels=64),
+    "c17": dict(input_dim=3, level_dim=17),
+    "c32": dict(input_dim=3, level_dim=32),
+    "c64": dict(input_dim=3, level_dim=64),
+    "hash_c32": dict(input_dim=3, level_dim=32, gridtype="hash"),
+}
+# the plain backward's points a chunk on the spread points (autograd through
+# the plain encode keeps every corner's rows: 8 GB at 64 channels a chunk)
+LIFTED_PLAIN_CHUNK = 1 << 18
 BF16_VARIANT_GRIDS = {  # name -> GridSpec.create arguments (16 levels, desired 2048)
     "c1": dict(input_dim=3, level_dim=1),
     "c8": dict(input_dim=3, level_dim=8),
@@ -528,43 +581,58 @@ def row_counts(x, spec, bound):
     return counts, int(inb.sum())
 
 
-def grid_work(x, spec, bound, elem=4):
+def _weight_tree_flops(D):
+    """Multiplies that form all 2^D corner weights of a cell as a tree over
+    the dims (dim d doubles the 2^d partial products: 4 + 8 + ... + 2^D),
+    about 2 a corner at any D."""
+    return (1 << (D + 1)) - 4
+
+
+def grid_work(x, spec, bound, elem=4, counts=None):
     """Bytes and flops one grid encode needs for these points: the points,
     the output, and each table row the in-bounds points touch, read once
     (rows of C values of ``elem`` bytes, 2 for the bf16 policy; a hashed
-    level's rows are those its hash reaches); per in-bounds (point, level)
-    3D flops for the position (5D more for smoothstep's weights), 2D per
-    corner weight and 2C per corner accumulation."""
+    level's rows are those its hash reaches; at any D); per in-bounds
+    (point, level) 3D flops for the position, D for the 1 - f terms (5D more
+    for smoothstep's weights), the corner weights as a tree
+    (``_weight_tree_flops``) and 2C per corner accumulation. ``counts``:
+    ``row_counts``' result, where the caller has it."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    counts, n_in = row_counts(x, spec, bound)
+    counts, n_in = counts or row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * elem
     smooth = 5 * D if spec.interpolation == "smoothstep" else 0
-    n_flops = n_in * L * (3 * D + smooth + (1 << D) * (2 * D + 2 * C))
+    n_flops = n_in * L * (4 * D + smooth + _weight_tree_flops(D) + (1 << D) * 2 * C)
     return n_bytes, n_flops
 
 
-def grid_backward_work(x, spec, bound, need_x, elem=4):
+def grid_backward_work(x, spec, bound, need_x, elem=4, counts=None):
     """Bytes and flops the grid-encode backward needs: the points and
     grad_out read once, each touched row of the (float32) table gradient
     written once (and, for the x gradient, each touched table row read once
     and grad_x written); grad_out and table values of ``elem`` bytes (2 for
     the bf16 policy); per in-bounds (point, level) 3D flops for the
-    position, per corner 2D for the weight and C for the weighted gradient,
-    and with the x gradient 2C for the dot with the row, 2D for its weight
-    derivatives and 2D to scale the position gradient (smoothstep: 5D more
-    for the weights and 4D for their slopes)."""
+    position, D for the 1 - f terms, the corner weights as a tree
+    (``_weight_tree_flops``) and C a corner for the weighted gradient; with
+    the x gradient 2C a corner for the dot with the row, the weights'
+    derivatives as the reverse of that tree (its multiplies again, and one
+    multiply-add a corner for the dims' differences) and 2D to scale the
+    position gradient (smoothstep: 5D more for the weights and 4D for their
+    slopes). ``counts`` as grid_work's."""
     D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    counts, n_in = row_counts(x, spec, bound)
+    counts, n_in = counts or row_counts(x, spec, bound)
     n_rows = int((counts > 0).sum())
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * 4
-    per_corner = 2 * D + C
+    tree = _weight_tree_flops(D)
+    per_point = 4 * D + tree
+    per_corner = C
     smooth = 5 * D if spec.interpolation == "smoothstep" else 0
     if need_x:
         n_bytes += n_rows * C * elem + x.numel() * 4
-        per_corner += 2 * C + 2 * D
+        per_point += tree + 2 * D
+        per_corner += 2 * C + 2
         smooth += 4 * D if smooth else 0
-    n_flops = n_in * L * (3 * D + smooth + (1 << D) * per_corner + (2 * D if need_x else 0))
+    n_flops = n_in * L * (per_point + smooth + (1 << D) * per_corner)
     return n_bytes, n_flops
 
 
@@ -1023,6 +1091,8 @@ def main():
         bf16_variants_s = time.perf_counter() - t0
         del step_calls
         torch.cuda.empty_cache()
+        kernels += lifted_phase(report, root)
+        torch.cuda.empty_cache()
         recipe_launches = recipe_phase(report, root)
         for k in bf16_entries:
             k["launches"] = recipe_launches[k["name"]]
@@ -1042,6 +1112,7 @@ def main():
                                    "march_variants": march_variants_s,
                                    "capacity": report["capacity"]["seconds"],
                                    "bf16_variants": bf16_variants_s,
+                                   "lifted": report["lifted"]["seconds"],
                                    **{name: b - a for name, a, b in
                                       zip(("camera", "live", "mesh", "preprocess"), marks,
                                           marks[1:])}}
@@ -2096,21 +2167,22 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
     channels, B on the general orbit at cascade 2) carry its launches, the
     others, which run only in their checks, the launches of their check."""
     from radnerf_tpu_torch.ops import (
-        GridSpec, MarchConfig, get_encoder, grid_encode, grid_encode_backward,
-        grid_encode_backward_plain, grid_encode_plain, march_rays, march_rays_plain,
+        GridSpec, MarchConfig, get_encoder, grid_encode, march_rays, march_rays_plain,
     )
 
     dev = step_calls[0][1][0].device
     gen = torch.Generator(dev).manual_seed(31)
-    fwd, bwd, mar = [], [], []
+    rows = {"grid_encode": [], "grid_encode_backward": [], "march_rays": []}
+    mar = []
+    # a step's backward call carries its forward's points and table: the
+    # step's A and A' are held on it, the eval frame's A on its own calls
     for where, calls in (("step", step_calls), ("eval", eval_calls)):
         for name, args, kw in calls:
-            if name == "grid_encode":
-                fwd.append(("path", where, *args))
-            elif name == "grid_encode_backward":
-                x, table, go, spec, bound = args
-                bwd.append(("path", where, x, table, go, spec, bound, kw["need_x"]))
-            else:  # the renderer passes the window, cull and noises by name
+            if name == "grid_encode_backward":
+                grid_kernel_rows(rows, "path", where, *args, kw["need_x"], floor=True)
+            elif name == "grid_encode" and where == "eval":
+                grid_kernel_rows(rows, "path", where, *args[:2], None, *args[2:], False)
+            elif name == "march_rays":  # the renderer passes the window, cull and noises by name
                 mar.append(("general_cascade2", where, args, kw))
     specs = {"hashgrid": get_encoder("hashgrid")[0].spec,
              **{k: GridSpec.create(num_levels=16, desired_resolution=2048, **v)
@@ -2120,60 +2192,12 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
         x = (torch.rand((VARIANT_POINTS, D), generator=gen, device=dev) * 2.04 - 1.02)
         table = torch.randn((spec.n_embeddings, C), generator=gen, device=dev)
         go = torch.randn((VARIANT_POINTS, spec.output_dim), generator=gen, device=dev)
-        fwd.append((variant, "spread", x, table, spec, 1.0))
-        bwd.append((variant, "spread", x, table, go, spec, 1.0, True))
+        grid_kernel_rows(rows, variant, "spread", x, table, go, spec, 1.0, True, floor=True)
     _, _, m_args, m_kw = next(m for m in mar if m[1] == "eval")
     cfg2 = MarchConfig(bound=2.0, cascade=2, grid_size=m_args[5].grid_size, max_steps=16,
                        dt_gamma=m_args[5].dt_gamma)
     mar.append(("cascade2_affine", "eval", (*m_args[:5], cfg2), m_kw))
 
-    rows = {"grid_encode": [], "grid_encode_backward": [], "march_rays": []}
-    for variant, where, x, table, spec, bound in fwd:
-        def call(x=x, table=table, spec=spec, bound=bound):
-            return grid_encode(x, table, spec, bound)
-        def plain(x=x, table=table, spec=spec, bound=bound):
-            return grid_encode_plain(x, table, spec, bound)
-        got, check_launches = counted("grid_encode", call)
-        want = plain()
-        torch.cuda.synchronize()
-        nb, nf = grid_work(x, spec, bound)
-        bms, by = bound_ms(nb, nf)
-        rows["grid_encode"].append({
-            "variant": variant, "where": where, "spec": str(spec), "n_points": int(x.shape[0]),
-            "check_launches": check_launches, "bit_for_bit": bool(torch.equal(got, want)),
-            "max_abs_err": float((got - want).abs().max()), "ms": cuda_ms(call, 20),
-            "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3), "bound_ms": bms,
-            "bound_by": by, "bytes": nb, "flops": nf})
-    for variant, where, x, table, go, spec, bound, need_x in bwd:
-        def call(x=x, table=table, go=go, spec=spec, bound=bound, need_x=need_x):
-            return grid_encode_backward(x, table, go, spec, bound, need_x=need_x)
-        def plain(x=x, table=table, go=go, spec=spec, bound=bound, need_x=need_x):
-            return grid_encode_backward_plain(x, table, go, spec, bound, need_x=need_x)
-        gk, check_launches = counted("grid_encode_backward", call)
-        gp = plain()
-        counts = row_counts(x, spec, bound)[0]
-        abs_rows = grid_encode_backward_plain(x, table, go.abs(), spec, bound,
-                                              need_x=False)[0]
-        allowed = torch.maximum(
-            2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 * abs_rows.double(),
-            torch.full_like(abs_rows, TOL_STEP_GRAD * float(gp[0].abs().max()),
-                            dtype=torch.float64))
-        torch.cuda.synchronize()
-        nb, nf = grid_backward_work(x, spec, bound, need_x)
-        bms, by = bound_ms(nb, nf)
-        row = {"variant": variant, "where": where, "spec": str(spec),
-               "n_points": int(x.shape[0]), "x_grad": need_x, "check_launches": check_launches,
-               "busiest_row_contributions": int(counts.max()),
-               "table_err_over_allowed": float(((gk[0] - gp[0]).abs().double()
-                                                / allowed).max()),
-               "table_rel_err": rel_err(gk[0], gp[0]),
-               "max_abs_err": float((gk[0] - gp[0]).abs().max()), "ms": cuda_ms(call, 20),
-               "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3),
-               "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf}
-        if need_x:
-            row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
-                       max_abs_err=max(row["max_abs_err"], float((gk[1] - gp[1]).abs().max())))
-        rows["grid_encode_backward"].append(row)
     for variant, where, args, kw in mar:
         def call(args=args, kw=kw):
             return march_rays(*args, **kw)
@@ -2197,13 +2221,17 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
             "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
             "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
             "flops": nf})
-    # what the card still refuses raises before a launch: 17 channels, 33
-    # levels, 4-D points, the bf16 kernels on a hash grid
-    refused = {}
-    for what, kw, dtype in (("c17", dict(level_dim=17), None),
-                            ("l33", dict(num_levels=33), torch.bfloat16),
-                            ("d4", dict(input_dim=4), None),
-                            ("bf16_hash", dict(gridtype="hash"), torch.bfloat16)):
+    # what the card refuses raises before a launch: the bf16 kernels on a
+    # hash grid (no packed copy, as in JAX), a hashed level at D > 7 (no
+    # prime, as in JAX); 17 channels, 33 levels, 1-D and 4-D points are taken
+    refused, want_refused = {}, {}
+    for what, kw, dtype, refuse in (("c17", dict(level_dim=17), None, False),
+                                    ("l33", dict(num_levels=33), torch.bfloat16, False),
+                                    ("d4", dict(input_dim=4), None, False),
+                                    ("d1", dict(input_dim=1), None, False),
+                                    ("bf16_hash", dict(gridtype="hash"), torch.bfloat16, True),
+                                    ("hash_d8", dict(gridtype="hash", input_dim=8), None,
+                                     True)):
         spec = GridSpec.create(**{"num_levels": 4, "base_resolution": 4,
                                   "log2_hashmap_size": 8, **kw})
         x = torch.zeros((4, spec.input_dim), device=dev)
@@ -2213,15 +2241,14 @@ def variant_kernel_checks(report, step_calls, eval_calls, launches):
             refused[what] = False
         except ValueError:
             refused[what] = True
+        want_refused[what] = refuse
+    torch.cuda.synchronize()
     rows["refused"] = refused
     report["variant_kernel_checks"] = rows
     emit({"phase": "variant_kernel_checks", **rows})
-    if not all(refused.values()):
-        raise RuntimeError(f"a variant the kernels do not take was not refused: {refused}")
-    bad = [r for r in rows["grid_encode"] if not r["bit_for_bit"]]
-    bad += [r for r in rows["grid_encode_backward"]
-            if not (r["table_err_over_allowed"] <= 1.0
-                    and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL)]
+    if refused != want_refused:
+        raise RuntimeError(f"the kernels refused {refused}, where they refuse {want_refused}")
+    bad = grid_rows_wrong(rows)
     bad += [r for r in rows["march_rays"] if not r["bit_for_bit"] or r["n_samples"] == 0]
     if bad:
         raise RuntimeError(f"variant kernels differ from their plain versions: {bad}")
@@ -3433,132 +3460,34 @@ def bf16_variant_kernel_checks(report, step_calls, launches):
     device ms, plain ms and bound (bf16 bytes). Returns the kernels line's
     entries, one per kernel and variant: the step's carry the bf16_variants
     phase's launches, the others their check's."""
-    from radnerf_tpu_torch.ops import (
-        GridSpec, grid_encode, grid_encode_backward, grid_encode_backward_plain,
-        grid_encode_plain, pack_table, pack_table_plain,
-    )
+    from radnerf_tpu_torch.ops import GridSpec
 
     bf16 = torch.bfloat16
     dev = step_calls[0][1][0].device
     gen = torch.Generator(dev).manual_seed(41)
-    fwd, bwd = [], []
+    rows = {"grid_encode_bf16": [], "grid_pack_bf16": [], "grid_encode_backward_bf16": [],
+            "grid_encode": [], "grid_encode_backward": []}
+    # each backward call carries its forward's points and table: A-bf16
+    # (packing in the call, as the step does), the packing pass and A'-bf16
+    # are held on it
     for name, args, kw in step_calls:
-        if name == "grid_encode":
-            x, table, spec, bound = args
-            fwd.append(("c4_path", x, table.to(bf16), spec, bound))
-        else:
+        if name == "grid_encode_backward":
             x, table, go, spec, bound = args
-            bwd.append(("c4_path", x, table.to(bf16), go, spec, bound, kw["need_x"]))
-    f32 = []
+            grid_kernel_rows(rows, "c4_path", "step", x, table.to(bf16), go, spec, bound,
+                             kw["need_x"])
     for variant, kw in BF16_VARIANT_GRIDS.items():
         spec = GridSpec.create(num_levels=16, desired_resolution=2048, **kw)
         D, C = spec.input_dim, spec.level_dim
         x = torch.rand((VARIANT_POINTS, D), generator=gen, device=dev) * 2.04 - 1.02
         table = torch.randn((spec.n_embeddings, C), generator=gen, device=dev)
         go = torch.randn((VARIANT_POINTS, spec.output_dim), generator=gen, device=dev)
-        fwd.append((variant, x, table.to(bf16), spec, 1.0))
-        bwd.append((variant, x, table.to(bf16), go.to(bf16), spec, 1.0, True))
+        grid_kernel_rows(rows, variant, "spread", x, table.to(bf16), go.to(bf16), spec, 1.0,
+                         True)
         if C in (3, 16):
-            f32.append((variant, x, table, go, spec))
-
-    rows = {"grid_encode_bf16": [], "grid_pack_bf16": [], "grid_encode_backward_bf16": [],
-            "grid_encode": [], "grid_encode_backward": []}
-    packed_specs = set()
-    for variant, x, tb, spec, bound in fwd:
-        def call(x=x, tb=tb, spec=spec, bound=bound):
-            return grid_encode(x, tb, spec, bound)
-        def plain(x=x, tb=tb, spec=spec, bound=bound):
-            return grid_encode_plain(x, tb, spec, bound)
-        got, n_launch = counted("grid_encode_bf16", call)
-        want = plain()
-        torch.cuda.synchronize()
-        nb, nf = grid_work(x, spec, bound, elem=2)
-        bms, by = bound_ms(nb, nf)
-        rows["grid_encode_bf16"].append({
-            "variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
-            "check_launches": n_launch, "packs_in_call": True,
-            "bit_for_bit": bool(torch.equal(got.view(torch.int16), want.view(torch.int16))),
-            "elements_differing": int((got != want).sum()),
-            "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
-            "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
-            "flops": nf})
-        if (variant, str(spec)) in packed_specs:
-            continue
-        packed_specs.add((variant, str(spec)))
-        pk, n_launch = counted("grid_pack_bf16", lambda: pack_table(tb, spec))
-        pp = pack_table_plain(tb, spec)
-        torch.cuda.synchronize()
-        # the bf16 table read, the packed copy (2^D rows of it) written
-        nb = tb.numel() * 2 * (1 + (1 << spec.input_dim))
-        rows["grid_pack_bf16"].append({
-            "variant": variant, "spec": str(spec), "rows": int(tb.shape[0]),
-            "check_launches": n_launch,
-            "bit_for_bit": bool(torch.equal(pk.view(torch.int16), pp.view(torch.int16))),
-            "max_abs_err": float((pk.float() - pp.float()).abs().max()),
-            "ms": cuda_ms(lambda: pack_table(tb, spec), 20),
-            "device_ms": device_ms(lambda: pack_table(tb, spec), 20),
-            "plain_ms": cuda_ms(lambda: pack_table_plain(tb, spec), 3),
-            "bound_ms": bound_ms(nb, 0)[0], "bound_by": "bytes", "bytes": nb, "flops": 0})
-
-    def backward_row(name, variant, x, table, go, spec, bound, need_x, elem):
-        def call():
-            return grid_encode_backward(x, table, go, spec, bound, need_x=need_x)
-        def plain():
-            return grid_encode_backward_plain(x, table, go, spec, bound, need_x=need_x)
-        gk, n_launch = counted(name, call)
-        gp = plain()
-        # two orders of a row's float32 sum of n terms: within 2 (n - 1)
-        # 2^-24 of its sum of |terms| (bf16_kernel_checks)
-        counts = row_counts(x, spec, bound)[0]
-        abs_rows = grid_encode_backward_plain(x, table, go.abs(), spec, bound,
-                                              need_x=False)[0]
-        row_bound = 2.0 * (counts.double() - 1).clamp_min(1)[:, None] * 2.0**-24 \
-            * abs_rows.double()
-        torch.cuda.synchronize()
-        nb, nf = grid_backward_work(x, spec, bound, need_x, elem=elem)
-        bms, by = bound_ms(nb, nf)
-        row = {"variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
-               "x_grad": need_x, "check_launches": n_launch,
-               "busiest_row_contributions": int(counts.max()),
-               "table_err_over_row_bound": float(((gk[0] - gp[0]).abs().double()
-                                                  / row_bound.clamp_min(1e-300)).max()),
-               "table_rel_err": rel_err(gk[0], gp[0]),
-               "max_abs_err": float((gk[0] - gp[0]).abs().max()),
-               "ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
-               "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by, "bytes": nb,
-               "flops": nf}
-        if need_x:
-            row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
-                       max_abs_err=max(row["max_abs_err"], float((gk[1] - gp[1]).abs().max())))
-        rows[name].append(row)
-
-    for variant, x, tb, go, spec, bound, need_x in bwd:
-        backward_row("grid_encode_backward_bf16", variant, x, tb, go, spec, bound, need_x, 2)
-    for variant, x, table, go, spec in f32:
-        def call(x=x, table=table, spec=spec):
-            return grid_encode(x, table, spec)
-        def plain(x=x, table=table, spec=spec):
-            return grid_encode_plain(x, table, spec)
-        got, n_launch = counted("grid_encode", call)
-        want = plain()
-        torch.cuda.synchronize()
-        nb, nf = grid_work(x, spec, 1.0)
-        bms, by = bound_ms(nb, nf)
-        rows["grid_encode"].append({
-            "variant": variant, "spec": str(spec), "n_points": int(x.shape[0]),
-            "check_launches": n_launch, "bit_for_bit": bool(torch.equal(got, want)),
-            "max_abs_err": float((got - want).abs().max()), "ms": cuda_ms(call, 20),
-            "device_ms": device_ms(call, 20), "plain_ms": cuda_ms(plain, 3), "bound_ms": bms,
-            "bound_by": by, "bytes": nb, "flops": nf})
-        backward_row("grid_encode_backward", variant, x, table, go, spec, 1.0, True, 4)
+            grid_kernel_rows(rows, variant, "spread", x, table, go, spec, 1.0, True)
     report["bf16_variant_kernel_checks"] = rows
     emit({"phase": "bf16_variant_kernel_checks", **rows})
-    bad = [r for name in ("grid_encode_bf16", "grid_pack_bf16", "grid_encode")
-           for r in rows[name] if not r["bit_for_bit"]]
-    bad += [r for name in ("grid_encode_backward_bf16", "grid_encode_backward")
-            for r in rows[name] if not (r["table_err_over_row_bound"] <= 1.0
-                                        and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL)]
+    bad = grid_rows_wrong(rows)
     if bad:
         raise RuntimeError(f"the -O variant kernels differ from their plain versions: {bad}")
     if [r["variant"] for r in rows["grid_encode_bf16"]].count("c4_path") != 2 or \
@@ -3583,6 +3512,361 @@ def bf16_variant_kernel_checks(report, step_calls, launches):
                 "device_ms": sum(r["device_ms"] for r in mine),
                 "plain_ms": sum(r["plain_ms"] for r in mine), "bound_ms": bms,
                 "bound_by": by, "library_ms": None, "calls": mine})
+    return entries
+
+
+def timed_call(fn):
+    """(fn(), ms of that one call between CUDA events, fenced before)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def abs_term_rows(x, spec, bound, g_abs, bf16):
+    """Each table row's sum of |terms| w |g| of a grid-encode backward (the
+    scale of its row bound), in plain ops: the corners' rows and weights of
+    the port's ``_level_corners`` (under the bf16 policy the weights rounded
+    to bf16), one ``index_add_`` a (level, corner) -- where autograd through
+    the plain encode on |g| takes 10-20 s at D = 7 on 2^20 points."""
+    from radnerf_tpu_torch.ops.grid_encode import _level_corners
+
+    L, C = spec.num_levels, spec.level_dim
+    x01 = (x.float() + bound) / (2.0 * bound)
+    live = ((x01 >= 0.0) & (x01 <= 1.0)).all(dim=-1)
+    x01, g = x01[live], g_abs[live].float().reshape(-1, L, C)
+    out = torch.zeros((spec.n_embeddings, C), dtype=torch.float32, device=x.device)
+    for level in range(L):
+        for rows, w in _level_corners(x01, spec, level)[0]:
+            w = w.to(torch.bfloat16).float() if bf16 else w
+            out.index_add_(0, rows, w[:, None] * g[:, level])
+    return out
+
+
+def grid_kernel_rows(rows, variant, where, x, table, go, spec, bound, need_x, floor=False,
+                     chunk=None):
+    """Kernel A and, unless ``go`` is None, A' (on a bf16 table A-bf16, its
+    packing pass and A'-bf16) on one call's inputs against their plain
+    versions, appended to ``rows`` (kernel name -> list): the encodes and
+    the packing bit for bit; the table gradient per row within 2 (n - 1)
+    2^-24 of its sum of |terms| (``abs_term_rows``; with ``floor``, or
+    TOL_STEP_GRAD of the largest, as variant_kernel_checks holds float32),
+    x within 1e-5 of the largest; each with its check's launches, ms and
+    device ms (20 calls each), the plain version's ms (one call; the
+    backward in ``chunk`` points at a time where given) and its bound."""
+    from radnerf_tpu_torch.ops import (
+        grid_encode, grid_encode_backward, grid_encode_backward_plain, grid_encode_plain,
+        pack_table, pack_table_plain,
+    )
+
+    bf16 = table.dtype == torch.bfloat16
+    elem = 2 if bf16 else 4
+    fwd_name, bwd_name = (("grid_encode_bf16", "grid_encode_backward_bf16") if bf16
+                          else ("grid_encode", "grid_encode_backward"))
+    counts = row_counts(x, spec, bound)
+    base = {"variant": variant, "where": where, "spec": str(spec), "n_points": int(x.shape[0])}
+
+    def timing(call, plain_ms, nb, nf):
+        bms, by = bound_ms(nb, nf)
+        return {"ms": cuda_ms(call, 20), "device_ms": device_ms(call, 20),
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "bytes": nb,
+                "flops": nf}
+
+    def fwd():
+        return grid_encode(x, table, spec, bound)
+
+    got, n_launch = counted(fwd_name, fwd)
+    want, plain_ms = timed_call(lambda: grid_encode_plain(x, table, spec, bound))
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16)) if bf16 else \
+        torch.equal(got, want)
+    rows[fwd_name].append({
+        **base, "check_launches": n_launch, "packs_in_call": bf16, "bit_for_bit": bool(same),
+        "elements_differing": int((got != want).sum()),
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        **timing(fwd, plain_ms, *grid_work(x, spec, bound, elem, counts))})
+    del got, want
+    if bf16:
+        def pack():
+            return pack_table(table, spec)
+        pk, n_launch = counted("grid_pack_bf16", pack)
+        pp, plain_ms = timed_call(lambda: pack_table_plain(table, spec))
+        rows["grid_pack_bf16"].append({
+            **base, "rows": int(table.shape[0]), "check_launches": n_launch,
+            "bit_for_bit": bool(torch.equal(pk.view(torch.int16), pp.view(torch.int16))),
+            "max_abs_err": float((pk.float() - pp.float()).abs().max()),
+            # the bf16 table read, the packed copy (2^D rows of it) written
+            **timing(pack, plain_ms, table.numel() * 2 * (1 + (1 << spec.input_dim)), 0)})
+        del pk, pp
+    if go is None:
+        return
+
+    def bwd():
+        return grid_encode_backward(x, table, go, spec, bound, need_x=need_x)
+
+    def plain_bwd():
+        """grid_encode_backward_plain in ``chunk`` points at a time."""
+        step = chunk or x.shape[0]
+        parts = [grid_encode_backward_plain(x[i:i + step], table, go[i:i + step], spec, bound,
+                                            need_x=need_x) for i in range(0, x.shape[0], step)]
+        return (sum(t for t, _ in parts),
+                torch.cat([gx for _, gx in parts]) if need_x else None)
+
+    gk, n_launch = counted(bwd_name, bwd)
+    gp, plain_ms = timed_call(plain_bwd)
+    abs_rows = abs_term_rows(x, spec, bound, go.abs(), bf16)
+    allowed = 2.0 * (counts[0].double() - 1).clamp_min(1)[:, None] * 2.0**-24 * abs_rows.double()
+    allowed = torch.maximum(allowed, torch.full_like(
+        allowed, TOL_STEP_GRAD * float(gp[0].abs().max()) if floor else 1e-300))
+    row = {**base, "x_grad": need_x, "check_launches": n_launch,
+           "busiest_row_contributions": int(counts[0].max()),
+           "table_err_over_allowed": float(((gk[0] - gp[0]).abs().double() / allowed).max()),
+           "table_rel_err": rel_err(gk[0], gp[0]),
+           "max_abs_err": float((gk[0] - gp[0]).abs().max()),
+           **timing(bwd, plain_ms, *grid_backward_work(x, spec, bound, need_x, elem, counts))}
+    if need_x:
+        row.update(x_rel_err=rel_err(gk[1], gp[1]), x_tol_rel=TOL_BACKWARD_REL,
+                   max_abs_err=max(row["max_abs_err"], float((gk[1] - gp[1]).abs().max())))
+    rows[bwd_name].append(row)
+
+
+def grid_rows_wrong(rows):
+    """The rows of ``grid_kernel_rows`` that disagree with their plain
+    versions (empty where every kernel agrees)."""
+    bad = [r for k in ("grid_encode", "grid_encode_bf16", "grid_pack_bf16")
+           for r in rows.get(k, ()) if not r["bit_for_bit"]]
+    return bad + [r for k in ("grid_encode_backward", "grid_encode_backward_bf16")
+                  for r in rows.get(k, ()) if not (r["table_err_over_allowed"] <= 1.0
+                                                   and r.get("x_rel_err", 0.0) <= TOL_BACKWARD_REL)]
+
+
+def lifted_cli(root, name, flags):
+    """One lifted CLI run through the port's entry points on the written
+    directory, each command with launch counts from 0: ``main <flags>``
+    (LIFTED_STEPS head steps: one epoch of the 8 frames, the evaluation, the
+    test split), ``--test`` from its checkpoint, ``--torso`` from its
+    ngp.npz (LIFTED_TORSO_STEPS steps), ``infer --torso`` on INFER_FRAMES
+    audio rows; the loss on a fixed batch before (the seeded init on an
+    upkept grid) and after. Returns (its report, one more head step's
+    recorded grid calls, the grid kernels the run must launch)."""
+    import radnerf_tpu_torch.models.network as network_mod
+    from radnerf_tpu_torch import infer
+    from radnerf_tpu_torch.data import TalkingHeadDataset
+    from radnerf_tpu_torch.main import build_parser, options_from_args
+    from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import RendererState, mark_untrained_grid, update_density_grid
+    from radnerf_tpu_torch.ops import _kernels
+    from radnerf_tpu_torch.train import Trainer
+
+    ws, ws_t = os.path.join(root, f"lifted_{name}"), os.path.join(root, f"lifted_{name}_torso")
+    common = ["--preload", "2", "--ema_update_interval", "1", *flags]
+    argv = [root, "--workspace", ws, *common, "--ckpt", "scratch", "--iters", str(LIFTED_STEPS)]
+    opt = options_from_args(build_parser().parse_args(argv))
+    ds = TalkingHeadDataset(opt, split="train", device="cuda")
+    dev = ds.device
+    tr0 = Trainer(opt, device=dev)
+    cfg, rc = tr0.net.cfg, tr0.render_cfg
+    specs = {"spatial": cfg.grid_spec, "ambient": cfg.ambient_spec, "torso": cfg.torso_spec}
+    fixed = tr0.next_batch(ds, 0)
+    fixed_noises = torch.rand(opt.num_rays, generator=torch.Generator(dev).manual_seed(125),
+                              device=dev)
+    with torch.no_grad():
+        probe = update_density_grid(
+            tr0.net, rc, mark_untrained_grid(rc, RendererState.create(rc, device=dev),
+                                             ds.poses, ds.intrinsics),
+            tr0.net.encode_audio(ds.audio_window(0)), fixed["eye"],
+            generator=torch.Generator(dev).manual_seed(7))
+        loss_0 = float(tr0.loss(fixed, fixed_noises, 0, state=probe)[0])
+    del tr0, probe
+    torch.cuda.empty_cache()
+
+    runs = {}
+
+    def run(cmd, fn, args):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(args)
+        torch.cuda.synchronize()
+        runs[cmd] = {"argv": args, "seconds": time.perf_counter() - t0,
+                     "launches": _kernels.launches()}
+        return out
+
+    tr = run("head", port_main, argv)
+    with torch.no_grad():
+        loss_end = float(tr.loss(fixed, fixed_noises, 0)[0])
+    runs["head"].update(steps=tr.global_step, step_losses=tr.stats["step_loss"],
+                        eval_psnr=tr.stats["results"],
+                        checkpoints=sorted(os.listdir(tr.ckpt_path)),
+                        validation=len(os.listdir(os.path.join(ws, "validation"))))
+    test = run("test", port_main, [root, "--workspace", ws, *common, "--test"])
+    runs["test"].update(eval_psnr=test.stats["results"],
+                        results=sorted(os.listdir(os.path.join(ws, "results"))))
+    del test
+    torso = run("torso", port_main, [root, "--workspace", ws_t, *common, "--torso",
+                                     "--head_ckpt", os.path.join(ws, "checkpoints", "ngp.npz"),
+                                     "--ckpt", "scratch", "--iters", str(LIFTED_TORSO_STEPS)])
+    runs["torso"].update(steps=torso.global_step, step_losses=torso.stats["step_loss"],
+                         eval_psnr=torso.stats["results"],
+                         checkpoints=sorted(os.listdir(torso.ckpt_path)))
+    del torso
+    out = os.path.join(root, f"lifted_{name}_infer")
+    fps = run("infer", infer.main, ["--pose", os.path.join(root, "pose.json"), "--aud",
+                                    os.path.join(root, "novel.npy"), "--workspace", out,
+                                    *flags, "--torso", "--ckpt",
+                                    os.path.join(ws_t, "checkpoints", "ngp.npz")])
+    runs["infer"].update(fps=fps, files=len(os.listdir(os.path.join(out, "results"))))
+
+    grid_mod = sys.modules["radnerf_tpu_torch.ops.grid_encode"]
+    with recorded_calls([(network_mod, "grid_encode"),
+                         (grid_mod, "grid_encode_backward")]) as step_calls:
+        tr.step(ds, ds.epoch_indices()[0])
+    torch.cuda.synchronize()
+    bf16 = cfg.table_dtype == torch.bfloat16
+    fwd, bwd = (("grid_encode_bf16", "grid_encode_backward_bf16") if bf16
+                else ("grid_encode", "grid_encode_backward"))
+    others = ("grid_encode", "grid_encode_backward") if bf16 else BF16_KERNELS
+    packs = ("grid_pack_bf16",) if bf16 else ()
+    rep = {"flags": flags, "runs": {k: {kk: vv for kk, vv in v.items() if kk != "step_losses"}
+                                    for k, v in runs.items()},
+           "grids": {k: str(v) for k, v in specs.items()},
+           # past the specialised kernels' D, levels or channels
+           "general_path": {k: v.input_dim not in (2, 3)
+                            or v.num_levels > _kernels.GRID_MAX_LEVELS
+                            or v.level_dim > _kernels.GRID_MAX_CHANNELS
+                            for k, v in specs.items()},
+           "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
+           "step_losses": {k: runs[k].get("step_losses") for k in runs}}
+
+    problems = []
+    for cmd, need in (("head", (fwd, bwd, *packs, "march_rays", "composite_rays",
+                                "composite_rays_backward")),
+                      ("test", (fwd, *packs)),
+                      ("torso", (fwd, bwd, *packs, "march_rays", "composite_rays")),
+                      ("infer", (fwd, *packs, "march_rays", "composite_rays"))):
+        la = runs[cmd]["launches"]
+        if any(la[k] <= 0 for k in need) or any(la[k] for k in others):
+            problems.append(f"{cmd} launches {la}")
+    for cmd, steps in (("head", LIFTED_STEPS), ("torso", LIFTED_TORSO_STEPS)):
+        r = runs[cmd]
+        if r["steps"] != steps or len(r["step_losses"]) != steps or \
+                not all(math.isfinite(float(v)) for v in r["step_losses"]) or \
+                not r["eval_psnr"] or not all(math.isfinite(v) for v in r["eval_psnr"]):
+            problems.append(f"{cmd}: {r['steps']} steps, losses {r['step_losses']}, "
+                            f"eval {r['eval_psnr']}")
+        if "ngp.npz" not in r["checkpoints"]:
+            problems.append(f"{cmd} wrote {r['checkpoints']}")
+    if not loss_end < loss_0:
+        problems.append(f"the fixed batch's loss did not fall: {loss_0} -> {loss_end}")
+    if not all(rep["general_path"].values()):
+        problems.append(f"a grid of {flags} is not on the general path: {rep['grids']}")
+    # the epoch's evaluation and main's last one
+    if runs["head"]["validation"] != 2 * VAL_FRAMES or \
+            not runs["test"]["results"] or runs["infer"]["files"] not in (1, INFER_FRAMES) or \
+            not runs["infer"]["fps"] > 0:
+        problems.append(f"files: {runs}")
+    if [n for n, _, _ in step_calls] != ["grid_encode", "grid_encode",
+                                         "grid_encode_backward", "grid_encode_backward"]:
+        problems.append(f"the step's calls {[n for n, _, _ in step_calls]}")
+    if problems:
+        raise RuntimeError(f"lifted {name}: {problems}")
+    del tr, ds
+    torch.cuda.empty_cache()
+    return rep, step_calls, (fwd, bwd, *packs)
+
+
+def lifted_phase(report, root):
+    """lifted: the grids past RAD-NeRF's (D outside {2, 3}, more than 32
+    levels or 16 channels), which kernels A, A', A-bf16, its packing pass
+    and A'-bf16 run on their general path. The two CLI runs of LIFTED_RUNS
+    (``lifted_cli``), and each run's recorded head-step grid calls held to
+    their plain versions (``grid_kernel_rows``); then LIFTED_POINTS seeded
+    points (a few outside the box) and a seeded upstream gradient a grid of
+    LIFTED_GRIDS through A and A' with x and, on the tiled grids, A-bf16, its
+    packing pass and A'-bf16, each held to its plain version. Returns the
+    kernels line's entries: per run, each kernel it launched with the run's
+    launches and its recorded calls' times; per kernel, the spread points'
+    calls summed, with their check's launches."""
+    from radnerf_tpu_torch.ops import GridSpec
+
+    t0 = time.perf_counter()
+    kernel_names = ("grid_encode", "grid_encode_backward", "grid_encode_bf16",
+                    "grid_pack_bf16", "grid_encode_backward_bf16")
+    rows = {k: [] for k in kernel_names}
+    runs, entries = {}, []
+    for name, flags in LIFTED_RUNS.items():
+        rep, step_calls, launched = lifted_cli(root, name, flags)
+        runs[name] = rep
+        # each backward call carries its forward's points and (bf16 under -O)
+        # table: the forward, the packing and the backward are held on them
+        for call, args, kw in step_calls:
+            if call == "grid_encode_backward":
+                x, table, go, spec, bound = args
+                grid_kernel_rows(rows, f"{name}_path", "step", x, table, go, spec, bound,
+                                 kw["need_x"], floor=table.dtype == torch.float32)
+        del step_calls
+        torch.cuda.empty_cache()
+        for k in launched:
+            mine = [r for r in rows[k] if r["variant"] == f"{name}_path"]
+            bms, by = bound_ms(sum(r["bytes"] for r in mine), sum(r["flops"] for r in mine))
+            entries.append({
+                "name": f"{k}:lifted_{name}", "route": "cuda",
+                "source": "radnerf_tpu_torch/csrc/" + ("grid_encode_backward.cu" if "backward" in k
+                                                       else "grid_encode.cu"),
+                "replaces": REPLACES[k],
+                "launches": sum(r["launches"][k] for r in rep["runs"].values()),
+                "launches_in": f"the lifted {name} run",
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": sum(r["ms"] for r in mine), "device_ms": sum(r["device_ms"] for r in mine),
+                "plain_ms": sum(r["plain_ms"] for r in mine), "bound_ms": bms,
+                "bound_by": by, "library_ms": None, "calls": mine})
+    cli_s = time.perf_counter() - t0
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(51)
+    for variant, kw in LIFTED_GRIDS.items():
+        spec = GridSpec.create(**{"num_levels": 16, "level_dim": 2,
+                                  "desired_resolution": 2048, **kw})
+        D, C = spec.input_dim, spec.level_dim
+        x = torch.rand((LIFTED_POINTS, D), generator=gen, device=dev) * 2.04 - 1.02
+        table = torch.randn((spec.n_embeddings, C), generator=gen, device=dev)
+        go = torch.randn((LIFTED_POINTS, spec.output_dim), generator=gen, device=dev)
+        grid_kernel_rows(rows, variant, "spread", x, table, go, spec, 1.0, True, floor=True,
+                         chunk=LIFTED_PLAIN_CHUNK)
+        if spec.gridtype == "tiled":
+            grid_kernel_rows(rows, variant, "spread", x, table.to(torch.bfloat16),
+                             go.to(torch.bfloat16), spec, 1.0, True, chunk=LIFTED_PLAIN_CHUNK)
+        del x, table, go
+        torch.cuda.empty_cache()
+    for k in kernel_names:
+        mine = [r for r in rows[k] if r["where"] == "spread"]
+        bms, by = bound_ms(sum(r["bytes"] for r in mine), sum(r["flops"] for r in mine))
+        entries.append({
+            "name": f"{k}:lifted_spread", "route": "cuda",
+            "source": "radnerf_tpu_torch/csrc/" + ("grid_encode_backward.cu" if "backward" in k
+                                                   else "grid_encode.cu"),
+            "replaces": REPLACES[k], "launches": sum(r["check_launches"] for r in mine),
+            "launches_in": "its check only",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": sum(r["ms"] for r in mine), "device_ms": sum(r["device_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "calls": mine})
+    lp = {"runs": runs, "kernel_rows": rows, "cli_seconds": cli_s,
+          "seconds": time.perf_counter() - t0}
+    report["lifted"] = lp
+    emit({"phase": "lifted", "seconds": lp["seconds"], "cli_seconds": cli_s,
+          "runs": {k: {kk: vv for kk, vv in v.items() if kk != "step_losses"}
+                   for k, v in runs.items()},
+          "rows": {k: [{kk: r[kk] for kk in ("variant", "where", "spec", "check_launches",
+                                             "max_abs_err", "device_ms", "bound_ms",
+                                             "plain_ms")
+                        if kk in r} for r in v] for k, v in rows.items()}})
+    bad = grid_rows_wrong(rows)
+    bad += [r for rs in rows.values() for r in rs if r["check_launches"] != 1]
+    if bad:
+        raise RuntimeError(f"lifted: kernels differ from their plain versions: {bad}")
     return entries
 
 

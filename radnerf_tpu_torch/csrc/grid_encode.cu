@@ -7,8 +7,8 @@
 // gather costs per row. For float32 none of that carries over: a Hopper
 // thread reads the 2^D corner rows straight from the [n_emb, C] fp32 table
 // (the bf16 variant below does pack its rows, for another reason). It takes
-// every grid the JAX package does (grid_common.cuh): 1 to 16 channels,
-// hashed levels, smoothstep and align_corners.
+// every grid the JAX package does (grid_common.cuh): hashed levels,
+// smoothstep and align_corners at any D, level count and channel count.
 //
 // What bounds it on an H100: bytes. Per (point, level) it reads 2^D rows of
 // 4C B and writes 4C B, against ~10 flops per corner. The tables on the
@@ -31,7 +31,14 @@
 // (4, 2 or 1 floats), staged as single floats through a tile [32][L C +
 // 1]: 65.7 KB at C = 16 and 32 levels, so the launch opts in to more than
 // the 48 KB of dynamic shared memory a block gets by default
-// (cudaFuncSetAttribute); a block stays 32 points x L levels.
+// (cudaFuncSetAttribute); a block stays 32 points x L levels. Every other
+// grid -- D outside {2, 3}, more than 32 levels or 16 channels -- runs
+// grid_encode_kernel_general (grid_common.cuh's general path): 32 points x
+// Y warps, each warp walking its levels, the cell in shared memory, for
+// each chunk of 16 channels the 2^D corners in order with their rows and
+// weights formed again, the sums in registers, each (point, level)'s
+// channels stored straight to out in units of the widest load that divides
+// a row (64-bit offsets: N L C passes 2^31 at these sizes).
 //
 // Arithmetic mirrors the plain twin (ops/grid_encode.py grid_encode_plain)
 // in the same order (grid_common.cuh): corners 0..2^D-1, the weight's
@@ -69,7 +76,12 @@
 // packed row read 2 bytes at a time. The packed copy is 2^D times the bf16
 // table (28.9 MB for the 3-D head grid at C = 2, 8.9 MB a 2-D grid); the
 // wrapper builds it once per table version (a train step's encode packs
-// its freshly cast table).
+// its freshly cast table). On the general path grid_encode_kernel_general
+// on the bf16 policy (grid_common.cuh Bf16Table) reads the packed row of
+// 2^D x C bf16s (512 bytes at D = 7, C = 2) in units of the widest of 1,
+// 2, 4 or 8 channels that divides C, with scalar products as the
+// run-time-C kernel's, and pack_kernel runs at run-time D (its template
+// D = 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -298,14 +310,81 @@ __global__ void __launch_bounds__(1024) grid_encode_kernel_bf16_any(
   }
 }
 
+// Kernel A and A-bf16 on the general path (any D, L and C;
+// grid_common.cuh), on the table policy P: float32 rows [n_emb, C] ->
+// float32 out, or corner-packed bf16 rows [n_emb, 2^D, C] (tiled grids) ->
+// bf16 out [N, L * C]. W channels a load and a store (float32: 4, 2 or 1,
+// unit_floats; bf16: 8, 4, 2 or 1), each corner's term rounded as the
+// policy's twin does, the channels in chunks of kChunk; shared memory
+// [Y][2][D][32] words (each warp's cell).
+template <typename P, int W, bool kSmooth, bool kHash>
+__global__ void __launch_bounds__(256) grid_encode_kernel_general(
+    const float* __restrict__ x, const typename P::T* __restrict__ table,
+    const float* __restrict__ scales, const int* __restrict__ level_params,
+    typename P::T* __restrict__ out, int N, int D, int L, int C, float shift, float bound,
+    float two_bound) {
+  using T = typename P::T;
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x, y = threadIdx.y, Y = blockDim.y;
+  uint32_t* const pg = reinterpret_cast<uint32_t*>(smem) + 2 * y * D * 32 + lane;
+  float* const frac = reinterpret_cast<float*>(pg + D * 32);
+  const int n = blockIdx.x * 32 + lane;
+  if (n >= N) return;  // no barrier below
+  const float* xn = x + (size_t)n * D;
+  const bool live = grid::in_box(xn, D, bound, two_bound);
+  for (int l = y; l < L; l += Y) {
+    T* const o = out + ((size_t)n * L + l) * C;
+    if (!live) {  // outside the box: exactly zero
+      for (int c = 0; c < C; ++c) o[c] = T(0);
+      continue;
+    }
+    const grid::LevelAny lv = grid::load_level_any(scales, level_params, l, D);
+    grid::cell_any<kSmooth>(xn, D, bound, two_bound, lv.scale, shift, pg, frac, nullptr);
+    const T* cell = table;  // packed: the cell's corner rows, at corner 0's row
+    if constexpr (P::kPacked) {
+      cell += (size_t)grid::corner_row_any<false>(lv, pg, D, 0) * ((size_t)C << D);
+    }
+    for (int c0 = 0; c0 < C; c0 += grid::kChunk) {
+      float acc[grid::kChunk];
+      for (uint32_t k = 0; k < (1u << D); ++k) {  // corners in order, as the twin sums them
+        const float w = P::round(grid::corner_weight_any(frac, D, k));
+        const T* e;
+        if constexpr (P::kPacked) {
+          e = cell + (size_t)k * C + c0;
+        } else {
+          e = table + (size_t)grid::corner_row_any<kHash>(lv, pg, D, k) * C + c0;
+        }
+#pragma unroll
+        for (int u = 0; u < grid::kChunk; u += W) {
+          if (c0 + u < C) {
+            float v[W];
+            P::template load<W>(e + u, v);
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const float t = P::round(w * v[i]);
+              acc[u + i] = k == 0 ? t : acc[u + i] + t;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < grid::kChunk; u += W) {
+        if (c0 + u < C) P::template store<W>(o + c0 + u, acc + u);
+      }
+    }
+  }
+}
+
 // packed[(offset_l + k) * 2^D + c] = emb[offset_l + (k + delta_c) mod T_l]
 // (a row of C bf16s each) for every row k of level l = blockIdx.y, delta_c
 // the corner's sum of strides: corner c's row as corner_row forms it
 // (uint32 sums wrap at 2^32, which a power-of-two T divides; a dense level
-// never wraps). A row is kWords units U (kWords 0: `words` at run time).
-template <int D, typename U, int kWords>
+// never wraps). A row is kWords units U (kWords 0: `words` at run time);
+// kD 0: D (`dims`) at run time.
+template <int kD, typename U, int kWords>
 __global__ void pack_kernel(const U* __restrict__ emb, const int* __restrict__ params,
-                            U* __restrict__ packed, int words) {
+                            U* __restrict__ packed, int words, int dims) {
+  const int D = kD > 0 ? kD : dims;
   const int nw = kWords > 0 ? kWords : words;
   const int* p = params + blockIdx.y * (2 + D);
   const uint32_t offset = (uint32_t)p[0], size = (uint32_t)p[1];
@@ -359,6 +438,65 @@ int launch_any(const void* x, const void* emb, const void* scales, const void* p
       (const float*)x, (const float*)emb, (const float*)scales, (const int*)params,
       (float*)out, N, L, C, shift, bound, two_bound);
   return (int)cudaGetLastError();
+}
+
+// a general-path forward (T: the table's and the output's element):
+// shared memory [Y][2][D][32] words
+template <typename T>
+int launch_general(void (*kernel)(const float*, const T*, const float*, const int*, T*, int,
+                                  int, int, int, float, float, float),
+                   const void* x, const void* table, const void* scales, const void* params,
+                   void* out, int N, int D, int L, int C, float shift, float bound,
+                   float two_bound, cudaStream_t s) {
+  const size_t per_warp = sizeof(uint32_t) * 2 * 32 * (size_t)D;
+  const int Y = grid::general_warps(L, per_warp, 0);
+  const size_t smem = Y * per_warp;
+  const int err = grid::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<(N + 31) / 32, dim3(32, Y), smem, s>>>((const float*)x, (const T*)table,
+                                                 (const float*)scales, (const int*)params,
+                                                 (T*)out, N, D, L, C, shift, bound, two_bound);
+  return (int)cudaGetLastError();
+}
+
+int launch_general_f32(const void* x, const void* emb, const void* scales, const void* params,
+                       void* out, int N, int D, int L, int C, int smoothstep, int hashed,
+                       float shift, float bound, float two_bound, cudaStream_t s) {
+#define GRID_FWD(W, SMOOTH, HASH)                                                               \
+  launch_general<float>(grid_encode_kernel_general<grid::F32Table, W, SMOOTH, HASH>, x, emb,    \
+                        scales, params, out, N, D, L, C, shift, bound, two_bound, s)
+#define GRID_FWD_W(W)                                                                           \
+  if (smoothstep) return hashed ? GRID_FWD(W, true, true) : GRID_FWD(W, true, false);          \
+  return hashed ? GRID_FWD(W, false, true) : GRID_FWD(W, false, false)
+  switch (grid::unit_floats(C)) {
+    case 4: GRID_FWD_W(4);
+    case 2: GRID_FWD_W(2);
+    default: GRID_FWD_W(1);
+  }
+#undef GRID_FWD_W
+#undef GRID_FWD
+}
+
+// the widest of 8, 4, 2 or 1 bf16 channels that divides C
+constexpr int bf16_unit(int C) { return C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1; }
+
+int launch_general_bf16(const void* x, const void* packed, const void* scales,
+                        const void* params, void* out, int N, int D, int L, int C,
+                        int smoothstep, float shift, float bound, float two_bound,
+                        cudaStream_t s) {
+#define GRID_FWD_BF16(W, SMOOTH)                                                                \
+  launch_general<unsigned short>(grid_encode_kernel_general<grid::Bf16Table, W, SMOOTH, false>, \
+                                 x, packed, scales, params, out, N, D, L, C, shift, bound,     \
+                                 two_bound, s)
+#define GRID_FWD_BF16_W(W) return smoothstep ? GRID_FWD_BF16(W, true) : GRID_FWD_BF16(W, false)
+  switch (bf16_unit(C)) {
+    case 8: GRID_FWD_BF16_W(8);
+    case 4: GRID_FWD_BF16_W(4);
+    case 2: GRID_FWD_BF16_W(2);
+    default: GRID_FWD_BF16_W(1);
+  }
+#undef GRID_FWD_BF16_W
+#undef GRID_FWD_BF16
 }
 
 template <int D, int C>
@@ -450,17 +588,18 @@ void launch_bf16(const void* x, const void* packed, const void* scales, const vo
 
 template <int D, typename U, int kWords>
 void launch_pack_units(const void* emb, const void* params, void* packed, int L, int words,
-                       cudaStream_t s) {
+                       int dims, cudaStream_t s) {
   const dim3 grid(264, L);  // 2 blocks an SM for each level
   pack_kernel<D, U, kWords><<<grid, 256, 0, s>>>((const U*)emb, (const int*)params, (U*)packed,
-                                                 words);
+                                                 words, dims);
 }
 
-// a row of C bf16s (2C bytes) in the widest unit that divides it
+// a row of C bf16s (2C bytes) in the widest unit that divides it; D 0: at
+// run time (dims)
 template <int D>
-void launch_pack(const void* emb, const void* params, void* packed, int L, int C,
+void launch_pack(const void* emb, const void* params, void* packed, int L, int C, int dims,
                  cudaStream_t s) {
-#define PACK(U, K, WORDS) launch_pack_units<D, U, K>(emb, params, packed, L, WORDS, s)
+#define PACK(U, K, WORDS) launch_pack_units<D, U, K>(emb, params, packed, L, WORDS, dims, s)
   switch (C) {
     case 1: return PACK(unsigned short, 1, 1);
     case 2: return PACK(uint32_t, 1, 1);
@@ -481,9 +620,9 @@ bool bad_shape(long long N, int D, int L, int C) {
 
 }  // namespace
 
-// kernel A: a float32 table [n_emb, C], C in 1..16, the level rows,
-// smoothstep 0 or 1, hashed 1 where a level may be hashed (a hash grid),
-// the shift (0.5, or 0 under align_corners); float32 out [N, L * C]
+// kernel A: a float32 table [n_emb, C], the level rows, smoothstep 0 or 1,
+// hashed 1 where a level may be hashed (a hash grid), the shift (0.5, or 0
+// under align_corners); float32 out [N, L * C]
 extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scales,
                                const void* level_params, void* out, long long N, int D, int L,
                                int C, int smoothstep, int hashed, float shift, float bound,
@@ -491,6 +630,10 @@ extern "C" int grid_encode_fwd(const void* x, const void* emb, const void* scale
   if (bad_shape(N, D, L, C)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (grid::general_shape(D, L, C)) {
+    return launch_general_f32(x, emb, scales, level_params, out, (int)N, D, L, C, smoothstep,
+                              hashed, shift, bound, two_bound, s);
+  }
   return D == 3 ? launch<3>(x, emb, scales, level_params, out, (int)N, L, C, smoothstep, hashed,
                             shift, bound, two_bound, s)
                 : launch<2>(x, emb, scales, level_params, out, (int)N, L, C, smoothstep, hashed,
@@ -503,15 +646,17 @@ extern "C" int grid_pack_bf16(const void* emb, const void* level_params, void* p
   if (bad_shape(0, D, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (D == 3) {
-    launch_pack<3>(emb, level_params, packed, L, C, s);
+    launch_pack<3>(emb, level_params, packed, L, C, D, s);
+  } else if (D == 2) {
+    launch_pack<2>(emb, level_params, packed, L, C, D, s);
   } else {
-    launch_pack<2>(emb, level_params, packed, L, C, s);
+    launch_pack<0>(emb, level_params, packed, L, C, D, s);
   }
   return (int)cudaGetLastError();
 }
 
-// A-bf16: the packed bf16 table [n_emb, 2^D, C], C in 1..16, smoothstep 0
-// or 1, the shift (0.5, or 0 under align_corners); bf16 out [N, L * C]
+// A-bf16: the packed bf16 table [n_emb, 2^D, C], smoothstep 0 or 1, the
+// shift (0.5, or 0 under align_corners); bf16 out [N, L * C]
 extern "C" int grid_encode_fwd_bf16_packed(const void* x, const void* packed,
                                            const void* scales, const void* level_params,
                                            void* out, long long N, int D, int L, int C,
@@ -521,6 +666,10 @@ extern "C" int grid_encode_fwd_bf16_packed(const void* x, const void* packed,
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int n = (int)N;
+  if (grid::general_shape(D, L, C)) {
+    return launch_general_bf16(x, packed, scales, level_params, out, n, D, L, C, smoothstep,
+                               shift, bound, two_bound, s);
+  }
 #define GRID_FWD_BF16(DIM, SMOOTH)                                                         \
   launch_bf16<DIM, SMOOTH>(x, packed, scales, level_params, out, n, L, C, shift, bound,   \
                            two_bound, s)

@@ -33,7 +33,16 @@
 // C up to 16 runs grid_encode_bwd_kernel_any, C at run time and the
 // channels a loop over units of the widest load that divides a row (float4
 // at C = 12 and 16, float2 at even C, a float at odd C), each unit merged
-// over the run and added as one reduction a row. Every
+// over the run and added as one reduction a row. Every other grid -- D
+// outside {2, 3}, more than 32 levels or 16 channels -- runs
+// grid_encode_bwd_kernel_general (grid_common.cuh's general path): 32 points
+// x Y warps, each warp walking the levels y, y + Y, ... in rounds of Y
+// levels, the cell in shared memory, the corner pairs and channel units as
+// the run-time-C kernel's; each level's share of the x gradient goes
+// through shared memory and after each round warp 0 adds the round's
+// shares to its running sums in level order, so the x gradient is summed
+// in the same order as at L <= 32, with no atomics, in bounded shared
+// memory. Every
 // level adds into global memory: on the step's own points a per-block sum
 // of the coarse levels in shared memory is slower (PERF.md). Under smoothstep the x gradient takes
 // d frac / d pos = 6 f (1 - f) of each dim's cell fraction f.
@@ -73,7 +82,9 @@
 // = 2, two at C = 4, four at C = 8), and grid_encode_bwd_finish_kernel
 // forms each row unit by unit; A'-bf16 is templated on C in {1, 2, 4, 8}
 // and smoothstep (the shift at run time), and any other C up to 16 runs
-// grid_encode_bwd_kernel_bf16_any, C at run time.
+// grid_encode_bwd_kernel_bf16_any, C at run time; every other grid
+// grid_encode_bwd_kernel_general on the bf16 policy (grid_common.cuh
+// Bf16Table), adding into the pair keys as the run-time-C kernel does.
 
 // The atomic order varies from run to run, so the table gradient is not
 // bit-exact between runs or with the plain version; it agrees to the
@@ -513,6 +524,124 @@ __global__ void __launch_bounds__(1024) grid_encode_bwd_kernel_bf16_any(
   if (kNeedX) store_x_grad<D>(xg, gpos, slope, lv.scale, two_bound, live, n, N, L, grad_x);
 }
 
+// A point's x gradient on the general path, after each round of Y levels
+// (every thread of the block calls it): each level's share (gpos times
+// d frac / d pos and scale / (2 bound), 0 outside the box) is in its
+// warp's gpos [Y][4][D][32] (the share at word 3 D 32 of the warp's
+// cell), and warp 0 adds the round's shares, in level order, to its
+// running sums [D][32] (from 0 at round 0: store_x_grad's order).
+__device__ __forceinline__ void sum_round(const float* __restrict__ shares,
+                                          float* __restrict__ sums, int D, int round, int Y,
+                                          int L, bool keep) {
+  __syncthreads();
+  if (threadIdx.y == 0 && keep) {
+    for (int d = 0; d < D; ++d) {
+      float s = round == 0 ? 0.0f : sums[32 * d];
+      for (int k = 0; k < Y && round * Y + k < L; ++k) s = s + shares[(4 * k * D + d) * 32];
+      sums[32 * d] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// Kernels A' and A'-bf16 on the general path (any D, L and C;
+// grid_common.cuh), on the table policy P: float32 table and grad_out, the
+// table gradient added into grad_table [n_emb, C] per row pair; or bf16
+// ones (tiled grids), the weights rounded to bf16, the table gradient added
+// into the pair keys [n_emb, 2C] as grid_encode_bwd_kernel_bf16_any adds
+// it. W channels a unit (float32: unit_floats(C); bf16: 2 where C is even,
+// else 1); shared memory [Y][4][D][32] words (each warp's cell: corners,
+// fractions, slopes, the level's x-gradient share) and the x gradient's
+// running sums [D][32].
+template <typename P, int W, bool kSmooth, bool kHash, bool kNeedX>
+__global__ void __launch_bounds__(256) grid_encode_bwd_kernel_general(
+    const float* __restrict__ x, const typename P::T* __restrict__ emb,
+    const typename P::T* __restrict__ grad_out, const float* __restrict__ scales,
+    const int* __restrict__ level_params, float* __restrict__ grad_table,
+    float* __restrict__ grad_x, int N, int D, int L, int C, float shift, float bound,
+    float two_bound) {
+  using T = typename P::T;
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x, y = threadIdx.y, Y = blockDim.y;
+  float* const base = reinterpret_cast<float*>(smem);
+  uint32_t* const pg = reinterpret_cast<uint32_t*>(base) + 4 * y * D * 32 + lane;
+  float* const frac = base + (4 * y + 1) * D * 32 + lane;
+  float* const slope = frac + D * 32;
+  float* const gpos = slope + D * 32;
+  float* const sums = base + 4 * Y * D * 32 + lane;
+  const int n = blockIdx.x * 32 + lane;
+  const float* xn = x + (size_t)n * D;
+  const bool live = n < N && grid::in_box(xn, D, bound, two_bound);
+
+  const int rounds = (L + Y - 1) / Y;
+  for (int r = 0; r < rounds; ++r) {
+    const int l = r * Y + y;
+    if (l < L) {  // warp-uniform: every lane merges
+      const grid::LevelAny lv = grid::load_level_any(scales, level_params, l, D);
+      if (live) grid::cell_any<kSmooth>(xn, D, bound, two_bound, lv.scale, shift, pg, frac, slope);
+      if (kNeedX) {
+        for (int d = 0; d < D; ++d) gpos[32 * d] = 0.0f;
+      }
+      const T* g_row = grad_out + ((size_t)n * L + l) * C;
+      for (uint32_t c0 = 0; c0 < (1u << D); c0 += 2) {  // corners c0, c0 + 1: one row pair
+        uint32_t r0 = kNoRow, r1 = kNoRow;
+        float w0 = 0.0f, w1 = 0.0f, dot0 = 0.0f, dot1 = 0.0f;
+        if (live) {
+          r0 = grid::corner_row_any<kHash>(lv, pg, D, c0);
+          r1 = grid::corner_row_any<kHash>(lv, pg, D, c0 + 1);
+          w0 = P::round(grid::corner_weight_any(frac, D, c0));
+          w1 = P::round(grid::corner_weight_any(frac, D, c0 + 1));
+        }
+        for (int u = 0; u < C; u += W) {
+          float g[W], v[2 * W];
+#pragma unroll
+          for (int i = 0; i < W; ++i) g[i] = 0.0f;
+          if (live) P::template load<W>(g_row + u, g);
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            v[i] = w0 * g[i];
+            v[W + i] = w1 * g[i];
+          }
+          if (kNeedX && live) {
+            float e0[W], e1[W];
+            P::template load<W>(emb + (size_t)r0 * C + u, e0);
+            P::template load<W>(emb + (size_t)r1 * C + u, e1);
+#pragma unroll
+            for (int i = 0; i < W; ++i) {  // channels in order, as the twin sums them
+              dot0 = u + i == 0 ? g[i] * e0[i] : dot0 + g[i] * e0[i];
+              dot1 = u + i == 0 ? g[i] * e1[i] : dot1 + g[i] * e1[i];
+            }
+          }
+          if constexpr (P::kPacked) {  // the pair keyed r0: r0's unit, then r1's
+            if (grad_table != nullptr && merge_runs<2 * W>(r0, r0, v, lane) && r0 != kNoRow) {
+              add_key_unit<W>(grad_table + (size_t)r0 * (2 * C) + 2 * u, v);
+            }
+          } else if (grad_table != nullptr && merge_runs<2 * W>(r0, r1, v, lane) &&
+                     r0 != kNoRow) {
+            add_unit<W>(grad_table + (size_t)r0 * C + u, v);
+            add_unit<W>(grad_table + (size_t)r1 * C + u, v + W);
+          }
+        }
+        if (kNeedX && live) {  // add_pair_x_grad's order
+          for (int d = 0; d < D; ++d) {
+            gpos[32 * d] = gpos[32 * d] + dot0 * grid::corner_weight_grad_any(frac, D, c0, d);
+            gpos[32 * d] = gpos[32 * d] + dot1 * grid::corner_weight_grad_any(frac, D, c0 + 1, d);
+          }
+        }
+      }
+      if (kNeedX) {
+        for (int d = 0; d < D; ++d) {
+          gpos[32 * d] = live ? gpos[32 * d] * slope[32 * d] * lv.scale / two_bound : 0.0f;
+        }
+      }
+    }
+    if (kNeedX) sum_round(base + 3 * D * 32 + lane, sums, D, r, Y, L, n < N);
+  }
+  if (kNeedX && y == 0 && n < N) {
+    for (int d = 0; d < D; ++d) grad_x[(size_t)n * D + d] = sums[32 * d];
+  }
+}
+
 // grad_table[offset + r] for every row r of level l = blockIdx.y: row r's
 // unit j (W channels) is key r's unit j first half (corner 2q's row of the
 // pair keyed r) plus key r - 1's unit j second half (corner 2q + 1's of the
@@ -675,16 +804,78 @@ void launch_bf16(const void* x, const void* emb, const void* grad_out, const voi
 #undef GRID_BWD_BF16
 }
 
+// a general-path backward (T: the table's and grad_out's element; out:
+// grad_table or the keys): shared memory [Y][4][D][32] + [D][32] words
+template <typename T>
+int launch_general(void (*kernel)(const float*, const T*, const T*, const float*, const int*,
+                                  float*, float*, int, int, int, int, float, float, float),
+                   const void* x, const void* emb, const void* grad_out, const void* scales,
+                   const void* params, void* out, void* grad_x, int N, int D, int L, int C,
+                   float shift, float bound, float two_bound, cudaStream_t s) {
+  const size_t per_warp = sizeof(float) * 4 * 32 * (size_t)D;
+  const size_t fixed = sizeof(float) * 32 * (size_t)D;
+  const int Y = grid::general_warps(L, per_warp, fixed);
+  const size_t smem = fixed + Y * per_warp;
+  const int err = grid::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<(N + 31) / 32, dim3(32, Y), smem, s>>>(
+      (const float*)x, (const T*)emb, (const T*)grad_out, (const float*)scales,
+      (const int*)params, (float*)out, (float*)grad_x, N, D, L, C, shift, bound, two_bound);
+  return (int)cudaGetLastError();
+}
+
+int backward_general(const void* x, const void* emb, const void* grad_out, const void* scales,
+                     const void* params, void* grad_table, void* grad_x, int N, int D, int L,
+                     int C, int smoothstep, int hashed, float shift, float bound,
+                     float two_bound, cudaStream_t s) {
+#define GRID_BWD(W, SMOOTH, HASH, NEED_X)                                                       \
+  launch_general<float>(grid_encode_bwd_kernel_general<grid::F32Table, W, SMOOTH, HASH, NEED_X>, \
+                        x, emb, grad_out, scales, params, grad_table, grad_x, N, D, L, C, shift, \
+                        bound, two_bound, s)
+#define GRID_BWD_X(W, SMOOTH, HASH)                                                             \
+  (grad_x != nullptr ? GRID_BWD(W, SMOOTH, HASH, true) : GRID_BWD(W, SMOOTH, HASH, false))
+#define GRID_BWD_W(W)                                                                           \
+  if (smoothstep) return hashed ? GRID_BWD_X(W, true, true) : GRID_BWD_X(W, true, false);      \
+  return hashed ? GRID_BWD_X(W, false, true) : GRID_BWD_X(W, false, false)
+  switch (grid::unit_floats(C)) {
+    case 4: GRID_BWD_W(4);
+    case 2: GRID_BWD_W(2);
+    default: GRID_BWD_W(1);
+  }
+#undef GRID_BWD_W
+#undef GRID_BWD_X
+#undef GRID_BWD
+}
+
+int backward_general_bf16(const void* x, const void* emb, const void* grad_out,
+                          const void* scales, const void* params, void* keys, void* grad_x,
+                          int N, int D, int L, int C, int smoothstep, float shift, float bound,
+                          float two_bound, cudaStream_t s) {
+#define GRID_BWD_BF16(W, SMOOTH, NEED_X)                                                        \
+  launch_general<unsigned short>(                                                               \
+      grid_encode_bwd_kernel_general<grid::Bf16Table, W, SMOOTH, false, NEED_X>, x, emb,        \
+      grad_out, scales, params, keys, grad_x, N, D, L, C, shift, bound, two_bound, s)
+#define GRID_BWD_BF16_X(W, SMOOTH)                                                              \
+  (grad_x != nullptr ? GRID_BWD_BF16(W, SMOOTH, true) : GRID_BWD_BF16(W, SMOOTH, false))
+#define GRID_BWD_BF16_W(W)                                                                      \
+  return smoothstep ? GRID_BWD_BF16_X(W, true) : GRID_BWD_BF16_X(W, false)
+  if (C % 2 == 0) GRID_BWD_BF16_W(2);
+  GRID_BWD_BF16_W(1);
+#undef GRID_BWD_BF16_W
+#undef GRID_BWD_BF16_X
+#undef GRID_BWD_BF16
+}
+
 bool bad_shape(long long N, int D, int L, int C) {
   return grid::bad_shape(D, L, C) || N < 1 || N > 0x7fffffffLL;
 }
 
 }  // namespace
 
-// kernel A': a float32 table [n_emb, C] and grad_out [N, L * C], C in 1..16,
-// the level rows, smoothstep 0 or 1, hashed 1 where a level may be hashed
-// (a hash grid), the shift (0.5, or 0 under align_corners); grad_table
-// (zeroed by the caller) or grad_x may be null
+// kernel A': a float32 table [n_emb, C] and grad_out [N, L * C], the level
+// rows, smoothstep 0 or 1, hashed 1 where a level may be hashed (a hash
+// grid), the shift (0.5, or 0 under align_corners); grad_table (zeroed by
+// the caller) or grad_x may be null
 extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_out,
                                const void* scales, const void* level_params, void* grad_table,
                                void* grad_x, long long N, int D, int L, int C, int smoothstep,
@@ -692,14 +883,18 @@ extern "C" int grid_encode_bwd(const void* x, const void* emb, const void* grad_
                                void* stream) {
   if (bad_shape(N, D, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (grid::general_shape(D, L, C)) {
+    return backward_general(x, emb, grad_out, scales, level_params, grad_table, grad_x, (int)N,
+                            D, L, C, smoothstep, hashed, shift, bound, two_bound, s);
+  }
   return D == 3 ? backward<3>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
                               (int)N, L, C, smoothstep, hashed, shift, bound, two_bound, s)
                 : backward<2>(x, emb, grad_out, scales, level_params, grad_table, grad_x,
                               (int)N, L, C, smoothstep, hashed, shift, bound, two_bound, s);
 }
 
-// A'-bf16: bf16 table [n_emb, C] and bf16 grad_out [N, L * C], C in 1..16,
-// smoothstep 0 or 1, the shift (0.5, or 0 under align_corners); float32
+// A'-bf16: bf16 table [n_emb, C] and bf16 grad_out [N, L * C], smoothstep
+// 0 or 1, the shift (0.5, or 0 under align_corners); float32
 // gradients. The table gradient goes through keys [n_emb, 2C] float32,
 // zeroed by the caller; grad_table (and keys) may be null when that
 // gradient is not needed.
@@ -713,7 +908,12 @@ extern "C" int grid_encode_bwd_bf16_keyed(const void* x, const void* emb, const 
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 3) {
+  if (grid::general_shape(D, L, C)) {
+    const int err = backward_general_bf16(x, emb, grad_out, scales, level_params, keys, grad_x,
+                                          (int)N, D, L, C, smoothstep, shift, bound, two_bound,
+                                          s);
+    if (err != 0) return err;
+  } else if (D == 3) {
     launch_bf16<3>(x, emb, grad_out, scales, level_params, keys, grad_x, (int)N, L, C,
                    smoothstep, shift, bound, two_bound, s);
   } else {

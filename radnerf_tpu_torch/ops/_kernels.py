@@ -42,10 +42,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# the most channels (level_dim) and levels kernels A, A' and their bf16
-# variants take (grid_common.cuh kMaxChannels / kMaxLevels are built from
-# these): a block is 32 points x L levels, and kernel A stages 32 x (L * C +
-# 1) outputs in shared memory
+# the most channels (level_dim) and levels the specialised kernels A, A'
+# and their bf16 variants take (grid_common.cuh kMaxChannels / kMaxLevels
+# are built from these): a block of theirs is 32 points x L levels, and
+# kernel A stages 32 x (L * C + 1) outputs in shared memory; a grid past
+# them, or at D outside (2, 3), runs the kernels' general path
 GRID_MAX_CHANNELS, GRID_MAX_LEVELS = 16, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

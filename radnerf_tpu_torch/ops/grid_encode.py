@@ -36,12 +36,16 @@ if their rounding were the identity (autodiff's view of a cast).
 Every ``GridSpec`` the JAX package takes is encoded: tiled and hash grids
 (a level whose dense index overflows its table hashes its corners, the
 XOR of ``coord_d * prime_d`` in uint32), linear and smoothstep
-interpolation, ``align_corners``, any ``level_dim``. Kernels A and A' take
-D in (2, 3), 1 to 16 channels and at most 32 levels, on every grid; the
-bf16 kernels (and the packing pass) the same on tiled grids, linear or
-smoothstep, with or without ``align_corners``. A hash grid has no packed
-copy (its index is not additive; JAX's ``build_packed_table`` refuses it
-too), so the bf16 kernels refuse it; the plain versions take it.
+interpolation, ``align_corners``, any ``input_dim``, ``num_levels`` and
+``level_dim``, and so do kernels A and A' on every grid, and the bf16
+kernels (and the packing pass) on tiled grids: RAD-NeRF's grids (D in
+(2, 3), at most 32 levels of at most 16 channels) through the specialised
+kernels, every other through the kernels' general path
+(``csrc/grid_common.cuh``). A hash grid has no packed copy (its index is
+not additive; JAX's ``build_packed_table`` refuses it too), so the bf16
+kernels refuse it; the plain versions take it. A hashed level at D > 7 has
+no prime (JAX's ``_PRIMES`` has seven): JAX, the plain versions and the
+kernels' wrappers refuse it.
 ``grid_total_variation`` is the JAX package's TV loss at sampled points.
 """
 
@@ -55,7 +59,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ._kernels import GRID_MAX_CHANNELS, GRID_MAX_LEVELS, KERNELS, require_cuda_tensors
+from ._kernels import KERNELS, require_cuda_tensors
 
 _U32 = 1 << 32
 _U32_MASK = _U32 - 1
@@ -182,6 +186,7 @@ def _corner_index(spec: GridSpec, level: int, corner_grid: torch.Tensor) -> torc
     index = torch.zeros(corner_grid.shape[:-1], dtype=torch.int64,
                         device=corner_grid.device)
     if spec.hashed(level):
+        _refuse_unprimed(spec)
         for d in range(spec.input_dim):
             index = index ^ ((corner_grid[..., d] * _PRIMES[d]) & _U32_MASK)
         return index % size
@@ -357,18 +362,25 @@ def pack_table(table: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     return packed
 
 
+def _refuse_unprimed(spec: GridSpec):
+    """Raise where a hashed level has more dims than the hash has primes
+    (JAX's ``_corner_index`` raises an IndexError there)."""
+    if spec.input_dim > len(_PRIMES):
+        raise ValueError(f"a hashed level takes at most {len(_PRIMES)} dims (one prime "
+                         f"each), got {spec}")
+
+
 def _refuse_kernel_spec(spec: GridSpec, bf16: bool):
-    """Raise unless the kernels take this grid: D in (2, 3), 1 to 16
-    channels, at most 32 levels; under the bf16 policy a tiled grid (a
-    hash grid has no packed copy)."""
-    D, L, C = spec.input_dim, spec.num_levels, spec.level_dim
-    if D not in (2, 3) or not 1 <= C <= GRID_MAX_CHANNELS or L > GRID_MAX_LEVELS:
-        raise ValueError(f"kernels A and A' take D in (2, 3), 1 to {GRID_MAX_CHANNELS} "
-                         f"channels and at most {GRID_MAX_LEVELS} levels, got {spec} "
-                         "(ROADMAP queue 2 item 4)")
+    """Raise unless the kernels take this grid: under the bf16 policy a
+    tiled grid (a hash grid has no packed copy, as in JAX); no hashed
+    level past the hash's seven dims. Every D, level count and channel
+    count is taken."""
     if bf16 and spec.gridtype != "tiled":
         raise ValueError(f"the bf16 kernels read corner-packed rows, which a hash grid does "
-                         f"not have, got {spec} (ROADMAP queue 2 item 4)")
+                         f"not have (nor has JAX's build_packed_table), got {spec}")
+    if spec.input_dim > len(_PRIMES) and spec.gridtype == "hash" and \
+            any(spec.hashed(l) for l in range(spec.num_levels)):
+        _refuse_unprimed(spec)
 
 
 def _check_pack_args(table: torch.Tensor, spec: GridSpec):
@@ -472,6 +484,8 @@ def _grid_encode_backward_plain_bf16(x, table, grad_out, spec: GridSpec, bound: 
                         continue
                     f = frac[..., e_] if (corner >> e_) & 1 else (1.0 - frac[..., e_])
                     dw = f if dw is None else dw * f
+                if dw is None:  # D = 1: no other dims
+                    dw = torch.ones_like(frac[..., 0])
                 if not (corner >> d) & 1:
                     dw = -dw
                 gpos[d] = gpos[d] + dot * dw

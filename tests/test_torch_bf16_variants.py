@@ -228,6 +228,76 @@ def test_bf16_variant_gradients_match_jax(case):
     np.testing.assert_array_equal(g_x.numpy(), got_x)
 
 
+# the tiled grids past RAD-NeRF's, which the bf16 kernels' general path
+# runs, as (C, interpolation, align_corners, D, levels): D = 1, 4, 7 and 8,
+# 33 levels, 17 and 32 channels; 2^6-row tables, each level but a 1-D or
+# 33-level grid's first wrapped
+GENERAL_CASES = [(2, "linear", False, 1, 3), (2, "smoothstep", True, 4, 3),
+                 (2, "linear", False, 7, 2), (1, "linear", False, 8, 2),
+                 (2, "linear", False, 2, 33), (17, "linear", False, 3, 3),
+                 (32, "smoothstep", True, 3, 3)]
+_GENERAL_BASE = {1: 16, 2: 8, 3: 4, 4: 2, 7: 1, 8: 1}
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the test: its tensors are tiny, and a pool
+    of threads on a busy host waits far longer than it works."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", GENERAL_CASES, ids=lambda v: str(v))
+def test_bf16_general_grid_matches_jax(case):
+    """The bf16 policy past RAD-NeRF's grids: the plain encode equal to
+    JAX's packed bf16 encode op by op (from the float32 master and through
+    the packed copy; 0 outside the box), the packing equal to JAX's
+    build_packed_table(dtype=bfloat16) rows; the gradients against float64
+    arithmetic on the same bf16 forward, within 1e-5 of the largest (JAX's
+    op-by-op vjp of these grids takes 5-10 s each: the plain gradient is
+    held to JAX at RAD-NeRF's D and channel counts above)."""
+    C, interpolation, align_corners, D, L = case
+    kw = dict(input_dim=D, num_levels=L, level_dim=C, base_resolution=_GENERAL_BASE[D],
+              log2_hashmap_size=6, per_level_scale=2.0 ** (2 / (L - 1)),
+              interpolation=interpolation, align_corners=align_corners)
+    jspec, spec = JGridSpec.create(**kw), T.GridSpec.create(**kw)
+    assert jspec.offsets == spec.offsets
+    rng = np.random.default_rng(100 + 10 * D + L + C)
+    n = 64
+    emb = rng.normal(size=(spec.n_embeddings, C)).astype(np.float32)
+    x = rng.uniform(-1.05, 1.05, (n, D)).astype(np.float32)
+    x[0], x[1] = -1.0, 1.0
+    x[2, 0] = 1.2  # outside -> zeros
+
+    def encode(xj, ej):
+        return grid_encode_packed(xj, build_packed_table(ej, jspec, jnp.bfloat16), jspec, 1.0)
+
+    got = T.grid_encode(_T(x), _T(emb), spec, 1.0, table_dtype=BF16)
+    tb = _T(emb).to(BF16)
+    packed = T.pack_table(tb, spec)
+    assert torch.equal(T.grid_encode(_T(x), tb, spec, 1.0, packed=packed).view(torch.int16),
+                       got.view(torch.int16))
+    assert np.all(got.float().numpy()[2] == 0.0)
+    for level, jp in enumerate(build_packed_table(jnp.asarray(emb), jspec, jnp.bfloat16)):
+        size = spec.level_size(level)
+        want = np.asarray(jp.astype(jnp.float32))[:size].reshape(size, C, 1 << D)
+        np.testing.assert_array_equal(
+            packed[spec.offsets[level]:spec.offsets[level + 1]].float().numpy(),
+            want.transpose(0, 2, 1))
+    want = encode(jnp.asarray(x), jnp.asarray(emb))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    # the gradients against float64 arithmetic on the same bf16 forward
+    g = _T(rng.normal(size=(n, L * C)).astype(np.float32)).to(BF16).float().numpy()
+    xt, et = _T(x).requires_grad_(True), _T(emb).requires_grad_(True)
+    (T.grid_encode(xt, et, spec, 1.0, table_dtype=BF16).float() * _T(g)).sum().backward()
+    ref_t, ref_x = _float64_gradients(x, emb, g, spec)
+    assert np.abs(et.grad.numpy() - ref_t).max() <= 1e-5 * np.abs(ref_t).max()
+    assert np.abs(xt.grad.numpy() - ref_x).max() <= 1e-5 * np.abs(ref_x).max()
+
+
 # the narrow head model at the JAX bench's 8x4 grid (bench.py:47-58): 8
 # levels of 4 channels, 3-D and 2-D
 GRID_8X4 = {**SMALL, "grid_levels": 8, "grid_ch": 4}

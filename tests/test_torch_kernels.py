@@ -174,16 +174,23 @@ def test_kernel_wrapper_refuses_bad_inputs(dev):
         T.grid_encode(torch.zeros(4, 3, device=dev, dtype=torch.float64), emb, spec)
     with pytest.raises(ValueError):
         T.grid_encode(torch.zeros(4, 3, device=dev), emb.cpu(), spec)
-    # what the kernels do not take: 17 channels, 33 levels, 4-D points, the
-    # bf16 kernels on a hash grid
-    for kw, dtype in ((dict(level_dim=17), None), (dict(num_levels=33), torch.bfloat16),
-                      (dict(input_dim=4), None), (dict(gridtype="hash"), torch.bfloat16)):
+    # what the kernels do not take: the bf16 kernels on a hash grid (no
+    # packed copy, as in JAX), a hashed level at D > 7 (no prime, as in
+    # JAX); 17 channels, 33 levels, 1-D and 4-D points are taken
+    for kw, dtype, taken in ((dict(level_dim=17), None, True),
+                             (dict(num_levels=33), torch.bfloat16, True),
+                             (dict(input_dim=4), None, True), (dict(input_dim=1), None, True),
+                             (dict(gridtype="hash"), torch.bfloat16, False),
+                             (dict(gridtype="hash", input_dim=8), None, False)):
         s = T.GridSpec.create(**{"num_levels": 2, "base_resolution": 4,
                                  "log2_hashmap_size": 8, **kw})
-        with pytest.raises(ValueError):
-            T.grid_encode(torch.zeros(4, s.input_dim, device=dev),
-                          torch.zeros(s.n_embeddings, s.level_dim, device=dev), s,
-                          table_dtype=dtype)
+        args = (torch.zeros(4, s.input_dim, device=dev),
+                torch.zeros(s.n_embeddings, s.level_dim, device=dev), s)
+        if taken:
+            assert T.grid_encode(*args, table_dtype=dtype).shape == (4, s.output_dim)
+        else:
+            with pytest.raises(ValueError):
+                T.grid_encode(*args, table_dtype=dtype)
     z = torch.zeros(4, 2, device=dev)
     with pytest.raises(ValueError):  # rgbs [4, 3, 3] do not fit [N, S, 3]
         T.composite_rays(z, torch.zeros(4, 3, 3, device=dev), z, z, z.bool(), z)
@@ -587,6 +594,90 @@ def test_grid_kernels_take_every_channel_count(dev):
         packed = T.pack_table(emb, spec)
         assert torch.equal(packed.view(torch.int16),
                            T.pack_table_plain(emb, spec).view(torch.int16)), C
+
+
+# the grids past RAD-NeRF's, which the kernels' general path runs: (name,
+# GridSpec arguments); 16 levels of 2 channels at 2^16 rows otherwise
+_GENERAL = {
+    "hash-d1": dict(input_dim=1, gridtype="hash", base_resolution=64, log2_hashmap_size=8,
+                    per_level_scale=1.5),
+    "hash-d4": dict(input_dim=4, gridtype="hash"),
+    "hash-d7": dict(input_dim=7, gridtype="hash"),
+    "tiled-d1": dict(input_dim=1),
+    "tiled-d4-smooth-align": dict(input_dim=4, interpolation="smoothstep",
+                                  align_corners=True),
+    "tiled-d7": dict(input_dim=7),
+    "tiled-d8": dict(input_dim=8, num_levels=4, level_dim=1),
+    "l33": dict(num_levels=33),
+    "l64": dict(num_levels=64),
+    "c17": dict(level_dim=17),
+    "c32": dict(level_dim=32),
+    "c64": dict(level_dim=64),
+    "hash-c32": dict(level_dim=32, gridtype="hash"),
+    "l40-c6-d2-smooth": dict(input_dim=2, num_levels=40, level_dim=6,
+                             interpolation="smoothstep"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_GENERAL))
+def test_grid_general_kernels_match_plain(dev, variant):
+    """The general path (D outside (2, 3), more than 32 levels or 16
+    channels): A and, on tiled grids, the packing pass and A-bf16 bit for
+    bit with their plain versions; A' and A'-bf16 with the table gradient
+    within max(1e-5, 4 sqrt(n_busiest) 2^-24) and x within 1e-5 of the
+    largest, also through autograd, on 20,000 spread points (a few outside
+    the box) and, at D = 3, 20,000 points along rays (runs of equal rows),
+    each call one launch."""
+    kw = dict(input_dim=3, num_levels=16, level_dim=2, desired_resolution=2048,
+              log2_hashmap_size=16)
+    kw.update(_GENERAL[variant])
+    if "base_resolution" in kw:
+        kw.pop("desired_resolution")
+    spec = T.GridSpec.create(**kw)
+    D, C = spec.input_dim, spec.level_dim
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(110 + len(variant))
+    emb = _t(rng.uniform(-4, 4, (spec.n_embeddings, C)).astype(np.float32), dev)
+    layouts = ("spread", "ray") if D == 3 else ("spread",)
+    for layout in layouts:
+        x = _t(_grid_points(layout, 20_000, D, rng), dev)
+        g = _t(rng.normal(size=(20_000, spec.output_dim)).astype(np.float32), dev)
+        table_tol = max(1e-5, 4.0 * math.sqrt(_busiest_row(x, spec)) * 2.0**-24)
+        sides = [(emb, g, "grid_encode", "grid_encode_backward")]
+        if spec.gridtype == "tiled":
+            sides.append((emb.to(bf16), g.to(bf16), "grid_encode_bf16",
+                          "grid_encode_backward_bf16"))
+        for table, go, fwd_name, bwd_name in sides:
+            fwd, bwd = _kernels.KERNELS[fwd_name], _kernels.KERNELS[bwd_name]
+            if table.dtype == bf16:
+                pack = _kernels.KERNELS["grid_pack_bf16"]
+                before = pack.launches
+                packed = T.pack_table(table, spec)
+                assert pack.launches == before + 1
+                assert torch.equal(packed.view(torch.int16),
+                                   T.pack_table_plain(table, spec).view(torch.int16))
+                before = fwd.launches
+                got = T.grid_encode(x, table, spec, packed=packed)
+            else:
+                before = fwd.launches
+                got = T.grid_encode(x, table, spec)
+            assert fwd.launches == before + 1
+            want = T.grid_encode_plain(x, table, spec)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)) \
+                if table.dtype == bf16 else torch.equal(got, want), (layout, table.dtype)
+            gt_p, gx_p = T.grid_encode_backward_plain(x, table, go, spec)
+            before = bwd.launches
+            gt_k, gx_k = T.grid_encode_backward(x, table, go, spec)
+            assert bwd.launches == before + 1
+            torch.cuda.synchronize()
+            assert _rel_err(gt_k, gt_p) <= table_tol and _rel_err(gx_k, gx_p) <= 1e-5
+            outside = ((x < -1.0) | (x > 1.0)).any(dim=-1)
+            assert bool((gx_k[outside] == 0).all())
+            xr, er = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+            out = T.grid_encode(xr, er, spec, table_dtype=table.dtype)
+            (out.float() * go.float()).sum().backward()
+            assert _rel_err(er.grad, gt_p) <= table_tol and _rel_err(xr.grad, gx_p) <= 1e-5
 
 
 @pytest.mark.parametrize("input_dim", [2, 3])

@@ -83,12 +83,14 @@ def _misaligned(t):
 @pytest.mark.parametrize("case", ["channels", "levels", "alignment", "bf16-channels",
                                   "pack-alignment"])
 def test_grid_kernel_args_refuse_what_the_kernels_cannot_take(case):
-    """Kernels A and A' and their bf16 variants are built for 1 to 16
-    channels, at most 32 levels and a table whose row pairs are aligned (16
-    bytes at 2 channels): the wrappers' check raises for anything else
-    before a launch (17 channels in float32, and in bf16 after 16 passed).
-    The packing pass reads a bf16 table's rows in their widest unit (16
-    bytes at 8 channels): its check raises for a table off that unit."""
+    """Kernels A and A' and their bf16 variants take any channel and level
+    count (17 channels and 33 levels pass the wrappers' check, in float32
+    and in bf16), and a table whose row pairs are aligned (16 bytes at 2
+    channels); the check raises before a launch for a table whose channels
+    or rows do not fit the grid, a misaligned one, and a bf16 table of a
+    hash grid (no packed copy). The packing pass reads a bf16 table's rows
+    in their widest unit (16 bytes at 8 channels): its check raises for a
+    table off that unit."""
     from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args, _check_pack_args
 
     if case == "pack-alignment":
@@ -105,15 +107,22 @@ def test_grid_kernel_args_refuse_what_the_kernels_cannot_take(case):
                "alignment": {}, "bf16-channels": dict(level_dim=17)}[case])
     spec = T.GridSpec.create(**kw)
     emb = torch.zeros(spec.n_embeddings, spec.level_dim)
-    if case == "bf16-channels":
-        ok = T.GridSpec.create(**{**kw, "level_dim": 16})
-        _check_kernel_args(torch.zeros(4, 3), torch.zeros(ok.n_embeddings, 16,
-                                                          dtype=torch.bfloat16), ok)
-        emb = emb.to(torch.bfloat16)
     x = torch.zeros(4, 3)
-    if case == "alignment":
+    if case == "bf16-channels":
+        emb = emb.to(torch.bfloat16)
+        _check_kernel_args(x, emb, spec)  # 17 bf16 channels pass
+        hashed = T.GridSpec.create(**{**kw, "gridtype": "hash"})
+        emb = torch.zeros(hashed.n_embeddings, 17, dtype=torch.bfloat16)
+        spec = hashed
+    elif case == "alignment":
         _check_kernel_args(x, emb, spec)  # an aligned table passes
         emb = _misaligned(emb)
+    elif case == "channels":
+        _check_kernel_args(x, emb, spec)  # 17 channels pass
+        emb = torch.zeros(spec.n_embeddings, 16)
+    else:
+        _check_kernel_args(x, emb, spec)  # 33 levels pass
+        emb = emb[:-8]  # the rows of a grid with fewer
     with pytest.raises(ValueError):
         _check_kernel_args(x, emb, spec)
 

@@ -239,7 +239,9 @@ def _blob_state_j(rc_j, grid, thresh):
     {},
     # flags no other port test reaches at a value off their defaults
     {"color_space": "linear", "lambda_amb": 0.5, "amb_dim": 4},
-], ids=["default", "linear-amb"])
+    # a 1-D ambient grid (--amb_dim 1), which the kernels' general path runs
+    {"amb_dim": 1},
+], ids=["default", "linear-amb", "amb1"])
 def test_head_train_step_matches_jax(head_params, flags):
     """One head-stage train step on tests/test_torch_render.py's 48x48 blob
     scene, 512 rays, JAX at exhaustive capacities, the same noises: loss to
@@ -250,7 +252,8 @@ def test_head_train_step_matches_jax(head_params, flags):
     FMA moved a sample to another cell. The port's loss is its trainer's
     (``Trainer.loss``: the options' color space and lambda_amb); the second
     case takes linear colour (the targets linearised on both sides), an
-    ambient weight of 0.5 and a 4-wide ambient code (``--amb_dim``)."""
+    ambient weight of 0.5 and a 4-wide ambient code (``--amb_dim``), the
+    third a 1-wide one."""
     from radnerf_tpu.data.rays import get_bg_coords, get_rays
     from test_train import _blob_grid
 

@@ -37,13 +37,29 @@ def _np(x):
     return np.asarray(x)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the test: its tensors are tiny, and a pool
+    of threads on a busy host waits far longer than it works."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------- grid encode
-def _specs(gridtype, interpolation, align_corners, level_dim, input_dim):
-    """A 4-level grid whose finer levels overflow a 2^8-row table (hashed
-    under "hash"), as (JAX spec, port spec)."""
-    kw = dict(input_dim=input_dim, num_levels=4, level_dim=level_dim,
-              base_resolution=8 if input_dim == 2 else 4,
-              log2_hashmap_size=8, per_level_scale=2.0, gridtype=gridtype,
+# the base resolution a D: level 0 fits a 2^8-row table densely, the next
+# level overflows it (D = 1: the third)
+_BASE = {1: 64, 2: 8, 3: 4, 4: 2, 7: 1, 8: 1}
+
+
+def _specs(gridtype, interpolation, align_corners, level_dim, input_dim, num_levels=4):
+    """A grid whose finer levels overflow a 2^8-row table (hashed under
+    "hash"), as (JAX spec, port spec): 4 levels at a scale of 2 a level,
+    or more levels over the same span."""
+    kw = dict(input_dim=input_dim, num_levels=num_levels, level_dim=level_dim,
+              base_resolution=_BASE[input_dim], log2_hashmap_size=8,
+              per_level_scale=2.0 ** (3 / max(num_levels - 1, 1)), gridtype=gridtype,
               interpolation=interpolation, align_corners=align_corners)
     return JGridSpec.create(**kw), T.GridSpec.create(**kw)
 
@@ -55,44 +71,66 @@ GRID_CASES = [(gt, it, ac, c, d) for gt in ("tiled", "hash") for it in ("linear"
 CHANNEL_CASES = [(gt, it, ac, c, d) for gt, it, ac in (("tiled", "linear", False),
                                                         ("hash", "smoothstep", True))
                  for c in (3, 16) for d in (2, 3)]
+# the grids past RAD-NeRF's, which the kernels' general path runs: D = 1,
+# 4 and 7 on hash grids, 7 and 8 on tiled ones, 33 levels, 17 and 32
+# channels (each with its level count)
+GENERAL_CASES = [("hash", "linear", False, 2, 1, 4), ("hash", "smoothstep", True, 2, 4, 4),
+                 ("hash", "linear", False, 2, 7, 3), ("tiled", "linear", False, 2, 7, 3),
+                 ("tiled", "smoothstep", False, 2, 7, 1),
+                 ("tiled", "smoothstep", False, 1, 8, 2), ("hash", "linear", False, 2, 2, 33),
+                 ("tiled", "linear", False, 17, 3, 4), ("hash", "smoothstep", True, 32, 3, 4)]
+# JAX op by op takes ~20 s for the vjp of a 4-level 7-D grid (~0.3 s a 3-D
+# one; under jit XLA:CPU compiles a 7-D grid's for ~15 min): past D = 4 the
+# encode alone is held to JAX's, but for a single level (the 7-D one: its
+# 128 corners' weights and their derivatives, ~8 s)
+_MAX_VJP_DIM = 4
 
 
-@pytest.mark.parametrize("gridtype,interpolation,align_corners,level_dim,input_dim",
-                         GRID_CASES + CHANNEL_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize(
+    "gridtype,interpolation,align_corners,level_dim,input_dim,num_levels",
+    [pytest.param(*c, 4, id="-".join(map(str, c))) for c in GRID_CASES + CHANNEL_CASES]
+    + [pytest.param(*c, id="general-" + "-".join(map(str, c))) for c in GENERAL_CASES])
+@pytest.mark.usefixtures("one_thread")
 def test_grid_variant_matches_jax(gridtype, interpolation, align_corners, level_dim,
-                                  input_dim):
+                                  input_dim, num_levels):
     """The plain encode against JAX grid_encode01 (op by op) on every
     variant: rtol 1e-5, atol 1e-6 (the same corner sums in the same order);
-    the table and x gradients against jax.grad within 1e-5 of the largest;
-    a point outside the box encodes to 0 with zero gradients. Under "hash"
-    two or three finer levels are hashed, the coarsest is not."""
-    jspec, tspec = _specs(gridtype, interpolation, align_corners, level_dim, input_dim)
+    the table and x gradients against jax.grad within 1e-5 of the largest
+    (up to D = 4, and on a single level); a point outside the box encodes to
+    0 with zero gradients.
+    Under "hash" two or more finer levels are hashed, the coarsest is not."""
+    jspec, tspec = _specs(gridtype, interpolation, align_corners, level_dim, input_dim,
+                          num_levels)
     assert tspec.offsets == jspec.offsets
-    hashed = [tspec.hashed(l) for l in range(4)]
+    hashed = [tspec.hashed(l) for l in range(num_levels)]
     assert not hashed[0] and sum(hashed) >= (2 if gridtype == "hash" else 0)
-    rng = np.random.default_rng(level_dim * 10 + input_dim)
+    rng = np.random.default_rng(level_dim * 10 + input_dim + num_levels - 4)
     n = 96
     emb = rng.normal(size=(jspec.n_embeddings, level_dim)).astype(np.float32)
     x = rng.uniform(-1.0, 1.0, (n, input_dim)).astype(np.float32)
     x[0], x[1] = -1.0, 1.0
     x[2, 0] = 1.2  # outside -> zeros
-    g = rng.normal(size=(n, 4 * level_dim)).astype(np.float32)
+    g = rng.normal(size=(n, num_levels * level_dim)).astype(np.float32)
 
-    want, vjp = jax.vjp(lambda xj, ej: grid_encode01((xj + 1.0) / 2.0, ej, jspec),
-                        jnp.asarray(x), jnp.asarray(emb))
-    want_x, want_t = vjp(jnp.asarray(g))
-    want = _np(want)
+    def encode(xj, ej):
+        return grid_encode01((xj + 1.0) / 2.0, ej, jspec)
+
     xt = _T(x).requires_grad_(True)
     et = _T(emb).requires_grad_(True)
     got = T.grid_encode(xt, et, tspec, 1.0)
-    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-6)
-    assert np.all(got.detach().numpy()[2] == 0.0)
     (got * _T(g)).sum().backward()
+    assert np.all(got.detach().numpy()[2] == 0.0) and np.all(xt.grad.numpy()[2] == 0.0)
+    if input_dim > _MAX_VJP_DIM and num_levels > 1:
+        want = encode(jnp.asarray(x), jnp.asarray(emb))
+        np.testing.assert_allclose(got.detach().numpy(), _np(want), rtol=1e-5, atol=1e-6)
+        return
+    want, vjp = jax.vjp(encode, jnp.asarray(x), jnp.asarray(emb))
+    want_x, want_t = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), rtol=1e-5, atol=1e-6)
     for name, gt_, w in (("table", et.grad, want_t), ("x", xt.grad, want_x)):
         w = _np(w)
         err = float(np.abs(gt_.numpy() - w).max())
         assert err <= 1e-5 * float(np.abs(w).max()), f"{name}: {err}"
-    assert np.all(xt.grad.numpy()[2] == 0.0)
 
 
 def test_bf16_plain_backward_takes_the_smoothstep_slope():
@@ -131,33 +169,43 @@ def test_grid_total_variation_matches_jax(gridtype):
 
 
 def test_kernel_refusals_of_the_variants():
-    """On the card kernels A / A' take 1 to 16 channels on tiled and hash
-    grids, linear or smoothstep, with or without align_corners, and so do
-    the bf16 kernels and the packing pass on tiled grids; what still raises,
-    naming ROADMAP: the bf16 kernels (and the packing pass) on a hash grid,
-    17 channels, 33 levels, 4-D points. The packing of a hash grid raises
-    on the CPU too, as JAX's build_packed_table does."""
+    """On the card kernels A / A' take every grid the JAX package encodes --
+    tiled and hash grids, linear or smoothstep, with or without
+    align_corners, any D (D = 1 to 8 here), level count and channel count
+    (33 and 64 levels, 17, 32 and 64 channels) -- and so do the bf16 kernels
+    and the packing pass on tiled grids. What still raises: the bf16 kernels
+    (and the packing pass) on a hash grid, which has no packed copy (JAX's
+    build_packed_table raises on it, on the CPU too), and a hashed level at
+    D > 7, which JAX has no prime for."""
     from radnerf_tpu_torch.ops.grid_encode import _check_kernel_args, _refuse_kernel_spec
 
-    for gt, it, ac, c, d in GRID_CASES + CHANNEL_CASES:
-        spec = _specs(gt, it, ac, c, d)[1]
+    for gt, it, ac, c, d, n_levels in [(*c, 4) for c in GRID_CASES + CHANNEL_CASES] + \
+            GENERAL_CASES + [("tiled", "linear", False, 2, 3, 64),
+                             ("tiled", "linear", False, 64, 3, 4),
+                             ("tiled", "linear", False, 2, 8, 4),
+                             ("tiled", "linear", False, 2, 1, 4)]:
+        spec = _specs(gt, it, ac, c, d, n_levels)[1]
         x = torch.zeros(4, d)
         _check_kernel_args(x, torch.zeros(spec.n_embeddings, c), spec)
         if gt == "tiled":
             _check_kernel_args(x, torch.zeros(spec.n_embeddings, c, dtype=torch.bfloat16),
                                spec)
-    base = dict(input_dim=3, num_levels=4, base_resolution=8, log2_hashmap_size=8)
-    for kw, bf16 in ((dict(gridtype="hash"), True), (dict(level_dim=17), False),
-                     (dict(level_dim=17), True), (dict(num_levels=33), False),
-                     (dict(num_levels=33), True), (dict(input_dim=4), False)):
-        spec = T.GridSpec.create(**{**base, **kw})
-        with pytest.raises(ValueError, match="ROADMAP"):
-            _refuse_kernel_spec(spec, bf16)
-        dtype = torch.bfloat16 if bf16 else torch.float32
-        with pytest.raises(ValueError, match="ROADMAP"):
-            _check_kernel_args(torch.zeros(4, spec.input_dim),
-                               torch.zeros(spec.n_embeddings, spec.level_dim, dtype=dtype),
-                               spec)
+    for d, c in ((3, 2), (1, 17), (4, 32), (7, 2)):
+        spec = T.GridSpec.create(input_dim=d, num_levels=33, level_dim=c, gridtype="hash",
+                                 base_resolution=4, log2_hashmap_size=8)
+        _refuse_kernel_spec(spec, False)
+        with pytest.raises(ValueError, match="packed"):
+            _refuse_kernel_spec(spec, True)
+        with pytest.raises(ValueError, match="packed"):
+            _check_kernel_args(torch.zeros(4, d),
+                               torch.zeros(spec.n_embeddings, c, dtype=torch.bfloat16), spec)
+    unprimed = T.GridSpec.create(input_dim=8, num_levels=4, gridtype="hash", base_resolution=4,
+                                 log2_hashmap_size=8)
+    assert unprimed.hashed(0)
+    with pytest.raises(ValueError, match="prime"):
+        _refuse_kernel_spec(unprimed, False)
+    with pytest.raises(ValueError, match="prime"):
+        T.grid_encode(torch.zeros(4, 8), torch.zeros(unprimed.n_embeddings, 2), unprimed)
     hashed = T.GridSpec.create(input_dim=3, num_levels=4, gridtype="hash")
     with pytest.raises(ValueError):
         T.pack_table(torch.zeros(hashed.n_embeddings, 2), hashed)
