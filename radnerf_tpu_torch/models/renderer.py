@@ -61,6 +61,7 @@ from ..ops import (
     packbits,
 )
 from ..ops.marching import MARCH_GROUP
+from ..utils.tracing import span, sync
 from .network import NeRFNetwork
 
 GRID_SIZE = 128
@@ -226,7 +227,9 @@ def compute_occ_bbox(cfg: RenderConfig, density_grid: torch.Tensor, thresh) -> t
         cmax = torch.where(occ, coords, -math.inf).amax(dim=0)
         lo = torch.minimum(lo, (2.0 * cmin / H - 1.0) * mip_bound)
         hi = torch.maximum(hi, (2.0 * (cmax + 1.0) / H - 1.0) * mip_bound)
-    if not bool(torch.isfinite(lo).all()):
+    with sync("occ_bbox"):
+        empty = not bool(torch.isfinite(lo).all())
+    if empty:
         b = cfg.bound
         lo, hi = lo.new_tensor([-b, -b, -b]), hi.new_tensor([b, b, b])
     return torch.cat([lo, hi]).float()
@@ -246,7 +249,9 @@ def compute_occ_sphere(cfg: RenderConfig, density_grid: torch.Tensor, thresh) ->
         world = (2.0 * (coords + 0.5) / H - 1.0) * mip_bound
         dist = torch.linalg.norm(world - center, dim=-1) + SQRT3 * mip_bound / H
         r = torch.maximum(r, torch.where(occ, dist, 0.0).max())
-    if not bool(r > 0):
+    with sync("occ_sphere"):
+        empty = not bool(r > 0)
+    if empty:
         r = r.new_tensor(cfg.bound * SQRT3)
     return torch.cat([center, r[None]]).float()
 
@@ -344,7 +349,8 @@ def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye
     slots hold zeros."""
     valid = march["valid"]
     N, S = valid.shape
-    idx = valid.reshape(-1).nonzero().squeeze(1)
+    with sync("compact"):
+        idx = valid.reshape(-1).nonzero().squeeze(1)
     xyz = march["xyz"].reshape(-1, 3)[idx]
     dirs = rays_d[idx // S]
     sig_c, col_c, amb_c = net.field_forward(xyz, dirs, enc_a, ind_code, eye)
@@ -427,13 +433,16 @@ def sample_positions(rays_o, rays_d, t, bound: float):
     tie, as lax.max / lax.min split it (``torch.clamp`` would pass all of
     it)."""
     p = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
-    return torch.minimum(torch.maximum(p, p.new_tensor(-bound)), p.new_tensor(bound))
+    with sync("clip_bounds"):
+        lo, hi = p.new_tensor(-bound), p.new_tensor(bound)
+    return torch.minimum(torch.maximum(p, lo), hi)
 
 
 def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
             noises, training):
     mcfg = cfg.march_config()
-    aabb = rays_o.new_tensor(cfg.aabb)
+    with sync("aabb"):
+        aabb = rays_o.new_tensor(cfg.aabb)
     # with learnt camera offsets the gradient reaches the rays only through
     # the samples' positions and the SH directions: as in JAX (near/far
     # under stop_gradient, the window and the march through floor and
@@ -443,63 +452,67 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
     if camera:
         rays_o, rays_d = camera_offsets(net, index, rays_o, rays_d)
     ro, rd = (rays_o.detach(), rays_d.detach()) if camera else (rays_o, rays_d)
-    nears, fars = near_far_from_aabb(ro, rd, aabb, cfg.min_near)
 
-    enc_a = net.encode_audio(auds)
-    if enc_a is not None and cfg.smooth_lips:
-        enc_a, state = smooth_audio_code(state, enc_a, True)
+    with span("render.audio"):
+        enc_a = net.encode_audio(auds)
+        if enc_a is not None and cfg.smooth_lips:
+            enc_a, state = smooth_audio_code(state, enc_a, True)
     ind_code = net.individual_codes[index] if net.individual_codes is not None else None
 
-    t_lo, t_hi = march_window(state, ro, rd, nears, fars)
-    hit = t_lo < t_hi
-    results = {
-        "n_hit": hit.sum(dtype=torch.int32),
-        # the widest marched window in orbit steps (what K has to cover)
-        "n_k_span": torch.where(hit, torch.ceil((t_hi - t_lo) / mcfg.dt_min),
-                                0.0).max().to(torch.int32),
-    }
-
-    if cfg.march_group and grouped_march_qualifies(mcfg):
-        n_groups = -(-mcfg.n_march_iters // MARCH_GROUP)
-        march = march_rays_grouped(ro, rd, nears, fars, state.sigma_bytes, state.coarse_bytes,
-                                   mcfg, (t_lo, t_hi),
-                                   min(cfg.march_group_slots or n_groups, n_groups),
-                                   cfg.cull_T, noises)
-        results["n_groups_needed"] = march["groups"].sum(dtype=torch.int32)
-        results["n_group_max"] = march["groups"].max()
-    else:
-        march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
-                           t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
-        results["n_groups_needed"] = results["n_group_max"] = torch.zeros(
-            (), dtype=torch.int32, device=ro.device)
-    if camera:
-        march = dict(march, xyz=sample_positions(rays_o, rays_d, march["t"], cfg.bound))
-    sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)
-    comp = composite_rays(sig, col, march["dt"], march["t"],
-                          march["valid"], ambient=amb.abs().sum(dim=-1),
-                          T_thresh=cfg.T_thresh)
-    results["n_samples_needed"] = march["valid"].sum(dtype=torch.int32)
-    results["n_max_count"] = march["count"].max()
-    weights_sum = torch.where(hit, comp["weights_sum"], 0.0)
-    depth_raw = torch.where(hit, comp["depth"], 0.0)
-    image = torch.where(hit[:, None], comp["image"], 0.0)
-    if training:
-        results["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
+    with span("render.march"):
+        nears, fars = near_far_from_aabb(ro, rd, aabb, cfg.min_near)
+        t_lo, t_hi = march_window(state, ro, rd, nears, fars)
+        hit = t_lo < t_hi
+        results = {
+            "n_hit": hit.sum(dtype=torch.int32),
+            # the widest marched window in orbit steps (what K has to cover)
+            "n_k_span": torch.where(hit, torch.ceil((t_hi - t_lo) / mcfg.dt_min),
+                                    0.0).max().to(torch.int32),
+        }
+        if cfg.march_group and grouped_march_qualifies(mcfg):
+            n_groups = -(-mcfg.n_march_iters // MARCH_GROUP)
+            march = march_rays_grouped(ro, rd, nears, fars, state.sigma_bytes,
+                                       state.coarse_bytes, mcfg, (t_lo, t_hi),
+                                       min(cfg.march_group_slots or n_groups, n_groups),
+                                       cfg.cull_T, noises)
+            results["n_groups_needed"] = march["groups"].sum(dtype=torch.int32)
+            results["n_group_max"] = march["groups"].max()
+        else:
+            march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
+                               t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
+            results["n_groups_needed"] = results["n_group_max"] = torch.zeros(
+                (), dtype=torch.int32, device=ro.device)
+        if camera:
+            march = dict(march, xyz=sample_positions(rays_o, rays_d, march["t"], cfg.bound))
+    with span("render.field"):
+        sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)
+    with span("render.composite"):
+        comp = composite_rays(sig, col, march["dt"], march["t"],
+                              march["valid"], ambient=amb.abs().sum(dim=-1),
+                              T_thresh=cfg.T_thresh)
+        results["n_samples_needed"] = march["valid"].sum(dtype=torch.int32)
+        results["n_max_count"] = march["count"].max()
+        weights_sum = torch.where(hit, comp["weights_sum"], 0.0)
+        depth_raw = torch.where(hit, comp["depth"], 0.0)
+        image = torch.where(hit[:, None], comp["image"], 0.0)
+        if training:
+            results["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
 
     if cfg.torso:
-        code_t = (net.individual_codes_torso[index]
-                  if net.individual_codes_torso is not None else None)
-        thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
-        occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
-        mask = occupancy > thresh_t
-        results["n_torso_mask"] = mask.sum(dtype=torch.int32)
-        t_alpha, t_color, deform = net.forward_torso(bg_coords, pose6, code_t)
-        t_alpha = torch.where(mask[:, None], t_alpha, 0.0)
-        t_color = torch.where(mask[:, None], t_color, 0.0)
-        bg_color = t_color * t_alpha + bg_color * (1.0 - t_alpha)
-        results["deform"] = deform
-        results["torso_alpha"] = t_alpha
-        results["torso_color"] = bg_color
+        with span("render.torso"):
+            code_t = (net.individual_codes_torso[index]
+                      if net.individual_codes_torso is not None else None)
+            thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
+            occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
+            mask = occupancy > thresh_t
+            results["n_torso_mask"] = mask.sum(dtype=torch.int32)
+            t_alpha, t_color, deform = net.forward_torso(bg_coords, pose6, code_t)
+            t_alpha = torch.where(mask[:, None], t_alpha, 0.0)
+            t_color = torch.where(mask[:, None], t_color, 0.0)
+            bg_color = t_color * t_alpha + bg_color * (1.0 - t_alpha)
+            results["deform"] = deform
+            results["torso_alpha"] = t_alpha
+            results["torso_color"] = bg_color
 
     image = torch.clamp(image + (1.0 - weights_sum)[:, None] * bg_color, 0.0, 1.0)
     results["image"] = image

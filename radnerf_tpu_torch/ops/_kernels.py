@@ -40,6 +40,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.tracing import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # the most channels (level_dim) and levels the specialised kernels A, A'
@@ -111,14 +113,15 @@ class Kernel:
 
     def _load(self):
         if self._lib is None:
-            proc = self.start_build()
-            if proc is not None:
-                self.finish_build(proc)
-            lib = ctypes.CDLL(str(self.library_path()))
-            for fn, argtypes in self.entry_points.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            self._lib = lib
+            with span("kernels.load"):
+                proc = self.start_build()
+                if proc is not None:
+                    self.finish_build(proc)
+                lib = ctypes.CDLL(str(self.library_path()))
+                for fn, argtypes in self.entry_points.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                self._lib = lib
         return self._lib
 
     def launch(self, fn: str, device: torch.device, *args):

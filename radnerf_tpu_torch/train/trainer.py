@@ -127,6 +127,7 @@ from ..parallel import (
 from ..utils.color import linear_to_srgb, srgb_to_linear
 from ..utils.image import write_png, write_video
 from ..utils.mesh import extract_geometry, save_mesh_ply
+from ..utils.tracing import span, sync
 from . import checkpoint as ckpt_lib
 from .capacity import CAPACITY_FIELDS, adapt_render_config, ray_capacity, sample_capacity
 from .losses import head_loss, torso_loss
@@ -418,30 +419,33 @@ class Trainer:
             batch = shard_batch(batch, self.world)
             noises = shard_rays(noises, self.world)
         parts = {}
-        loss, results, self.state = self.loss(batch, noises, self.global_step, parts=parts)
+        with span("forward"):
+            loss, results, self.state = self.loss(batch, noises, self.global_step, parts=parts)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("backward"):
+            loss.backward()
         telemetry = {k: v for k, v in results.items() if k.startswith("n_")}
-        if self.world is not None:
-            loss = loss.detach()
-            all_reduce_mean([p.grad for p in self.net.parameters()] + [loss], self.world)
-            if sharded:
-                telemetry = reduce_telemetry(telemetry)
-        self.optimizer.step()
-        self.scheduler.step()
-        self.telemetry = telemetry
-        if self.lpips is not None:
-            self.stats["loss_mode"].append(parts.get("mode", "none"))
-            if "lpips" in parts:
-                self._lpips_terms.append((self.global_step, parts["lpips"].detach()))
-        if self.flip_finetune_lips:
-            self.opt.finetune_lips = not self.opt.finetune_lips
-        if self.ema_params is not None and \
-                self.global_step % self.opt.ema_update_interval == 0:
-            d = self.ema_decay
-            with torch.no_grad():
-                for k, p in self.net.named_parameters():
-                    self.ema_params[k].mul_(d).add_(p.detach(), alpha=1.0 - d)
+        with span("optimizer"):
+            if self.world is not None:
+                loss = loss.detach()
+                all_reduce_mean([p.grad for p in self.net.parameters()] + [loss], self.world)
+                if sharded:
+                    telemetry = reduce_telemetry(telemetry)
+            self.optimizer.step()
+            self.scheduler.step()
+            self.telemetry = telemetry
+            if self.lpips is not None:
+                self.stats["loss_mode"].append(parts.get("mode", "none"))
+                if "lpips" in parts:
+                    self._lpips_terms.append((self.global_step, parts["lpips"].detach()))
+            if self.flip_finetune_lips:
+                self.opt.finetune_lips = not self.opt.finetune_lips
+            if self.ema_params is not None and \
+                    self.global_step % self.opt.ema_update_interval == 0:
+                d = self.ema_decay
+                with torch.no_grad():
+                    for k, p in self.net.named_parameters():
+                        self.ema_params[k].mul_(d).add_(p.detach(), alpha=1.0 - d)
         return loss.detach()
 
     # ----------------------------------------------- adaptive capacities
@@ -450,46 +454,50 @@ class Trainer:
         ``_adapt_capacities``; ``capacity.adapt_render_config``), at most
         ``_adapt_cap`` times; once the cap binds, warn where the telemetry
         exceeds JAX's capacities (JAX would drop work there)."""
-        keys = ("n_hit", "n_samples_needed", "n_max_count", "n_k_span", "n_groups_needed",
-                "n_group_max")
-        # the one read-back of the upkeep
-        stats = torch.stack([telemetry[k].to(torch.int64).reshape(()) for k in keys]).tolist()
-        n_hit, n_needed, n_max, n_k_span = stats[:4]
-        rc = self.render_cfg
-        if self._adapt_count >= self._adapt_cap:
-            R_now = ray_capacity(n_rays, rc.ray_capacity_frac)
-            S_now = sample_capacity(R_now, rc.sample_capacity_mult)
-            K_now = rc.march_config().n_march_iters
-            groups_over = rc.march_group and (
-                stats[4] > sample_capacity(R_now, rc.march_group_mult)
-                or (rc.march_group_slots is not None and stats[5] > rc.march_group_slots))
-            if n_hit > R_now or n_needed > S_now or n_k_span > K_now or groups_over:
+        with span("upkeep.adapt"):
+            keys = ("n_hit", "n_samples_needed", "n_max_count", "n_k_span", "n_groups_needed",
+                    "n_group_max")
+            # the one read-back of the telemetry
+            with sync("telemetry"):
+                stats = torch.stack([telemetry[k].to(torch.int64).reshape(())
+                                     for k in keys]).tolist()
+            n_hit, n_needed, n_max, n_k_span = stats[:4]
+            rc = self.render_cfg
+            if self._adapt_count >= self._adapt_cap:
+                R_now = ray_capacity(n_rays, rc.ray_capacity_frac)
+                S_now = sample_capacity(R_now, rc.sample_capacity_mult)
+                K_now = rc.march_config().n_march_iters
+                groups_over = rc.march_group and (
+                    stats[4] > sample_capacity(R_now, rc.march_group_mult)
+                    or (rc.march_group_slots is not None and stats[5] > rc.march_group_slots))
+                if n_hit > R_now or n_needed > S_now or n_k_span > K_now or groups_over:
+                    self.log(
+                        f"[WARN] adaptive-capacity cap ({self._adapt_cap} recompiles) "
+                        f"reached while capacities are undersized: hits {n_hit} vs "
+                        f"ray capacity {R_now}, samples {n_needed} vs capacity "
+                        f"{S_now}, window span {n_k_span} vs orbit {K_now} — work "
+                        f"beyond capacity is being DROPPED. Raise "
+                        f"--ray_capacity_frac/--sample_capacity_mult/--march_iters "
+                        f"or the cap (Trainer._adapt_cap).")
+                return
+            n_groups = n_group_max = None
+            if rc.march_group:
+                n_groups, n_group_max = stats[4] or None, stats[5] or None
+            with sync("occ_radius"):
+                radius = float(self.state.occ_sphere[3])
+            rc2 = adapt_render_config(rc, n_hit, n_needed, n_max, n_rays, radius,
+                                      n_k_span=n_k_span, n_groups=n_groups,
+                                      n_group_max=n_group_max)
+            if rc2 is not None:
+                self.render_cfg = rc2
+                self._adapt_count += 1
                 self.log(
-                    f"[WARN] adaptive-capacity cap ({self._adapt_cap} recompiles) "
-                    f"reached while capacities are undersized: hits {n_hit} vs "
-                    f"ray capacity {R_now}, samples {n_needed} vs capacity "
-                    f"{S_now}, window span {n_k_span} vs orbit {K_now} — work "
-                    f"beyond capacity is being DROPPED. Raise "
-                    f"--ray_capacity_frac/--sample_capacity_mult/--march_iters "
-                    f"or the cap (Trainer._adapt_cap).")
-            return
-        n_groups = n_group_max = None
-        if rc.march_group:
-            n_groups, n_group_max = stats[4] or None, stats[5] or None
-        radius = float(self.state.occ_sphere[3])
-        rc2 = adapt_render_config(rc, n_hit, n_needed, n_max, n_rays, radius,
-                                  n_k_span=n_k_span, n_groups=n_groups,
-                                  n_group_max=n_group_max)
-        if rc2 is not None:
-            self.render_cfg = rc2
-            self._adapt_count += 1
-            self.log(
-                f"[INFO] adapt capacities: ray_frac={rc2.ray_capacity_frac:.3f} "
-                f"sample_mult={rc2.sample_capacity_mult} "
-                f"march_iters={rc2.march_iters} "
-                f"sample_slots={rc2.sample_slots} "
-                f"(hits={n_hit}, samples={n_needed}, max_count={n_max}, "
-                f"occ_r={radius:.3f})")
+                    f"[INFO] adapt capacities: ray_frac={rc2.ray_capacity_frac:.3f} "
+                    f"sample_mult={rc2.sample_capacity_mult} "
+                    f"march_iters={rc2.march_iters} "
+                    f"sample_slots={rc2.sample_slots} "
+                    f"(hits={n_hit}, samples={n_needed}, max_count={n_max}, "
+                    f"occ_r={radius:.3f})")
 
     # ------------------------------------------------------ grid upkeep
     def update_extra_state(self, dataset):
@@ -498,29 +506,35 @@ class Trainer:
         the density queries. The torso: a random pose and its torso code
         condition the alpha queries; the audio draw still comes first, as it
         decides the pose draw."""
-        rng = np.random.default_rng(int(self.global_step) + self.opt.seed)
-        auds, ridx = None, 0
-        if dataset.auds is not None:
-            ridx = int(rng.integers(0, dataset.auds.shape[0]))
-            auds = _to_tensor(get_audio_features(dataset.auds, self.opt.att, ridx),
-                              self.device)
-        if self.opt.torso:
-            pidx = int(rng.integers(0, dataset.poses.shape[0]))
-            pose6 = _to_tensor(convert_poses(dataset.poses[pidx][None]), self.device)
-            codes = self.net.individual_codes_torso
-            code = codes[pidx] if codes is not None else None
-            self.state = update_torso_grid(self.net, self.render_cfg, self.state, pose6, code,
-                                           generator=self.grid_gen)
-            self.stats["mean_density_torso"].append(float(self.state.mean_density_torso))
-            return
-        eye = None
-        if self.opt.exp_eye and dataset.eye_area is not None:
-            eye = _to_tensor(dataset.eye_area[ridx].reshape(1, 1), self.device)
-        with torch.no_grad():
-            enc_a = self.net.encode_audio(auds)
-        self.state = update_density_grid(self.net, self.render_cfg, self.state, enc_a, eye,
-                                         generator=self.grid_gen)
-        self.stats["mean_density"].append(float(self.state.mean_density))
+        with span("upkeep.grid"):
+            rng = np.random.default_rng(int(self.global_step) + self.opt.seed)
+            auds, ridx = None, 0
+            if dataset.auds is not None:
+                ridx = int(rng.integers(0, dataset.auds.shape[0]))
+                with sync("upload_audio"):
+                    auds = _to_tensor(get_audio_features(dataset.auds, self.opt.att, ridx),
+                                      self.device)
+            if self.opt.torso:
+                pidx = int(rng.integers(0, dataset.poses.shape[0]))
+                with sync("upload_pose"):
+                    pose6 = _to_tensor(convert_poses(dataset.poses[pidx][None]), self.device)
+                codes = self.net.individual_codes_torso
+                code = codes[pidx] if codes is not None else None
+                self.state = update_torso_grid(self.net, self.render_cfg, self.state, pose6, code,
+                                               generator=self.grid_gen)
+                with sync("mean_density_torso"):
+                    self.stats["mean_density_torso"].append(float(self.state.mean_density_torso))
+                return
+            eye = None
+            if self.opt.exp_eye and dataset.eye_area is not None:
+                with sync("upload_eye"):
+                    eye = _to_tensor(dataset.eye_area[ridx].reshape(1, 1), self.device)
+            with torch.no_grad():
+                enc_a = self.net.encode_audio(auds)
+            self.state = update_density_grid(self.net, self.render_cfg, self.state, enc_a, eye,
+                                             generator=self.grid_gen)
+            with sync("mean_density"):
+                self.stats["mean_density"].append(float(self.state.mean_density))
 
     # ------------------------------------------------------------ loops
     def train(self, train_ds, valid_ds=None, max_epochs: int = 1):
@@ -558,7 +572,8 @@ class Trainer:
 
     def next_batch(self, dataset, idx) -> dict:
         """The dataset's batch ``idx`` on the trainer's device."""
-        return self.to_device(dataset.collate(int(idx)))
+        with span("batch"):
+            return self.to_device(dataset.collate(int(idx)))
 
     def step(self, dataset, idx, telemetry: Optional[dict] = None) -> torch.Tensor:
         """One step of the loop: the grid upkeep when it is due, then a
@@ -567,12 +582,14 @@ class Trainer:
         same epoch, as ``train_one_epoch`` passes it) and
         ``opt.auto_capacity``, a due upkeep first adapts the render
         capacities to it."""
-        if self.global_step % self.opt.update_extra_interval == 0:
-            if self.opt.auto_capacity and telemetry is not None:
-                self._adapt_capacities(telemetry, self._last_n_rays)
-            self.update_extra_state(dataset)
-        self.global_step += 1
-        return self.train_step(self.next_batch(dataset, idx))
+        with span("step"):
+            if self.global_step % self.opt.update_extra_interval == 0:
+                with span("upkeep"):
+                    if self.opt.auto_capacity and telemetry is not None:
+                        self._adapt_capacities(telemetry, self._last_n_rays)
+                    self.update_extra_state(dataset)
+            self.global_step += 1
+            return self.train_step(self.next_batch(dataset, idx))
 
     def train_one_epoch(self, dataset) -> list:
         """One pass over ``dataset.epoch_indices()``; returns the step
@@ -586,13 +603,18 @@ class Trainer:
         for idx in dataset.epoch_indices():
             losses.append(self.step(dataset, idx, self.telemetry if losses else None))
             if self.writer is not None and self.global_step % 16 == 0:
-                self.writer.add_scalar("train/loss", float(losses[-1]), self.global_step)
+                with sync("scalar_loss"):
+                    loss = float(losses[-1])
+                self.writer.add_scalar("train/loss", loss, self.global_step)
                 lr = self.opt.lr * self.decay_base ** (self.global_step / self.opt.iters)
                 self.writer.add_scalar("train/lr", lr, self.global_step)
-        losses = torch.stack(losses).tolist() if losses else []
+        with sync("epoch_losses"):
+            losses = torch.stack(losses).tolist() if losses else []
         if self._lpips_terms:
             steps, terms = zip(*self._lpips_terms)
-            self.stats["lpips_term"].extend(zip(steps, torch.stack(terms).tolist()))
+            with sync("lpips_terms"):
+                terms = torch.stack(terms).tolist()
+            self.stats["lpips_term"].extend(zip(steps, terms))
             self._lpips_terms = []
         self.stats["loss"].append(float(np.mean(losses)) if losses else 0.0)
         self.stats["step_loss"].extend(losses)
@@ -601,8 +623,10 @@ class Trainer:
             # the last step's rays hit and samples marched beside JAX's
             # capacities: [DROPPING] where JAX would drop work (the port
             # renders them all)
-            rc, n_hit = self.render_cfg, int(self.telemetry["n_hit"])
-            n_needed = int(self.telemetry["n_samples_needed"])
+            rc = self.render_cfg
+            with sync("epoch_telemetry"):
+                n_hit = int(self.telemetry["n_hit"])
+                n_needed = int(self.telemetry["n_samples_needed"])
             R = ray_capacity(self._last_n_rays, rc.ray_capacity_frac)
             S = sample_capacity(R, rc.sample_capacity_mult)
             cap_note = (f", hits {n_hit}/{R} rays, samples {n_needed}/{S}"
@@ -640,18 +664,21 @@ class Trainer:
         sharded (JAX trainer.py:736-738); any other renders whole on every
         rank."""
         H, W = batch["H"], batch["W"]
-        with self._eval_params():
-            if (self.world is not None and noises is None and batch.get("auds") is not None
-                    and batch["rays_o"].shape[0] % self.world[1] == 0):
-                results, state = render_frame_dp(self.net, self.render_cfg, self.state, batch,
-                                                 self.world)
-            else:
-                results, state = render_rays(
-                    self.net, self.render_cfg, self.state, batch["rays_o"], batch["rays_d"],
-                    batch.get("auds"), batch["bg_coords"], batch["poses"], batch.get("eye"),
-                    batch["index"], batch["bg_color"], noises=noises)
-        pred = results["image"].reshape(H, W, 3).cpu().numpy()
-        depth = results["depth"].reshape(H, W).cpu().numpy()
+        with span("frame"):
+            with self._eval_params():
+                if (self.world is not None and noises is None and batch.get("auds") is not None
+                        and batch["rays_o"].shape[0] % self.world[1] == 0):
+                    results, state = render_frame_dp(self.net, self.render_cfg, self.state,
+                                                     batch, self.world)
+                else:
+                    results, state = render_rays(
+                        self.net, self.render_cfg, self.state, batch["rays_o"],
+                        batch["rays_d"], batch.get("auds"), batch["bg_coords"], batch["poses"],
+                        batch.get("eye"), batch["index"], batch["bg_color"], noises=noises)
+            with sync("image"):
+                pred = results["image"].reshape(H, W, 3).cpu().numpy()
+            with sync("depth"):
+                depth = results["depth"].reshape(H, W).cpu().numpy()
         return (pred, depth), state
 
     @staticmethod
@@ -693,7 +720,8 @@ class Trainer:
                 # loss and metrics in linear space; the PNG in sRGB
                 gt = srgb_to_linear(gt)
                 pred_save = linear_to_srgb(torch.from_numpy(np.clip(pred, 0, 1))).numpy()
-            gt = gt.cpu().numpy()
+            with sync("eval_truth"):
+                gt = gt.cpu().numpy()
             total += float(np.mean((pred - gt) ** 2))
             count += 1
             for metric in self.metrics:
@@ -775,7 +803,8 @@ class Trainer:
                                              tuple(dataset.intrinsics))
         order = dataset.epoch_indices()
         losses = [self.step(dataset, order[s % len(order)]) for s in range(step)]
-        return {"loss": float(torch.stack(losses).mean())}
+        with sync("burst_loss"):
+            return {"loss": float(torch.stack(losses).mean())}
 
     def test_gui(self, pose, intrinsics, W: int, H: int, auds=None, eye: float = 0.25,
                  index: int = 0, bg_color=None, spp: int = 1, downscale: float = 1):
