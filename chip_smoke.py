@@ -1823,7 +1823,7 @@ def entry_phase(report, root):
     from radnerf_tpu_torch import infer
     from radnerf_tpu_torch.convert import _state_dict_from_jax
     from radnerf_tpu_torch.main import main as port_main
-    from radnerf_tpu_torch.models import NeRFNetwork
+    from radnerf_tpu_torch.models import NeRFNetwork, graph_stats, reset_graph_stats
     from radnerf_tpu_torch.ops import _kernels
     from radnerf_tpu_torch.train import checkpoint as ckpt_lib
 
@@ -1876,10 +1876,12 @@ def entry_phase(report, root):
     out = os.path.join(root, "infer")
     torch.cuda.synchronize()
     _kernels.reset_launches()
+    reset_graph_stats()
     fps = infer.main(["--pose", pose_path, "--aud", aud_path, "--workspace", out, "--exp_eye",
                       "--ckpt", tr.best_path])
     torch.cuda.synchronize()
-    infer_launches = _kernels.launches()
+    # the host's launches: a replayed frame's kernels are in the graphs' replays
+    infer_launches, infer_graphs = _kernels.launches(), graph_stats()
     infer_files = sorted(os.listdir(os.path.join(out, "results")))
     ep = {"argv": argv, "seconds": run_s, "steps": tr.global_step, "epochs": tr.epoch,
           "eval_interval": tr.eval_interval, "launches": launches,
@@ -1889,7 +1891,8 @@ def entry_phase(report, root):
           "validation_files": len(validation), "result_files": results,
           "log_lines": len(log_lines), "log_banner": log_lines[:2],
           "log_events_missing": log_missing,
-          "infer": {"launches": infer_launches, "fps": fps, "files": len(infer_files)},
+          "infer": {"launches": infer_launches, "graphs": infer_graphs, "fps": fps,
+                    "files": len(infer_files)},
           "model": "NetworkConfig(torso=False, exp_eye=True) full width, float32, the CLI's "
                    "defaults (65,536 rays, grid 128), seeded init"}
     report["entry"] = {**ep, "step_losses": losses}
@@ -1991,7 +1994,8 @@ def variants_phase(report, out_dir, root):
     from radnerf_tpu_torch.main import build_parser, options_from_args
     from radnerf_tpu_torch.main import main as port_main
     from radnerf_tpu_torch.models import (
-        NetworkConfig, RenderConfig, RendererState, mark_untrained_grid, update_density_grid,
+        NetworkConfig, RenderConfig, RendererState, graph_stats, mark_untrained_grid,
+        reset_graph_stats, update_density_grid,
     )
     from radnerf_tpu_torch.ops import _kernels, march_rays
     from radnerf_tpu_torch.train import Trainer
@@ -2056,11 +2060,12 @@ def variants_phase(report, out_dir, root):
              "results": sorted(os.listdir(os.path.join(ws, "results")))}
     out = os.path.join(root, "variants_infer")
     _kernels.reset_launches()
+    reset_graph_stats()
     fps = infer.main(["--pose", os.path.join(root, "pose.json"), "--aud",
                       os.path.join(root, "novel.npy"), "--workspace", out, "--exp_eye",
                       "--ckpt", tr.best_path, *VARIANT_FLAGS])
     torch.cuda.synchronize()
-    infer_launches = _kernels.launches()
+    infer_launches, infer_graphs = _kernels.launches(), graph_stats()
     files["infer"] = len(os.listdir(os.path.join(out, "results")))
 
     # the step, fenced (upkeep steps apart) and profiled; one more step's
@@ -2109,7 +2114,7 @@ def variants_phase(report, out_dir, root):
           "loss_first": losses[0], "loss_last": losses[-1],
           "fixed_batch_loss_step0": loss_0, "fixed_batch_loss_end": loss_end,
           "eval_psnr": tr.stats["results"], "files": files,
-          "infer": {"launches": infer_launches, "fps": fps},
+          "infer": {"launches": infer_launches, "graphs": infer_graphs, "fps": fps},
           "max_memory_allocated_gb": peak_gb, "reckoned_eval_peak_gb": reckoned / 1e9,
           "train_step_ms_median": med, "train_step_ms": step_ms,
           "upkeep_step_ms": upkeep_step_ms,
@@ -2607,7 +2612,9 @@ def capacity_phase(report, out_dir, root, smi):
     import radnerf_tpu_torch.models.renderer as renderer_mod
     from radnerf_tpu_torch.config import Options
     from radnerf_tpu_torch.data import TalkingHeadDataset
-    from radnerf_tpu_torch.models import RenderConfig, render_rays
+    from radnerf_tpu_torch.models import (
+        RenderConfig, graph_stats, render_rays, reset_graph_stats,
+    )
     from radnerf_tpu_torch.ops import (
         _kernels, composite_rays, composite_rays_backward, composite_rays_backward_plain,
         composite_rays_plain, march_rays, march_rays_plain,
@@ -2802,21 +2809,23 @@ def capacity_phase(report, out_dir, root, smi):
     for name, rc_ in frames.items():
         torch.cuda.synchronize()
         _kernels.reset_launches()
+        reset_graph_stats()
         got = frame(rc_)
         torch.cuda.synchronize()
-        launches = {k: v for k, v in _kernels.launches().items() if v}
+        launches, graphs = {k: v for k, v in _kernels.launches().items() if v}, graph_stats()
         equal = {k: bool(torch.equal(got[k], base[k]))
                  for k in ("image", "depth", "weights_sum", "torso_alpha")}
         march = "march_rays_grouped" if rc_.march_group else "march_rays"
-        frame_rows[name] = {"lattice": lattice(rc_), "launches": launches,
+        frame_rows[name] = {"lattice": lattice(rc_), "launches": launches, "graphs": graphs,
                             "bit_for_bit_with_default": equal,
                             "telemetry": {k: int(v) for k, v in got.items()
                                           if k.startswith("n_")}}
         if not all(equal.values()):
             problems.append(f"the {name} frame differs from the default lattice's: {equal}")
-        if launches.get(march, 0) != 1 or launches.get("composite_rays", 0) != 1 or \
-                launches.get("grid_encode", 0) != 3:
-            problems.append(f"the {name} frame launched {launches}")
+        # march, torso, composite: the torso on
+        ran = {k: frames_ran(k, launches, graphs, 3) for k in (march, "composite_rays")}
+        if ran != {march: 1, "composite_rays": 1} or launches.get("grid_encode", 0) != 3:
+            problems.append(f"the {name} frame launched {launches}, graphs {graphs}")
         if name != "default":
             checks_f = frame_kernel_checks(lambda rc_=rc_: frame(rc_), {
                 "grid_encode": 3, "march_rays": 0 if rc_.march_group else 1,
@@ -2929,24 +2938,40 @@ def frame_kernel_checks(render, want_calls):
 # ---------------------------------------------------------------------------
 # the bf16 policy (-O)
 
+def frames_ran(name, launches, graphs, segments):
+    """The frames that ran kernel ``name`` (B, B-grouped or C, which a
+    captured frame replays from its segments) since ``launches`` and
+    ``graphs`` (``graph_stats()``) were zeroed: the host's launches count an
+    eager frame's once and a capturing frame's twice (its warm-up, and the
+    capture, which records them), and each frame replayed from its
+    ``segments`` graphs launches none."""
+    return launches.get(name, 0) + (graphs["replays"] - 2 * graphs["captures"]) // segments
+
+
 @contextlib.contextmanager
 def recorded_calls(bindings):
     """While the block runs, each (module, name) of ``bindings`` records its
     calls into the yielded list as (name, args, kwargs), tensors cloned as
     passed (a module's own binding: the model modules bind the wrappers at
-    import)."""
+    import). Frames render eagerly meanwhile: a replayed frame graph makes
+    no Python call, and a capture's calls hold no values yet (the graphed
+    frame is held to the eager one by tests/test_torch_frame_graph.py)."""
+    from radnerf_tpu_torch.models import frame_graph
+
     def clone(v):
         if torch.is_tensor(v):
             return v.detach().clone()
         return tuple(clone(x) for x in v) if isinstance(v, tuple) else v
 
     calls = []
+    bindings = [*bindings, (frame_graph, "engages")]
     originals = [getattr(mod, name) for mod, name in bindings]
-    for (mod, name), fn in zip(bindings, originals):
+    for (mod, name), fn in zip(bindings[:-1], originals):
         def recording(*args, _name=name, _fn=fn, **kw):
             calls.append((_name, clone(args), {k: clone(v) for k, v in kw.items()}))
             return _fn(*args, **kw)
         setattr(mod, name, recording)
+    frame_graph.engages = lambda rays_o: False
     try:
         yield calls
     finally:
@@ -4264,6 +4289,7 @@ def live_phase(report, out_dir, root):
     from radnerf_tpu_torch import infer, resolve_device
     from radnerf_tpu_torch.apps import StreamingASR
     from radnerf_tpu_torch.main import main as port_main
+    from radnerf_tpu_torch.models import graph_stats, reset_graph_stats
     from radnerf_tpu_torch.ops import _kernels
 
     dev = resolve_device("cuda")
@@ -4299,8 +4325,9 @@ def live_phase(report, out_dir, root):
     app.playing = True
     torch.cuda.synchronize()
     _kernels.reset_launches()
+    reset_graph_stats()
     frame_ms = fenced_ms(lambda i: app.step(), LIVE_FRAMES)
-    launches = _kernels.launches()
+    launches, graphs = _kernels.launches(), graph_stats()
     asr_share = asr_s[0] * 1e3 / sum(frame_ms)
     prof, events = device_profile(lambda i: app.step(), 3)
     with open(os.path.join(out_dir, "chip_smoke_live_profile.txt"), "w") as f:
@@ -4361,7 +4388,7 @@ def live_phase(report, out_dir, root):
     lv = {"argv": argv, "build_seconds": build_s, "warm_up_seconds": warm_s,
           "warm_up_steps": asr.warm_up_steps,
           "expected_latency_s": asr.warm_up_steps / asr.fps, "frames": LIVE_FRAMES,
-          "launches": launches, "frame_ms_median": med,
+          "launches": launches, "graphs": graphs, "frame_ms_median": med,
           "frame_ms_p90": float(np.percentile(frame_ms, 90)), "fps": 1e3 / med,
           "asr_share": asr_share, "device_busy_ms_per_frame": busy,
           "device_busy_share": busy / med, "ms_per_frame_by_class": ms_by_class(events, 3),
@@ -4379,10 +4406,12 @@ def live_phase(report, out_dir, root):
     emit({"phase": "live", **lv})
     problems = []
     # the three tables' packed copies are kept: packed at most once each
+    # march, torso, composite: the torso on
     if launches["grid_encode_bf16"] != 3 * LIVE_FRAMES or launches["grid_encode"] or \
-            launches["march_rays"] != LIVE_FRAMES or launches["composite_rays"] != LIVE_FRAMES \
+            frames_ran("march_rays", launches, graphs, 3) != LIVE_FRAMES or \
+            frames_ran("composite_rays", launches, graphs, 3) != LIVE_FRAMES \
             or launches["grid_pack_bf16"] > 3:
-        problems.append(f"the playing frames' launches {launches}")
+        problems.append(f"the playing frames' launches {launches}, graphs {graphs}")
     if not all(r["ok"] for rows in checks.values() for r in rows):
         problems.append(f"a kernel differs from its plain version in a live frame: {checks}")
     if live_frame.shape != (LIVE_SIZE, LIVE_SIZE, 3) or not np.isfinite(live_frame).all():

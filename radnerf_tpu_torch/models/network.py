@@ -328,7 +328,8 @@ class NeRFNetwork(nn.Module):
         return {"sigma": sigma, "geo_feat": geo_feat}
 
     def forward_torso(self, x, pose6, c=None):
-        """2-D neural torso layer (reference network.py:188-219).
+        """2-D neural torso layer (reference network.py:188-219):
+        ``torso_deform``, ``torso_encode`` and ``torso_head`` in turn.
 
         Args:
           x: [..., 2] pixel coords in [-1, 1]; pose6: [1, 6]; c:
@@ -336,7 +337,14 @@ class NeRFNetwork(nn.Module):
 
         Returns (alpha [..., 1], color [..., 3], dx [..., 2]).
         """
-        cfg, dt = self.cfg, self.cfg.dtype
+        x, h, dx = self.torso_deform(x, pose6, c)
+        return (*self.torso_head(self.torso_encode(x, dx), h), dx)
+
+    def torso_deform(self, x, pose6, c=None):
+        """The torso layer's first stage: the shrunk coords, their features
+        h (the coords' and the pose's frequency encodings and the code) and
+        the deform net's offsets dx."""
+        cfg = self.cfg
         batch = x.shape[:-1]
         x = x * cfg.torso_shrink
         enc_pose = freq_encode(pose6, 4)  # [1, 54]
@@ -344,8 +352,17 @@ class NeRFNetwork(nn.Module):
         if c is not None:
             parts.append(c.expand(*batch, c.shape[-1]))
         h = torch.cat(parts, dim=-1)
-        dx = self.torso_deform_net(h.to(dt), dt).float()
+        dx = self.torso_deform_net(h.to(cfg.dtype), cfg.dtype).float()
+        return x, h, dx
+
+    def torso_encode(self, x, dx):
+        """The torso grid's encode at the deformed coords: [..., L*C],
+        float32, or bf16 under the bf16 policy."""
         xp = torch.clamp(x + dx, -1.0, 1.0)
-        enc_t = self._encode(xp, "torso_encoder", cfg.torso_spec, 1.0)
+        return self._encode(xp, "torso_encoder", self.cfg.torso_spec, 1.0)
+
+    def torso_head(self, enc_t, h):
+        """The torso MLP on the encode and the features: (alpha, color)."""
+        dt = self.cfg.dtype
         h2 = self.torso_net(torch.cat([enc_t.to(dt), h.to(dt)], dim=-1), dt).float()
-        return torch.sigmoid(h2[..., :1]), torch.sigmoid(h2[..., 1:]), dx
+        return torch.sigmoid(h2[..., :1]), torch.sigmoid(h2[..., 1:])

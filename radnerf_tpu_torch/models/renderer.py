@@ -28,6 +28,16 @@ rays first turn and move by the frame's learnt offsets; B marches them
 detached and the sample positions are formed again from its t under
 autograd, so no backward of B is needed.
 
+An inference frame on the card (``training=False``, outside data
+parallelism) replays its fixed-shape stretches from CUDA graphs captured
+at its key's second frame in a row (``_render_graphed``,
+``frame_graph.py``): the audio net and the march; the torso's mask and
+deformation; the torso MLP, the compositor, blend and depth. The
+compaction, whose sample count the host reads back, the torso's grid
+encode and the field on exactly the valid samples run eagerly between
+them. The box (``aabb``) is a device constant made once per bound and
+device on every path.
+
 Grid maintenance: ``RendererState.create``, ``reset_extra_state``,
 ``mark_untrained_grid`` (cells no training camera sees become -1),
 ``update_density_grid`` (the head: jittered density queries at every cell
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Optional
 
 import torch
@@ -62,6 +73,8 @@ from ..ops import (
 )
 from ..ops.marching import MARCH_GROUP
 from ..utils.tracing import span, sync
+from . import frame_graph
+from .frame_graph import Segment, can_capture, count_eager, warm_up
 from .network import NeRFNetwork
 
 GRID_SIZE = 128
@@ -343,22 +356,33 @@ def march_window(state: RendererState, o, d, nears, fars):
     return lo, hi
 
 
-def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye):
+def compacted_index(valid: torch.Tensor) -> torch.Tensor:
+    """The flat indices of the valid slots of a [N, S] lattice; the host
+    reads their count back."""
+    with sync("compact"):
+        return valid.reshape(-1).nonzero().squeeze(1)
+
+
+def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye, out=None,
+                     idx=None):
     """Evaluate the field on the valid samples of a [N, S] march only, and
     scatter (sigma [N, S], color [N, S, 3], ambient [N, S, amb]) back; invalid
-    slots hold zeros."""
+    slots hold zeros. ``out``: zeroed flat (sigma [N * S], color [N * S, 3],
+    ambient [N * S, amb]) to scatter into (a captured frame's), else new;
+    ``idx``: the lattice's ``compacted_index``, taken here if None."""
     valid = march["valid"]
     N, S = valid.shape
-    with sync("compact"):
-        idx = valid.reshape(-1).nonzero().squeeze(1)
+    if idx is None:
+        idx = compacted_index(valid)
     xyz = march["xyz"].reshape(-1, 3)[idx]
     dirs = rays_d[idx // S]
     sig_c, col_c, amb_c = net.field_forward(xyz, dirs, enc_a, ind_code, eye)
     if net.cfg.compute_dtype == "bfloat16":
         sig_c, col_c, amb_c = (v.to(torch.bfloat16).float() for v in (sig_c, col_c, amb_c))
-    sigma = sig_c.new_zeros(N * S).index_copy_(0, idx, sig_c)
-    color = col_c.new_zeros(N * S, 3).index_copy_(0, idx, col_c)
-    amb = amb_c.new_zeros(N * S, amb_c.shape[-1]).index_copy_(0, idx, amb_c)
+    if out is None:
+        out = (sig_c.new_zeros(N * S), col_c.new_zeros(N * S, 3),
+               amb_c.new_zeros(N * S, amb_c.shape[-1]))
+    sigma, color, amb = (o.index_copy_(0, idx, v) for o, v in zip(out, (sig_c, col_c, amb_c)))
     return sigma.view(N, S), color.view(N, S, 3), amb.view(N, S, -1)
 
 
@@ -379,7 +403,9 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
         return ``ambient``, the per-ray ambient sum the head loss reads;
         with ``train_camera`` the rays first move by frame ``index``'s
         learnt offsets (``camera_offsets``). Inference runs under
-        ``torch.no_grad()``. The torso runs on every pixel and is masked
+        ``torch.no_grad()``, on CUDA tensors outside data parallelism
+        through the captured frame (``_render_graphed``): the same kernels
+        on the same samples. The torso runs on every pixel and is masked
         afterwards (the JAX path at ``torso_capacity_frac >= 1``).
 
     Returns (results, state): image [N, 3], weights_sum [N] (the head's
@@ -389,7 +415,7 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
       n_max_count, n_groups_needed, n_group_max (the two-level march's kept
       groups, their sum and per-ray max before the ``march_group_slots``
       truncation; 0 when the march is dense), n_torso_mask as 0-dim int
-      tensors.
+      tensors. No result shares memory with another call's.
     """
     if rays_o.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on; the float32 render needs them off")
@@ -400,8 +426,15 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
                            "render needs them off")
     if not training:
         with torch.no_grad():
+            if frame_graph.engages(rays_o):
+                out = _render_graphed(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6,
+                                      eye, bg_color, noises)
+                if out is not None:
+                    return out
+            count_eager()
             return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye,
                            0, bg_color, noises, False)
+    count_eager()
     return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
                    bg_color, noises, True)
 
@@ -438,11 +471,119 @@ def sample_positions(rays_o, rays_d, t, bound: float):
     return torch.minimum(torch.maximum(p, lo), hi)
 
 
+_AABBS: dict = {}
+
+
+def _aabb(cfg: RenderConfig, device) -> torch.Tensor:
+    """The full AABB [6] as a float32 device constant, made once per bound
+    and device (an upload that no captured frame could hold)."""
+    key = (cfg.aabb, device)
+    if key not in _AABBS:
+        _AABBS[key] = torch.tensor(cfg.aabb, dtype=torch.float32, device=device)
+    return _AABBS[key]
+
+
+def _audio_code(net, cfg, state, auds):
+    """The frame's audio code (None without audio) and the state, its EMA
+    advanced with ``smooth_lips``."""
+    enc_a = net.encode_audio(auds)
+    if enc_a is not None and cfg.smooth_lips:
+        enc_a, state = smooth_audio_code(state, enc_a, True)
+    return enc_a, state
+
+
+def _march(cfg, state, rays_o, rays_d, noises):
+    """The rays marched through the state's occupancy: (the lattice with the
+    rays' nears, fars and hit mask in one dict, the march's telemetry)."""
+    mcfg = cfg.march_config()
+    nears, fars = near_far_from_aabb(rays_o, rays_d, _aabb(cfg, rays_o.device), cfg.min_near)
+    t_lo, t_hi = march_window(state, rays_o, rays_d, nears, fars)
+    hit = t_lo < t_hi
+    telemetry = {
+        "n_hit": hit.sum(dtype=torch.int32),
+        # the widest marched window in orbit steps (what K has to cover)
+        "n_k_span": torch.where(hit, torch.ceil((t_hi - t_lo) / mcfg.dt_min),
+                                0.0).max().to(torch.int32),
+    }
+    if cfg.march_group and grouped_march_qualifies(mcfg):
+        n_groups = -(-mcfg.n_march_iters // MARCH_GROUP)
+        march = march_rays_grouped(rays_o, rays_d, nears, fars, state.sigma_bytes,
+                                   state.coarse_bytes, mcfg, (t_lo, t_hi),
+                                   min(cfg.march_group_slots or n_groups, n_groups),
+                                   cfg.cull_T, noises)
+        telemetry["n_groups_needed"] = march["groups"].sum(dtype=torch.int32)
+        telemetry["n_group_max"] = march["groups"].max()
+    else:
+        march = march_rays(rays_o, rays_d, nears, fars, state.sigma_bytes, mcfg,
+                           t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
+        telemetry["n_groups_needed"] = telemetry["n_group_max"] = torch.zeros(
+            (), dtype=torch.int32, device=rays_o.device)
+    return dict(march, nears=nears, fars=fars, hit=hit), telemetry
+
+
+def _composite(cfg, march, sig, col, amb, training):
+    """Kernel C over the field's lattice: the head's image, weights_sum and
+    raw depth (0 on rays that miss), its telemetry and, when training, the
+    per-ray ambient sum."""
+    comp = composite_rays(sig, col, march["dt"], march["t"], march["valid"],
+                          ambient=amb.abs().sum(dim=-1), T_thresh=cfg.T_thresh)
+    hit = march["hit"]
+    out = {"n_samples_needed": march["valid"].sum(dtype=torch.int32),
+           "n_max_count": march["count"].max(),
+           "weights_sum": torch.where(hit, comp["weights_sum"], 0.0),
+           "depth_raw": torch.where(hit, comp["depth"], 0.0),
+           "image": torch.where(hit[:, None], comp["image"], 0.0)}
+    if training:
+        out["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
+    return out
+
+
+def _torso_deform(net, cfg, state, bg_coords, pose6, index):
+    """The torso layer's stretch before its grid encode: the torso grid's
+    mask at every pixel and ``NeRFNetwork.torso_deform``'s coords,
+    features and offsets."""
+    code_t = (net.individual_codes_torso[index]
+              if net.individual_codes_torso is not None else None)
+    thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
+    occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
+    mask = occupancy > thresh_t
+    x, h, dx = net.torso_deform(bg_coords, pose6, code_t)
+    return {"mask": mask, "n_torso_mask": mask.sum(dtype=torch.int32), "x": x, "h": h,
+            "deform": dx}
+
+
+def _torso_layer(net, pre, enc_t, bg_color):
+    """The torso layer after its grid encode ``enc_t``, masked, over the
+    background: n_torso_mask, deform, torso_alpha and torso_color (the
+    background the head is blended over)."""
+    t_alpha, t_color = net.torso_head(enc_t, pre["h"])
+    mask = pre["mask"]
+    t_alpha = torch.where(mask[:, None], t_alpha, 0.0)
+    t_color = torch.where(mask[:, None], t_color, 0.0)
+    return {"n_torso_mask": pre["n_torso_mask"], "deform": pre["deform"],
+            "torso_alpha": t_alpha,
+            "torso_color": t_color * t_alpha + bg_color * (1.0 - t_alpha)}
+
+
+def _torso(net, cfg, state, bg_coords, pose6, bg_color, index):
+    """The torso layer over the background, masked by the torso grid."""
+    pre = _torso_deform(net, cfg, state, bg_coords, pose6, index)
+    return _torso_layer(net, pre, net.torso_encode(pre["x"], pre["deform"]), bg_color)
+
+
+def _blend(comp, bg_color, march):
+    """The head over the background, and its depth normalised by the full
+    AABB's near and far."""
+    ws = comp["weights_sum"]
+    image = torch.clamp(comp["image"] + (1.0 - ws)[:, None] * bg_color, 0.0, 1.0)
+    nears, fars = march["nears"], march["fars"]
+    depth = torch.clamp(comp["depth_raw"] - nears, min=0.0) / torch.clamp(fars - nears,
+                                                                         min=1e-8)
+    return {"image": image, "weights_sum": ws, "depth": depth}
+
+
 def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
             noises, training):
-    mcfg = cfg.march_config()
-    with sync("aabb"):
-        aabb = rays_o.new_tensor(cfg.aabb)
     # with learnt camera offsets the gradient reaches the rays only through
     # the samples' positions and the SH directions: as in JAX (near/far
     # under stop_gradient, the window and the march through floor and
@@ -454,71 +595,189 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
     ro, rd = (rays_o.detach(), rays_d.detach()) if camera else (rays_o, rays_d)
 
     with span("render.audio"):
-        enc_a = net.encode_audio(auds)
-        if enc_a is not None and cfg.smooth_lips:
-            enc_a, state = smooth_audio_code(state, enc_a, True)
+        enc_a, state = _audio_code(net, cfg, state, auds)
     ind_code = net.individual_codes[index] if net.individual_codes is not None else None
 
     with span("render.march"):
-        nears, fars = near_far_from_aabb(ro, rd, aabb, cfg.min_near)
-        t_lo, t_hi = march_window(state, ro, rd, nears, fars)
-        hit = t_lo < t_hi
-        results = {
-            "n_hit": hit.sum(dtype=torch.int32),
-            # the widest marched window in orbit steps (what K has to cover)
-            "n_k_span": torch.where(hit, torch.ceil((t_hi - t_lo) / mcfg.dt_min),
-                                    0.0).max().to(torch.int32),
-        }
-        if cfg.march_group and grouped_march_qualifies(mcfg):
-            n_groups = -(-mcfg.n_march_iters // MARCH_GROUP)
-            march = march_rays_grouped(ro, rd, nears, fars, state.sigma_bytes,
-                                       state.coarse_bytes, mcfg, (t_lo, t_hi),
-                                       min(cfg.march_group_slots or n_groups, n_groups),
-                                       cfg.cull_T, noises)
-            results["n_groups_needed"] = march["groups"].sum(dtype=torch.int32)
-            results["n_group_max"] = march["groups"].max()
-        else:
-            march = march_rays(ro, rd, nears, fars, state.sigma_bytes, mcfg,
-                               t_window=(t_lo, t_hi), cull_T=cfg.cull_T, noises=noises)
-            results["n_groups_needed"] = results["n_group_max"] = torch.zeros(
-                (), dtype=torch.int32, device=ro.device)
+        march, results = _march(cfg, state, ro, rd, noises)
         if camera:
-            march = dict(march, xyz=sample_positions(rays_o, rays_d, march["t"], cfg.bound))
+            march["xyz"] = sample_positions(rays_o, rays_d, march["t"], cfg.bound)
     with span("render.field"):
         sig, col, amb = field_on_lattice(net, march, rays_d, enc_a, ind_code, eye)
     with span("render.composite"):
-        comp = composite_rays(sig, col, march["dt"], march["t"],
-                              march["valid"], ambient=amb.abs().sum(dim=-1),
-                              T_thresh=cfg.T_thresh)
-        results["n_samples_needed"] = march["valid"].sum(dtype=torch.int32)
-        results["n_max_count"] = march["count"].max()
-        weights_sum = torch.where(hit, comp["weights_sum"], 0.0)
-        depth_raw = torch.where(hit, comp["depth"], 0.0)
-        image = torch.where(hit[:, None], comp["image"], 0.0)
-        if training:
-            results["ambient"] = torch.where(hit, comp["ambient_sum"], 0.0)
-
+        comp = _composite(cfg, march, sig, col, amb, training)
+    results.update({k: comp[k] for k in _COMPOSITE_TELEMETRY})
+    if training:
+        results["ambient"] = comp["ambient"]
     if cfg.torso:
         with span("render.torso"):
-            code_t = (net.individual_codes_torso[index]
-                      if net.individual_codes_torso is not None else None)
-            thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
-            occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
-            mask = occupancy > thresh_t
-            results["n_torso_mask"] = mask.sum(dtype=torch.int32)
-            t_alpha, t_color, deform = net.forward_torso(bg_coords, pose6, code_t)
-            t_alpha = torch.where(mask[:, None], t_alpha, 0.0)
-            t_color = torch.where(mask[:, None], t_color, 0.0)
-            bg_color = t_color * t_alpha + bg_color * (1.0 - t_alpha)
-            results["deform"] = deform
-            results["torso_alpha"] = t_alpha
-            results["torso_color"] = bg_color
+            torso = _torso(net, cfg, state, bg_coords, pose6, bg_color, index)
+        results.update(torso)
+        bg_color = torso["torso_color"]
+    results.update(_blend(comp, bg_color, march))
+    return results, state
 
-    image = torch.clamp(image + (1.0 - weights_sum)[:, None] * bg_color, 0.0, 1.0)
-    results["image"] = image
-    results["weights_sum"] = weights_sum
-    results["depth"] = torch.clamp(depth_raw - nears, min=0.0) / torch.clamp(
-        fars - nears, min=1e-8)
+
+# the results of a captured frame by segment, in render_rays' order
+_MARCH_RESULTS = ("n_hit", "n_k_span", "n_groups_needed", "n_group_max")
+_COMPOSITE_TELEMETRY = ("n_samples_needed", "n_max_count")
+_TORSO_RESULTS = ("n_torso_mask", "deform", "torso_alpha", "torso_color")
+_COMPOSITE_RESULTS = ("image", "weights_sum", "depth")
+
+
+def _graph_identity(net, state) -> tuple:
+    """The addresses of every persistent tensor a captured frame reads in
+    place: the parameters, and the state's occupancy, box, sphere and torso
+    grid."""
+    held = [*net.parameters(), state.sigma_bytes, state.coarse_bytes, state.occ_bbox,
+            state.occ_sphere, state.density_grid_torso, state.mean_density_torso]
+    return tuple(t.data_ptr() for t in held)
+
+
+class _CapturedFrame:
+    """A network's captured frame: its key and the identity of what it
+    reads in place (``_graph_identity``), its static inputs and its
+    segments (None until the key's second frame in a row captures them)."""
+
+    def __init__(self, key: tuple, identity: tuple):
+        self.key, self.identity, self.static, self.segments = key, identity, None, None
+
+    def capture(self, net, cfg, state, ins: dict, smooth: bool, device):
+        """Warm up and capture the segments ``march`` (the audio net and its
+        EMA, the window and the march, a zeroed lattice for the field),
+        ``torso`` (with the torso: its mask and deformation) and
+        ``composite`` (the torso MLP on the eager encode's static copy,
+        kernel C, the blend, the depth), which read the static inputs and
+        the state in place. They hold the network weakly: it keys them
+        (``_FRAMES``), and a strong reference would keep it alive."""
+        static = self.static = {k: v.clone(memory_format=torch.contiguous_format)
+                                for k, v in ins.items()}
+        amb_dim = net.cfg.ambient_dim
+        net_ref = weakref.ref(net)
+        if cfg.torso:
+            static["enc_t"] = torch.zeros(
+                ins["bg_coords"].shape[0], net.cfg.torso_spec.output_dim,
+                dtype=net.cfg.table_dtype or torch.float32, device=device)
+
+        def march_fn():
+            st = state
+            if smooth:
+                st = dataclasses.replace(state, enc_a_smooth=static["enc_a_smooth"],
+                                         enc_a_initialized=static["enc_a_initialized"])
+            enc_a, st = _audio_code(net_ref(), cfg, st, static.get("auds"))
+            march, telemetry = _march(cfg, state, static["rays_o"], static["rays_d"],
+                                      static.get("noises"))
+            n = march["valid"].numel()
+            zeros = march["t"].new_zeros
+            out = dict(march, **telemetry, sigma=zeros(n), color=zeros(n, 3),
+                       ambient=zeros(n, amb_dim))
+            if enc_a is not None:
+                out["enc_a"] = enc_a
+            if smooth:
+                out.update(enc_a_smooth=st.enc_a_smooth, enc_a_initialized=st.enc_a_initialized)
+            return out
+
+        def torso_fn():
+            return _torso_deform(net_ref(), cfg, state, static["bg_coords"], static["pose6"], 0)
+
+        def composite_fn(m, t):
+            N, S = m["valid"].shape
+            comp = _composite(cfg, m, m["sigma"].view(N, S), m["color"].view(N, S, 3),
+                              m["ambient"].view(N, S, amb_dim), False)
+            out = {k: comp[k] for k in _COMPOSITE_TELEMETRY}
+            bg = static["bg_color"]
+            if t is not None:
+                out.update(_torso_layer(net_ref(), t, static["enc_t"], bg))
+                bg = out["torso_color"]
+            return {**out, **_blend(comp, bg, m)}
+
+        def warm():
+            composite_fn(march_fn(), torso_fn() if cfg.torso else None)
+
+        with span("render.graph.capture"):
+            warm_up(device, warm)
+            pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+            march = Segment("march", march_fn, device, pool)
+            torso = Segment("torso", torso_fn, device, pool) if cfg.torso else None
+            composite = Segment(
+                "composite", lambda: composite_fn(march.outputs, torso and torso.outputs),
+                device, pool)
+        self.segments = {"march": march, "composite": composite}
+        if torso is not None:
+            self.segments["torso"] = torso
+
+
+# each network's one captured frame, dropped with the network
+_FRAMES: "weakref.WeakKeyDictionary[NeRFNetwork, _CapturedFrame]" = weakref.WeakKeyDictionary()
+
+
+def _render_graphed(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, bg_color,
+                    noises):
+    """``render_rays(training=False)``'s frame with its fixed-shape stretches
+    replayed from captured segments (``frame_graph.Segment``): the march
+    segment; the compaction, which reads the sample count back; the torso
+    segment, then the torso's grid encode (eagerly, on fresh points, so that
+    every kernel A a frame runs is a call of ``network.grid_encode``, which
+    is where the benchmark counts a frame's encodes), copied into the
+    composite segment's static input; the field on exactly the valid
+    samples, eager, scattering into the march segment's zeroed lattice; the
+    composite segment. The card runs the torso while the host launches the
+    field. The same kernels on the same samples as ``_render``, bit for bit.
+
+    A network keeps one captured frame (``_FRAMES``), under a key of the
+    render config and the shapes, dtypes and presence of the per-frame
+    inputs, and the identity of the persistent tensors it reads in place
+    (``_graph_identity``). The inputs' values, and the carried audio code
+    with its flag, are copied into the static inputs before each replay. A
+    frame whose key or identity differs from the kept one's frees it, keeps
+    its own in its place and returns None (it renders eagerly); the next
+    frame of the same key and identity captures, unless a profiler traces
+    (None again). Keys that alternate thus stay eager and hold no graph.
+    The results are copies that no later replay touches.
+    """
+    smooth = auds is not None and cfg.smooth_lips
+    ins = {"rays_o": rays_o, "rays_d": rays_d, "auds": auds, "bg_coords": bg_coords,
+           "pose6": pose6, "bg_color": bg_color, "noises": noises}
+    if smooth:
+        ins.update(enc_a_smooth=state.enc_a_smooth, enc_a_initialized=state.enc_a_initialized)
+    ins = {k: v for k, v in ins.items() if v is not None}
+    key = (cfg, tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in ins.items()),
+           None if eye is None else (tuple(eye.shape), eye.dtype))
+    identity = _graph_identity(net, state)
+    frame = _FRAMES.get(net)
+    if frame is None or frame.key != key or frame.identity != identity:
+        _FRAMES[net] = _CapturedFrame(key, identity)
+        return None
+    device = rays_o.device
+    if frame.segments is None:
+        if not can_capture(device):
+            return None
+        frame.capture(net, cfg, state, ins, smooth, device)
+    for k, v in ins.items():
+        frame.static[k].copy_(v)
+    segs = frame.segments
+    segs["march"].replay()
+    m = segs["march"].outputs
+    ind_code = net.individual_codes[0] if net.individual_codes is not None else None
+    idx = compacted_index(m["valid"])
+    if cfg.torso:
+        with span("render.torso"):
+            segs["torso"].replay()
+            t = segs["torso"].outputs
+            frame.static["enc_t"].copy_(net.torso_encode(t["x"], t["deform"]))
+    with span("render.field"):
+        field_on_lattice(net, m, rays_d, m.get("enc_a"), ind_code, eye,
+                         out=(m["sigma"], m["color"], m["ambient"]), idx=idx)
+    segs["composite"].replay()
+    c = segs["composite"].outputs
+    results = {k: m[k].clone() for k in _MARCH_RESULTS}
+    results.update({k: c[k].clone() for k in _COMPOSITE_TELEMETRY})
+    if cfg.torso:
+        results.update({k: c[k].clone() for k in _TORSO_RESULTS})
+    results.update({k: c[k].clone() for k in _COMPOSITE_RESULTS})
+    if smooth:
+        state = dataclasses.replace(state, enc_a_smooth=m["enc_a_smooth"].clone(),
+                                    enc_a_initialized=m["enc_a_initialized"].clone())
     return results, state
 
 

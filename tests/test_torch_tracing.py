@@ -33,7 +33,6 @@ RC = dict(grid_size=32, max_steps=8, dt_gamma=0.0)
 FRAME = {
     "radnerf.batch": None,
     "radnerf.frame": None,
-    "radnerf.sync.aabb": "radnerf.frame",
     "radnerf.render.audio": "radnerf.frame",
     "radnerf.render.march": "radnerf.frame",
     "radnerf.render.field": "radnerf.frame",
@@ -57,7 +56,6 @@ STEP = {
     "radnerf.sync.mean_density": "radnerf.upkeep.grid",
     "radnerf.batch": "radnerf.step",
     "radnerf.forward": "radnerf.step",
-    "radnerf.sync.aabb": "radnerf.forward",
     "radnerf.render.audio": "radnerf.forward",
     "radnerf.render.march": "radnerf.forward",
     "radnerf.render.field": "radnerf.forward",
@@ -67,8 +65,7 @@ STEP = {
     "radnerf.optimizer": "radnerf.step",
 }
 # the blocking read-backs of one frame
-FRAME_SYNCS = {"radnerf.sync.aabb", "radnerf.sync.compact", "radnerf.sync.image",
-               "radnerf.sync.depth"}
+FRAME_SYNCS = {"radnerf.sync.compact", "radnerf.sync.image", "radnerf.sync.depth"}
 
 
 def _frame(data_dir, traced: bool):
