@@ -32,6 +32,15 @@ The frame:
      `cat` copies), and each kernel beside its bound, its twin and (where
      one exists) a single PyTorch call; kernel A per call.
 
+ER-NeRF's frame (``ernerf_phase``; ``build_scene(arch="ernerf")``, 512x512,
+float32), after phase 6: the points ``encode_x`` gives kernel A-tri on one
+eager frame, A-tri held to its plain twin on them bit for bit
+(``torch.equal``); ERNERF_FRAMES frames through ``render_rays`` with every
+launch count and the graphs' counts set to 0 just before: A-tri, A (the
+torso's encode), B and C once a frame (a replayed segment counted as
+``frames_ran`` counts it); A-tri's ms, device ms and plain ms on those
+points beside its bound (``triplane_work``).
+
 Training (``NetworkConfig(torso=False, exp_eye=True)``, ``Options``
 defaults: 65,536 rays, grid 128, max_steps 16, upkeep every 16 steps):
   7. train: the directory's dataset (``TalkingHeadDataset``), the trainer
@@ -318,6 +327,9 @@ TOL_BACKWARD_REL = 1e-5
 # n_busiest the most contributions any row of this run takes (the untrained
 # ambient MLP sends ~1M samples into the same few 2-D cells)
 
+# ER-NeRF's phase: the frames it renders with the counts zeroed (the first
+# eager, the second capturing, the rest replayed)
+ERNERF_FRAMES = 8
 # the frame's kernels, the training run's, the gather study's
 FRAME_KERNELS = ("grid_encode", "march_rays", "composite_rays")
 TRAIN_KERNELS = FRAME_KERNELS + ("grid_encode_backward", "composite_rays_backward")
@@ -339,6 +351,8 @@ REPLACES = {
     "grid_pack_bf16": "radnerf_tpu/ops/grid_encode.py:243",
     # with _bin_triangles (:172), vmapped per frame in Render3DMM.__call__
     "rasterize": "radnerf_tpu/preprocess/render_3dmm.py:218",
+    # ER-NeRF's three GridEncoder calls and their cat (no JAX form)
+    "triplane_encode": "ER-NeRF nerf_triplane/network.py encode_x",
 }
 BF16_KERNELS = ("grid_encode_bf16", "grid_encode_backward_bf16", "grid_pack_bf16")
 # the README's -O recipe: head steps, lips finetune steps, torso steps
@@ -603,6 +617,24 @@ def grid_work(x, spec, bound, elem=4, counts=None):
     n_bytes = x.numel() * 4 + x.shape[0] * L * C * elem + n_rows * C * elem
     smooth = 5 * D if spec.interpolation == "smoothstep" else 0
     n_flops = n_in * L * (4 * D + smooth + _weight_tree_flops(D) + (1 << D) * 2 * C)
+    return n_bytes, n_flops
+
+
+def triplane_work(x, spec, bound):
+    """Bytes and flops one A-tri call (ER-NeRF's tri-plane encode) needs for
+    points x [N, 3]: the points read once, and each plane's ``grid_work`` of
+    its projection but for the projection's own reads (the features it
+    writes, each distinct row its in-box points touch, its operations).
+    ``portbench/reference/work_triplane.py`` counts the same from the plain
+    reference's hash (tests/test_torch_triplane.py holds the two equal)."""
+    from radnerf_tpu_torch.ops.triplane_encode import PLANES
+
+    n_bytes, n_flops = x.numel() * 4, 0
+    for dims in PLANES:
+        x2 = x[:, list(dims)]
+        b, f = grid_work(x2, spec, bound)
+        n_bytes += b - x2.numel() * 4
+        n_flops += f
     return n_bytes, n_flops
 
 
@@ -1043,6 +1075,9 @@ def main():
           "kernel_device_ms": {k["name"]: k["device_ms"] for k in kernels},
           "grid_encode_calls": {n: {k: v for k, v in c.items() if "ms" in k}
                                 for n, c in g["calls"].items()}})
+
+    kernels.append(ernerf_phase(report))
+    torch.cuda.empty_cache()
 
     from radnerf_tpu_torch.config import Options
 
@@ -2937,6 +2972,75 @@ def frame_kernel_checks(render, want_calls):
 
 # ---------------------------------------------------------------------------
 # the bf16 policy (-O)
+
+def ernerf_phase(report):
+    """ernerf: ER-NeRF's bench frame (the module docstring). Returns the
+    kernels line's entry of A-tri."""
+    import radnerf_tpu_torch.models.network_triplane as tri
+    from radnerf_tpu_torch.models import graph_stats, render_rays, reset_graph_stats
+    from radnerf_tpu_torch.ops import _kernels, triplane_encode, triplane_encode_plain
+    from radnerf_tpu_torch.scene import build_scene
+
+    t0 = time.perf_counter()
+    net, rc, state, b, auds = build_scene(512, 512, device="cuda", arch="ernerf")
+
+    def frame(i):
+        with torch.no_grad():
+            return render_rays(net, rc, state, b["rays_o"], b["rays_d"],
+                               auds[i % auds.shape[0]], b["bg_coords"], b["poses"], b["eye"],
+                               b["index"], b["bg_color"], poses_matrix=b["poses_matrix"])[0]
+
+    with recorded_calls([(tri, "triplane_encode")]) as calls:
+        frame(0)
+    if len(calls) != 1:
+        raise RuntimeError(f"ernerf: an eager frame called A-tri {len(calls)} times")
+    x, tables, spec, bound = calls[0][1]
+    got = triplane_encode(x, tables, spec, bound)
+    plain = triplane_encode_plain(x, tables, spec, bound)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got, plain))
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    reset_graph_stats()
+    for i in range(ERNERF_FRAMES):
+        res = frame(i)
+    torch.cuda.synchronize()
+    launches, graphs = {k: v for k, v in _kernels.launches().items() if v}, graph_stats()
+    ran = {"triplane_encode": launches.get("triplane_encode", 0),
+           "grid_encode": launches.get("grid_encode", 0),
+           **{k: frames_ran(k, launches, graphs, 3) for k in ("march_rays", "composite_rays")}}
+
+    nb, nf = triplane_work(x, spec, bound)
+    bms, by = bound_ms(nb, nf)
+    entry = {"name": "triplane_encode", "route": "cuda",
+             "source": "radnerf_tpu_torch/csrc/grid_encode.cu",
+             "replaces": REPLACES["triplane_encode"], "launches": launches.get("triplane_encode"),
+             "max_abs_err": float((got - plain).abs().max()),
+             "ms": cuda_ms(lambda: triplane_encode(x, tables, spec, bound), 20),
+             "device_ms": device_ms(lambda: triplane_encode(x, tables, spec, bound), 20),
+             "plain_ms": cuda_ms(lambda: triplane_encode_plain(x, tables, spec, bound), 3),
+             "bound_ms": bms, "bound_by": by, "bytes": nb, "flops": nf, "library_ms": None}
+    report["ernerf"] = {
+        "points": int(x.shape[0]), "features": list(got.shape), "bit_for_bit": equal,
+        "frames": ERNERF_FRAMES, "launches": launches, "graphs": graphs, "frames_ran": ran,
+        "image_finite": bool(torch.isfinite(res["image"]).all()),
+        "weights_sum_max": float(res["weights_sum"].max()),
+        "torso_alpha_max": float(res["torso_alpha"].max()),
+        "seconds": time.perf_counter() - t0,
+        **{k: entry[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}}
+    emit({"phase": "ernerf", **report["ernerf"]})
+    if not equal:
+        raise RuntimeError(f"ernerf: A-tri differs from its plain twin by "
+                           f"{entry['max_abs_err']} on {x.shape[0]} points")
+    if ran != {k: ERNERF_FRAMES for k in ran} or set(launches) - set(ran):
+        raise RuntimeError(f"ernerf: {ERNERF_FRAMES} frames launched {launches}, "
+                           f"graphs {graphs}")
+    if not report["ernerf"]["image_finite"] or not report["ernerf"]["weights_sum_max"] > 0.05:
+        raise RuntimeError(f"ernerf: the frame is not finite or the head is invisible: "
+                           f"{report['ernerf']}")
+    return entry
+
 
 def frames_ran(name, launches, graphs, segments):
     """The frames that ran kernel ``name`` (B, B-grouped or C, which a

@@ -112,6 +112,11 @@ class Options:
     test_train: bool = False
     pose: str = ""  # inference only: the pose json
 
+    # the field: "radnerf" (RAD-NeRF's, the default) or "ernerf" (ER-NeRF's
+    # tri-plane field with region attention and adaptive pose encoding;
+    # rendering only, in float32: models/network_triplane.py)
+    arch: str = "radnerf"
+
     # grid shape and the render capacities
     grid_levels: int = 16
     grid_ch: int = 2

@@ -14,7 +14,8 @@ render measured. The test-mode smoothing (path, eye, lips) is on; ``-O``
 renders under the bf16 policy. ``--gui`` serves the interactive app over the
 poses as an MJPEG stream instead of writing a video, driven by streaming
 speech features with ``--asr`` (then no ``--aud``); ``main(...,
-logits_fn=f)`` gives it its acoustic model.
+logits_fn=f)`` gives it its acoustic model. ``--arch ernerf`` renders an
+ER-NeRF checkpoint of the port (``main``'s flag).
 """
 
 from __future__ import annotations

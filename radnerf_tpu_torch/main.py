@@ -28,7 +28,12 @@ as an MJPEG stream instead: over the test split with ``--test`` (driven by
 streaming speech features with ``--asr``: a wav file given by ``--asr_wav``,
 else the microphone), or training while it renders. ``main(...,
 logits_fn=f)`` gives ``--asr`` its acoustic model (the default is wav2vec2,
-``apps/asr.py``).
+``apps/asr.py``). ``--arch ernerf`` builds ER-NeRF's field (the tri-plane
+hash encoding, region attention, adaptive pose encoding;
+``models/network_triplane.py``) in the place of RAD-NeRF's: it renders an
+ER-NeRF checkpoint of the port (``--test``, and ``infer``) in float32; its
+training and ``-O`` are refused, and a checkpoint of the other field is
+refused on load.
 """
 
 from __future__ import annotations
@@ -122,6 +127,9 @@ def build_parser(require_path: bool = True,
     p.add_argument("-l", type=int, default=10)
     p.add_argument("-m", type=int, default=50)
     p.add_argument("-r", type=int, default=10)
+    p.add_argument("--arch", type=str, default="radnerf", choices=("radnerf", "ernerf"),
+                   help="the field: RAD-NeRF's (default) or ER-NeRF's tri-plane field "
+                        "(rendering only, float32)")
     p.add_argument("--grid_levels", type=int, default=16,
                    help="multiresolution grid levels (reference: 16)")
     p.add_argument("--grid_ch", type=int, default=2,
@@ -227,6 +235,10 @@ def main(argv=None, device="cuda", logits_fn=None):
 
     args = build_parser().parse_args(argv)
     opt = options_from_args(args)
+    if opt.arch == "ernerf" and not opt.test:
+        from .models.network_triplane import TRAINING_REFUSED
+
+        raise NotImplementedError(TRAINING_REFUSED)
     float32_matmuls()
 
     if opt.test:

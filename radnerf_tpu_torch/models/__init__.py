@@ -1,8 +1,11 @@
-"""Model layer of the port: the audio-conditioned field, the renderer and
-the maintenance of the head and torso grids."""
+"""Model layer of the port: the audio-conditioned fields (RAD-NeRF's
+``NeRFNetwork``, ER-NeRF's ``TriplaneNetwork``, built by ``build_network``),
+the renderer and the maintenance of the head and torso grids."""
 
+from .factory import build_network, param_groups
 from .frame_graph import graph_stats, reset_graph_stats
-from .network import NeRFNetwork, NetworkConfig, param_groups
+from .network import NeRFNetwork, NetworkConfig
+from .network_triplane import TriplaneNetwork
 from .renderer import (
     GRID_SIZE,
     RenderConfig,
@@ -23,6 +26,8 @@ from .renderer import (
 
 __all__ = [
     "NeRFNetwork",
+    "TriplaneNetwork",
+    "build_network",
     "NetworkConfig",
     "param_groups",
     "GRID_SIZE",

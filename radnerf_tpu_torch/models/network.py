@@ -43,9 +43,17 @@ from .audio import AudioAttNet, AudioNet
 from .modules import MLP
 
 
+# the fields the port builds (``models.build_network``): RAD-NeRF's
+# ``NeRFNetwork`` and ER-NeRF's ``TriplaneNetwork``
+ARCHS = ("radnerf", "ernerf")
+# ER-NeRF's audio code width (its network.py fixes it; RAD-NeRF's is 64)
+ERNERF_AUDIO_DIM = 32
+
+
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
-    """Static architecture description (the JAX ``NetworkConfig``)."""
+    """Static architecture description (the JAX ``NetworkConfig``, and
+    ``arch``, which field the port builds)."""
 
     audio_in_dim: int = 44
     audio_dim: int = 64
@@ -74,10 +82,13 @@ class NetworkConfig:
     amb_grid_levels: Optional[int] = None
     amb_grid_ch: Optional[int] = None
     amb_grid_base: Optional[int] = None
+    arch: str = "radnerf"
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}: float32 or bfloat16")
+        if self.arch not in ARCHS:
+            raise ValueError(f"arch={self.arch!r}: one of {ARCHS}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -141,7 +152,8 @@ class NetworkConfig:
             compute_dtype="bfloat16" if opt.fp16 else "float32",
             grid_levels=opt.grid_levels, grid_ch=opt.grid_ch, grid_base=opt.grid_base,
             amb_grid_levels=opt.amb_grid_levels, amb_grid_ch=opt.amb_grid_ch,
-            amb_grid_base=opt.amb_grid_base)
+            amb_grid_base=opt.amb_grid_base, arch=opt.arch,
+            **({"audio_dim": ERNERF_AUDIO_DIM} if opt.arch == "ernerf" else {}))
 
 
 def param_groups(cfg: NetworkConfig) -> dict:
@@ -193,6 +205,10 @@ class NeRFNetwork(nn.Module):
         generator if None).
     """
 
+    # the pose the torso takes: the batch's 6 numbers (ER-NeRF's field takes
+    # the 4x4 matrix, ``network_triplane.py``)
+    torso_pose = "pose6"
+
     def __init__(self, cfg: NetworkConfig, device="cuda", generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -229,6 +245,11 @@ class NeRFNetwork(nn.Module):
         # name -> ((storage, version), bf16 copy, its packed copy or None)
         self._table_copies = {}
         self.to(device)
+
+    @property
+    def ambient_out_dim(self) -> int:
+        """The width of the per-sample ambient ``field_forward`` returns."""
+        return self.cfg.ambient_dim
 
     def _copies(self, name: str) -> list:
         p = getattr(self, name)

@@ -388,7 +388,7 @@ def field_on_lattice(net: NeRFNetwork, march: dict, rays_d, enc_a, ind_code, eye
 
 def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
                 rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
-                noises=None, training: bool = False):
+                noises=None, training: bool = False, poses_matrix=None):
     """Render a batch of rays: head field over the torso layer over the
     background (reference run_cuda, renderer.py:158-316).
 
@@ -398,7 +398,9 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
       index (the row of the individual codes, head and torso, when
       training; row 0 otherwise);
       bg_color: [N, 3]; noises: [N] in [0, 1) or None, the march
-      perturbation.
+      perturbation; poses_matrix: the frame's 4x4 pose [1, 4, 4], which
+      a network whose ``torso_pose`` names it (ER-NeRF's field) takes in
+      the torso layer in the place of pose6.
       training: run with autograd (a train step of either stage) and
         return ``ambient``, the per-ray ambient sum the head loss reads;
         with ``train_camera`` the rays first move by frame ``index``'s
@@ -428,15 +430,15 @@ def render_rays(net: NeRFNetwork, cfg: RenderConfig, state: RendererState,
         with torch.no_grad():
             if frame_graph.engages(rays_o):
                 out = _render_graphed(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6,
-                                      eye, bg_color, noises)
+                                      eye, bg_color, noises, poses_matrix)
                 if out is not None:
                     return out
             count_eager()
             return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye,
-                           0, bg_color, noises, False)
+                           0, bg_color, noises, False, poses_matrix)
     count_eager()
     return _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
-                   bg_color, noises, True)
+                   bg_color, noises, True, poses_matrix)
 
 
 def camera_offsets(net: NeRFNetwork, index, rays_o, rays_d):
@@ -538,16 +540,27 @@ def _composite(cfg, march, sig, col, amb, training):
     return out
 
 
-def _torso_deform(net, cfg, state, bg_coords, pose6, index):
+def _torso_pose(net, pose6, poses_matrix):
+    """The pose the network's torso takes (``net.torso_pose``): RAD-NeRF's
+    6 numbers, or the frame's 4x4 matrix."""
+    if net.torso_pose == "pose6":
+        return pose6
+    if poses_matrix is None:
+        raise ValueError(f"{type(net).__name__}'s torso takes the frame's 4x4 pose: pass "
+                         "render_rays the batch's poses_matrix")
+    return poses_matrix
+
+
+def _torso_deform(net, cfg, state, bg_coords, pose, index):
     """The torso layer's stretch before its grid encode: the torso grid's
-    mask at every pixel and ``NeRFNetwork.torso_deform``'s coords,
-    features and offsets."""
+    mask at every pixel and the network's ``torso_deform`` coords,
+    features and offsets (``pose``: what ``_torso_pose`` gives)."""
     code_t = (net.individual_codes_torso[index]
               if net.individual_codes_torso is not None else None)
     thresh_t = torch.clamp(state.mean_density_torso, max=cfg.density_thresh_torso)
     occupancy = bilinear_sample_2d(state.density_grid_torso, bg_coords, cfg.grid_size)
     mask = occupancy > thresh_t
-    x, h, dx = net.torso_deform(bg_coords, pose6, code_t)
+    x, h, dx = net.torso_deform(bg_coords, pose, code_t)
     return {"mask": mask, "n_torso_mask": mask.sum(dtype=torch.int32), "x": x, "h": h,
             "deform": dx}
 
@@ -565,9 +578,9 @@ def _torso_layer(net, pre, enc_t, bg_color):
             "torso_color": t_color * t_alpha + bg_color * (1.0 - t_alpha)}
 
 
-def _torso(net, cfg, state, bg_coords, pose6, bg_color, index):
+def _torso(net, cfg, state, bg_coords, pose, bg_color, index):
     """The torso layer over the background, masked by the torso grid."""
-    pre = _torso_deform(net, cfg, state, bg_coords, pose6, index)
+    pre = _torso_deform(net, cfg, state, bg_coords, pose, index)
     return _torso_layer(net, pre, net.torso_encode(pre["x"], pre["deform"]), bg_color)
 
 
@@ -583,7 +596,7 @@ def _blend(comp, bg_color, march):
 
 
 def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index, bg_color,
-            noises, training):
+            noises, training, poses_matrix=None):
     # with learnt camera offsets the gradient reaches the rays only through
     # the samples' positions and the SH directions: as in JAX (near/far
     # under stop_gradient, the window and the march through floor and
@@ -611,7 +624,8 @@ def _render(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, index,
         results["ambient"] = comp["ambient"]
     if cfg.torso:
         with span("render.torso"):
-            torso = _torso(net, cfg, state, bg_coords, pose6, bg_color, index)
+            torso = _torso(net, cfg, state, bg_coords, _torso_pose(net, pose6, poses_matrix),
+                           bg_color, index)
         results.update(torso)
         bg_color = torso["torso_color"]
     results.update(_blend(comp, bg_color, march))
@@ -652,7 +666,7 @@ class _CapturedFrame:
         (``_FRAMES``), and a strong reference would keep it alive."""
         static = self.static = {k: v.clone(memory_format=torch.contiguous_format)
                                 for k, v in ins.items()}
-        amb_dim = net.cfg.ambient_dim
+        amb_dim, pose_key = net.ambient_out_dim, net.torso_pose
         net_ref = weakref.ref(net)
         if cfg.torso:
             static["enc_t"] = torch.zeros(
@@ -678,7 +692,8 @@ class _CapturedFrame:
             return out
 
         def torso_fn():
-            return _torso_deform(net_ref(), cfg, state, static["bg_coords"], static["pose6"], 0)
+            return _torso_deform(net_ref(), cfg, state, static["bg_coords"], static[pose_key],
+                                 0)
 
         def composite_fn(m, t):
             N, S = m["valid"].shape
@@ -712,7 +727,7 @@ _FRAMES: "weakref.WeakKeyDictionary[NeRFNetwork, _CapturedFrame]" = weakref.Weak
 
 
 def _render_graphed(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye, bg_color,
-                    noises):
+                    noises, poses_matrix=None):
     """``render_rays(training=False)``'s frame with its fixed-shape stretches
     replayed from captured segments (``frame_graph.Segment``): the march
     segment; the compaction, which reads the sample count back; the torso
@@ -738,6 +753,8 @@ def _render_graphed(net, cfg, state, rays_o, rays_d, auds, bg_coords, pose6, eye
     smooth = auds is not None and cfg.smooth_lips
     ins = {"rays_o": rays_o, "rays_d": rays_d, "auds": auds, "bg_coords": bg_coords,
            "pose6": pose6, "bg_color": bg_color, "noises": noises}
+    if cfg.torso and net.torso_pose != "pose6":
+        ins[net.torso_pose] = _torso_pose(net, pose6, poses_matrix)
     if smooth:
         ins.update(enc_a_smooth=state.enc_a_smooth, enc_a_initialized=state.enc_a_initialized)
     ins = {k: v for k, v in ins.items() if v is not None}

@@ -2,7 +2,9 @@
 rasterizer, Morton codes.
 
 ``grid_encode``, ``march_rays``, ``composite_rays``, ``take_rows`` and
-``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E; the gradients of the first and
+``rasterize`` wrap the hand-written CUDA kernels A, B, C, D and E, and
+``triplane_encode`` (ER-NeRF's three plane encodes in one launch) kernel
+A-tri; the gradients of the first and
 third are kernels A' and C' (``grid_encode_backward``,
 ``composite_rays_backward``); ``pack_table`` wraps A-bf16's packing pass;
 ``march_rays`` with a bitfield runs B-bitfield, and ``march_rays_grouped``
@@ -47,6 +49,7 @@ from .rasterize import rasterize, rasterize_plain
 from .rowgather import bench_gather_study, take_rows, take_rows_plain
 from .sampling import sample_pdf, sph_from_ray
 from .sh_encode import sh_encode, sh_output_dim
+from .triplane_encode import triplane_encode, triplane_encode_plain
 
 __all__ = [
     "trunc_exp",
@@ -90,4 +93,6 @@ __all__ = [
     "sph_from_ray",
     "sh_encode",
     "sh_output_dim",
+    "triplane_encode",
+    "triplane_encode_plain",
 ]

@@ -14,9 +14,10 @@ sample in the same cell (an FMA moves ``floor(x*scale+0.5)`` and
 
 A source may hold several kernels, each with its own ``Kernel`` (its own
 C entry points and launch count) over one library: kernel A, its bf16
-variant and that variant's packing pass are all in ``grid_encode.cu``, A'
-and A'-bf16 in ``grid_encode_backward.cu``, B, B-bitfield and B-grouped in
-``march_rays.cu`` (B and B-bitfield through one entry point).
+variant, that variant's packing pass and the tri-plane encode A-tri are all
+in ``grid_encode.cu``, A' and A'-bf16 in ``grid_encode_backward.cu``, B,
+B-bitfield and B-grouped in ``march_rays.cu`` (B and B-bitfield through one
+entry point).
 
 Libraries go into ``build/kernels/`` at the repository root (git-ignored),
 named by a hash of the source, every header in ``csrc/`` (``*.cuh``) and
@@ -164,6 +165,13 @@ KERNELS = {
     "grid_pack_bf16": Kernel("grid_pack_bf16", {
         # emb, level_params, packed, D, L, C, stream
         "grid_pack_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    }, source="grid_encode"),
+    # ER-NeRF's tri-plane encode (A-tri): three 2-D planes of one point in
+    # one launch
+    "triplane_encode": Kernel("triplane_encode", {
+        # x, emb_xy, emb_yz, emb_xz, scales, level_params, out, N, L, bound,
+        # two_bound, stream
+        "triplane_encode_fwd": [_P] * 7 + [_L, _I, _F, _F, _P],
     }, source="grid_encode"),
     "grid_encode_backward_bf16": Kernel("grid_encode_backward_bf16", {
         # x, emb, grad_out, scales, level_params, keys, grad_table, grad_x, N,

@@ -9,16 +9,17 @@ window stream, and bench.py's render settings: grid 128, max_steps 16,
 dt_gamma 1/256 (an affine orbit, since dt_min == dt_max), cull_T 1e-4.
 
 The model is ``NetworkConfig(torso=True, exp_eye=True)`` at its shipped
-widths, in float32. Its weights are drawn from a numpy seed
-(``random_weights``): He-uniform U(+-sqrt(6/fan_in)) for every weight
-matrix, PyTorch's default uniform for the biases, individual codes
-N(0, 0.1), and the three grid tables U(-4, 4) instead of the
-trained-from-scratch U(-1e-4, 1e-4). With small tables, or PyTorch's
-default U(+-1/sqrt(fan_in)) weights that shrink the signal through each
-ReLU layer, the density stays near exp(0) = 1 and the head composites to
-weights_sum < 0.1; this draw spreads log-density over about +-3 (1st-99th
-percentile) and gives a head with opaque patches (weights_sum up to ~0.99
-at 64x64 on the CPU).
+widths, in float32 (with ``arch="ernerf"``: ER-NeRF's field at its widths,
+audio_dim 32 over 29-channel DeepSpeech features). Its weights are drawn
+from a numpy seed (``random_weights``): He-uniform U(+-sqrt(6/fan_in)) for
+every weight matrix, PyTorch's default uniform for the biases, individual
+codes N(0, 0.1), and the grid tables U(-4, 4) instead of the
+trained-from-scratch U(-1e-4, 1e-4); ER-NeRF's anchors keep their initial
+value. With small tables, or PyTorch's default U(+-1/sqrt(fan_in))
+weights that shrink the signal through each ReLU layer, the density stays
+near exp(0) = 1 and the head composites to weights_sum < 0.1; this draw
+spreads log-density over about +-3 (1st-99th percentile) and gives a head
+with opaque patches (weights_sum up to ~0.99 at 64x64 on the CPU).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ import torch
 
 from .data.rays import get_bg_coords, get_rays
 from .device import resolve_device
-from .models.network import NeRFNetwork, NetworkConfig
+from .models.factory import build_network
+from .models.network import ERNERF_AUDIO_DIM, NeRFNetwork, NetworkConfig
 from .models.renderer import RenderConfig, make_state
 from .ops.morton import morton3d_invert
 
-GRID_TABLES = ("encoder", "encoder_ambient", "torso_encoder")
+GRID_TABLES = ("encoder", "encoder_ambient", "torso_encoder", "encoder_xy", "encoder_yz",
+               "encoder_xz")
 
 
 @torch.no_grad()
@@ -43,6 +46,8 @@ def random_weights(net: NeRFNetwork, seed: int = 0):
     (see the module note for the distributions)."""
     rng = np.random.default_rng(seed)
     for name, p in net.named_parameters():
+        if name == "anchor_points":
+            continue
         if name in GRID_TABLES:
             v = rng.uniform(-4.0, 4.0, p.shape)
         elif name.startswith("individual_codes"):
@@ -57,15 +62,20 @@ def random_weights(net: NeRFNetwork, seed: int = 0):
         p.copy_(torch.from_numpy(v.astype(np.float32)))
 
 
-def build_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0):
+def build_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0,
+                arch: str = "radnerf"):
     """Returns (net, render_cfg, state, batch, aud_stream): the batch holds
-    rays_o, rays_d, bg_coords [N, 2], poses [1, 6], eye [1, 1], index and
-    bg_color [N, 3]; aud_stream is [64, 8, 44, 16] (one window per frame)."""
+    rays_o, rays_d, bg_coords [N, 2], poses [1, 6], poses_matrix [1, 4, 4],
+    eye [1, 1], index and bg_color [N, 3]; aud_stream is [64, 8, C, 16] (one
+    window per frame; C 44, or 29 for ER-NeRF)."""
     dev = resolve_device(device)
     net_cfg = NetworkConfig(torso=True, exp_eye=True)
+    if arch == "ernerf":
+        net_cfg = NetworkConfig(torso=True, exp_eye=True, arch=arch, audio_in_dim=29,
+                                audio_dim=ERNERF_AUDIO_DIM)
     rc = RenderConfig(torso=True, max_steps=16, dt_gamma=1.0 / 256,
                       cull_T=1e-4)
-    net = NeRFNetwork(net_cfg, device=dev)
+    net = build_network(net_cfg, device=dev)
     random_weights(net, seed)
 
     G = rc.grid_size
@@ -89,7 +99,8 @@ def build_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0
     state = make_state(
         rc, torch.from_numpy(occ[None]).to(dev),
         torch.from_numpy(torso_mask.astype(np.float32).reshape(-1) * 0.5).to(dev),
-        mean_density=float(occ.mean()), mean_density_torso=0.05, thresh=5.0)
+        mean_density=float(occ.mean()), mean_density_torso=0.05, thresh=5.0,
+        audio_dim=net_cfg.audio_dim)
 
     pose = np.eye(4, dtype=np.float32)
     pose[:3, 3] = [0.0, 0.0, -3.3]
@@ -101,11 +112,13 @@ def build_scene(H_img: int = 512, W_img: int = 512, device="cuda", seed: int = 0
         "rays_d": torch.from_numpy(rays["rays_d"]).to(dev),
         "bg_coords": torch.from_numpy(get_bg_coords(H_img, W_img)).to(dev),
         "poses": torch.zeros((1, 6), device=dev),
+        "poses_matrix": torch.from_numpy(pose)[None].to(dev),
         "eye": torch.full((1, 1), 0.25, device=dev),
         "index": torch.zeros((), dtype=torch.int64, device=dev),
         "bg_color": torch.full((n, 3), 0.5, device=dev),
     }
-    aud = np.random.default_rng(0).normal(size=(64, 8, 44, 16)).astype(np.float32)
+    aud = np.random.default_rng(0).normal(
+        size=(64, 8, net_cfg.audio_in_dim, 16)).astype(np.float32)
     return net, rc, state, batch, torch.from_numpy(aud).to(dev)
 
 

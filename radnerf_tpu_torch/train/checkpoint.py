@@ -151,6 +151,16 @@ def restore_opt_state(opt_flat: dict) -> dict:
     return flat
 
 
+def check_arch(path: str, meta: dict, arch: str):
+    """Raise ValueError unless the checkpoint's field is ``arch``: its
+    ``arch`` record (the port's checkpoints since the architecture switch;
+    older ones, JAX's and the reference's ``.pth`` hold RAD-NeRF's field)."""
+    saved = meta.get("arch", "radnerf")
+    if saved != arch:
+        raise ValueError(f"checkpoint {path} holds a {saved!r} field, but this trainer builds "
+                         f"{arch!r} (--arch {arch}); load it with --arch {saved}")
+
+
 def latest_checkpoint(ckpt_dir: str, name: str = "ngp") -> Optional[str]:
     """The newest epoch checkpoint by file name (utils.py:1364-1369)."""
     lst = sorted(glob.glob(os.path.join(ckpt_dir, f"{name}_ep*.npz")))

@@ -100,9 +100,11 @@ from ..config import Options
 from ..convert import jax_from_state_dict, load_jax_params, network_to_jax, _state_dict_from_jax
 from ..data.rays import convert_poses, get_audio_features, get_bg_coords, rays_from_pixels
 from ..device import resolve_device
+from ..models.network_triplane import TRAINING_REFUSED
 from ..models import (
     NeRFNetwork,
     NetworkConfig,
+    build_network,
     RenderConfig,
     RendererState,
     compute_occ_bbox,
@@ -256,8 +258,8 @@ class Trainer:
         if unknown:
             raise ValueError(f"cap_overrides names unknown capacity fields {sorted(unknown)}; "
                              f"valid: {sorted(CAPACITY_FIELDS)}")
-        self.net = NeRFNetwork(self.net_cfg, device=self.device,
-                               generator=torch.Generator().manual_seed(opt.seed))
+        self.net = build_network(self.net_cfg, device=self.device,
+                                 generator=torch.Generator().manual_seed(opt.seed))
         self.state = RendererState.create(self.render_cfg, self.net_cfg.audio_dim,
                                           self.device)
         self.log(f"[INFO] Trainer: {name} | {self.time_stamp} | {self.device} | "
@@ -410,7 +412,9 @@ class Trainer:
         batch carries an LPIPS term (whose images span the ranks' rays: it
         runs whole on every rank), and averages the gradients and the loss
         over the ranks before Adam steps; the telemetry of a sharded batch
-        is reduced over the ranks."""
+        is reduced over the ranks. ER-NeRF's field (``--arch ernerf``) is
+        refused: its losses are not written yet."""
+        self._refuse_training()
         self._last_n_rays = batch["rays_o"].shape[0]
         noises = self.draw_noises(self._last_n_rays)
         sharded = (self.world is not None and self.loss_mode(batch) == "none"
@@ -447,6 +451,10 @@ class Trainer:
                     for k, p in self.net.named_parameters():
                         self.ema_params[k].mul_(d).add_(p.detach(), alpha=1.0 - d)
         return loss.detach()
+
+    def _refuse_training(self):
+        if self.net_cfg.arch == "ernerf":
+            raise NotImplementedError(TRAINING_REFUSED)
 
     # ----------------------------------------------- adaptive capacities
     def _adapt_capacities(self, telemetry: dict, n_rays: int):
@@ -582,6 +590,7 @@ class Trainer:
         same epoch, as ``train_one_epoch`` passes it) and
         ``opt.auto_capacity``, a due upkeep first adapts the render
         capacities to it."""
+        self._refuse_training()
         with span("step"):
             if self.global_step % self.opt.update_extra_interval == 0:
                 with span("upkeep"):
@@ -674,7 +683,8 @@ class Trainer:
                     results, state = render_rays(
                         self.net, self.render_cfg, self.state, batch["rays_o"],
                         batch["rays_d"], batch.get("auds"), batch["bg_coords"], batch["poses"],
-                        batch.get("eye"), batch["index"], batch["bg_color"], noises=noises)
+                        batch.get("eye"), batch["index"], batch["bg_color"], noises=noises,
+                        poses_matrix=batch.get("poses_matrix"))
             with sync("image"):
                 pred = results["image"].reshape(H, W, 3).cpu().numpy()
             with sync("depth"):
@@ -837,7 +847,8 @@ class Trainer:
         batch = self.to_device({
             "rays_o": rays_o, "rays_d": rays_d, "H": rH, "W": rW,
             "bg_coords": self._bg_coords[(rH, rW)],
-            "poses": convert_poses(np.asarray(pose, np.float32)[None]), "auds": auds,
+            "poses": convert_poses(np.asarray(pose, np.float32)[None]),
+            "poses_matrix": np.asarray(pose, np.float32)[None], "auds": auds,
             "eye": np.asarray([[eye]], np.float32) if self.opt.exp_eye else None,
             "index": index, "bg_color": bg})
         pred, depth = self.test_step(batch, perturb=False if spp == 1 else spp)
@@ -970,6 +981,7 @@ class Trainer:
             # work (PARITY.md), and another K or S changes the quadrature
             "render_cfg": {k: getattr(rc, k) for k in CAPACITY_FIELDS},
             "grid_shape": self._grid_shape_id(),
+            "arch": self.net_cfg.arch,
         }
         if best:
             params = (jax_from_state_dict({k: v.cpu().numpy() for k, v in self.ema_params.items()})
@@ -1028,6 +1040,7 @@ class Trainer:
         takes the checkpoint's moments and schedule on a full load (the
         port's own, or a JAX checkpoint's optax state)."""
         if path.endswith(".pth"):
+            ckpt_lib.check_arch(path, {}, self.net_cfg.arch)
             params, arrays, meta = ckpt_lib.import_torch_checkpoint(path)
             self._load_params(params)
             self._apply_state_arrays(arrays, meta)
@@ -1035,6 +1048,7 @@ class Trainer:
             self.log(f"[INFO] imported torch checkpoint ({len(params)} groups).")
             return
         params, state, ema, opt_flat, meta = ckpt_lib.load_checkpoint(path)
+        ckpt_lib.check_arch(path, meta, self.net_cfg.arch)
         self._check_grid_shape(path, meta, params)
         cap = {k: v for k, v in (meta.get("render_cfg") or {}).items() if k in CAPACITY_FIELDS}
         # a model-only load (freeze_loaded_head) keeps the capacities a
